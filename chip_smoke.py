@@ -3,7 +3,7 @@
 NVIDIA GPU: the quickest proof that the port builds and runs its main
 path on the card.
 
-    python3 chip_smoke.py [--sf 1.0] [--seed 0]
+    python3 chip_smoke.py [--seed 0]
 
 Phases (any failed check raises and the script exits non-zero):
   1. build the hand kernels from the sources in this checkout (K1, K2:
@@ -20,7 +20,11 @@ Phases (any failed check raises and the script exits non-zero):
      Q1 on the exact route (MVCC modes none and visible) and the hand
      route, plus q6_scan and grouped_sum; every answer is held against
      numpy_reference, and every kernel's launch count must rise;
-  4. print the kernels line, then the device line last.
+  4. profile each route of ScanKernel.run (exact and hand, Q6 and Q1):
+     wall time per query on the host clock (profiler off), device-busy
+     time per query from torch.profiler, the device's idle share and the
+     kernels that take most device time — one JSON line per route;
+  5. print the kernels line, then the device line last.
 
 It imports nothing of JAX: the port stands alone.
 """
@@ -33,6 +37,8 @@ import subprocess
 import sys
 import time
 
+SF = 1.0                         # TPC-H scale: 6,000,000 lineitem rows
+PROFILE_ITERS = 10               # queries per timed and profiled window
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 
@@ -123,7 +129,6 @@ def expr_nodes(node) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -157,14 +162,19 @@ def main(argv=None) -> int:
 
     # --- main-path data (made before phase 2: its inputs are the path's)
     t0 = time.perf_counter()
-    data = tpch.generate_lineitem(args.sf, seed=args.seed)
+    data = tpch.generate_lineitem(SF, seed=args.seed)
     n = len(data["rowid"])
+    t1 = time.perf_counter()
     blocks = TableCodec(tpch.lineitem_info()).bulk_blocks(
         data, HybridTime(1 << 40), block_rows=262144)
+    t2 = time.perf_counter()
     batch = build_batch(blocks, tpch.TPCH_Q1.columns, device="cuda")
     torch.cuda.synchronize()
-    print(f"[load] {n} rows, {len(blocks)} blocks, bucket "
-          f"{batch.padded_rows}: {time.perf_counter() - t0:.3f} s")
+    t3 = time.perf_counter()
+    print(json.dumps({"load": {
+        "rows": n, "blocks": len(blocks), "bucket": batch.padded_rows,
+        "generate_s": t1 - t0, "bulk_blocks_s": t2 - t1,
+        "build_batch_s": t3 - t2}}))
 
     padded = ((n + hs.BLOCK_ROWS - 1) // hs.BLOCK_ROWS) * hs.BLOCK_ROWS
     grid = padded // hs.BLOCK_ROWS
@@ -349,7 +359,56 @@ def main(argv=None) -> int:
     for r, v in rates.items():
         print(f"[rate] {r}: {v:.1f} rows/s ({card})")
 
-    # --- phase 4: report -------------------------------------------------
+    # --- phase 4: where the time goes, per route --------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for route in ("exact", "hand"):
+        with flags.overridden("hand_scan_enabled", route == "hand"):
+            for q in (Q6, Q1):
+                def run():
+                    return kern.run(batch, q.where, q.aggs, q.group)
+                run()                           # warm (built above)
+                torch.cuda.synchronize()
+                t = time.perf_counter()         # wall: profiler off
+                for _ in range(PROFILE_ITERS):
+                    run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) / PROFILE_ITERS
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(PROFILE_ITERS):
+                        run()
+                    torch.cuda.synchronize()
+                rows, busy_us = [], 0.0
+                for e in prof.key_averages():
+                    # device-side activities only (kernels, copies): an
+                    # aten op's row repeats its kernels' time
+                    if e.device_type != DeviceType.CUDA:
+                        continue
+                    us = getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+                    if us > 0:
+                        busy_us += us
+                        rows.append((us / PROFILE_ITERS, e.key,
+                                     e.count // PROFILE_ITERS))
+                rows.sort(reverse=True)
+                busy = busy_us / PROFILE_ITERS / 1e6
+                print(json.dumps({"profile": f"{route}_{q.name}",
+                                  "card": card,
+                                  "wall_ms": wall * 1e3,
+                                  "device_busy_ms": busy * 1e3 if busy
+                                  else None,
+                                  "idle_share": 1.0 - busy / wall if busy
+                                  else None,
+                                  "rows_per_s": n / wall,
+                                  "top_kernels": [
+                                      {"name": k[:80], "us_per_query": us,
+                                       "launches_per_query": c}
+                                      for us, k, c in rows[:6]]}))
+    check(not kern.hand_scan_refusals,
+          f"hand route refused: {kern.hand_scan_refusals}")
+
+    # --- phase 5: report -------------------------------------------------
     for k in kernels:
         k["launches"] = launches.get(k["name"], per_query.get(k["name"], 0))
         check(k["launches"] > 0, f"{k['name']} launched 0 times")

@@ -388,6 +388,32 @@ class TestHandRoutedPath:
             outs.append(str(ei.value))
         assert outs == [reason, reason]
 
+    def test_int32_range_guard_reads_once_per_batch(self, monkeypatch):
+        # the guard's min/max is a device reduction plus a host sync:
+        # the batch's int32_ranges memo must stop the second one
+        from yugabyte_db_tpu_torch.ops.scan import AggSpec, ScanKernel
+        _, batch = self._batches()
+        col = batch.cols[3]
+        calls = []
+        for name in ("min", "max"):
+            real = getattr(torch.Tensor, name)
+
+            def counted(t, *a, _real=real, _name=name, **kw):
+                if t is col:
+                    calls.append(_name)
+                return _real(t, *a, **kw)
+            monkeypatch.setattr(torch.Tensor, name, counted)
+        k = ScanKernel(device="cpu")
+        with flags_set({}, {"hand_scan_enabled": True}):
+            for _ in range(2):
+                _, _, mask = k.run(batch, ("cmp", "ge", ("col", 3),
+                                           ("const", 9000)),
+                                   (AggSpec("count"),))
+                assert mask is None          # served by the hand route
+        assert sorted(calls) == ["max", "min"]
+        c = col.numpy()
+        assert batch.int32_ranges == {3: (int(c.min()), int(c.max()))}
+
     def test_refusals_are_typed_and_tallied(self):
         from yugabyte_db_tpu_torch.ops.expr import Expr
         from yugabyte_db_tpu_torch.ops.scan import AggSpec, ScanKernel

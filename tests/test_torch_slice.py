@@ -176,8 +176,7 @@ def test_numpy_reference_matches_reference_package(table):
 
 # --- independence from JAX ---------------------------------------------------
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                         REPO / "profile_torch_scan.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
 def _imports(path):

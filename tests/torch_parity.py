@@ -167,6 +167,16 @@ K3_CASES = {
     "in_or_not": (("or", ("in", ("col", 4), [0, 2]),
                    ("not", ("cmp", "lt", ("col", 0), ("const", 10.0)))),
                   [("sum", ("col", 0)), ("min", ("col", 2))], None),
+    # every other operator of the Triton backend: mod (negative operands
+    # and quotients near 3e5, where a - b*trunc(a/b) in f32 drifts from
+    # fmod), div and IS NULL
+    "mod_div_isnull": (("or", ("cmp", "lt", ("arith", "mod", (
+        "arith", "sub", ("const", 50000.0), ("col", 1)), ("const", 7.0)),
+        ("const", 1.5)), ("isnull", ("col", 2))),
+        [("sum", ("arith", "mod", ("col", 1), ("const", 0.37))),
+         ("min", ("arith", "mod", ("col", 1), ("const", 0.37))),
+         ("max", ("arith", "div", ("col", 0), ("col", 1))),
+         ("count", ("arith", "div", ("col", 2), ("col", 0)))], None),
 }
 
 

@@ -339,9 +339,9 @@ class TritonOps:
 
     def arith(self, op, a, b):
         if op == "mod":
-            # truncate toward zero like the reference's jnp.fmod (up to
-            # the rounding of the f32 quotient)
-            return self._tmp(f"{a} - {b} * _trunc({a} / {b})")
+            # C fmod (libdevice), exact like the reference's jnp.fmod;
+            # Triton's own float % floors
+            return self._tmp(f"libdevice.fmod({a}, {b})")
         return self._tmp(f"{a} {self._ARITH[op]} {b}")
 
     def logical_and(self, a, b):
@@ -360,11 +360,10 @@ class TritonOps:
 _TRITON_PRELUDE = '''\
 import triton
 import triton.language as tl
-
-
-@triton.jit
-def _trunc(x):
-    return tl.where(x < 0, -tl.floor(-x), tl.floor(x))
+try:
+    from triton.language.extra import libdevice
+except ImportError:                  # Triton 3.0 keeps it under extra.cuda
+    from triton.language.extra.cuda import libdevice
 
 '''
 

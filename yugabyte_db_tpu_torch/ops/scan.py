@@ -425,8 +425,11 @@ class ScanKernel:
                 raise HandScanIneligible("column_dtype")
             if col.dtype == torch.int32:
                 rng = batch.col_bounds.get(cid) or \
-                    batch.int32_ranges.setdefault(
-                        cid, (int(col.min()), int(col.max())))
+                    batch.int32_ranges.get(cid)
+                if rng is None:
+                    # a device reduction and a host sync: once per batch
+                    rng = batch.int32_ranges[cid] = (int(col.min()),
+                                                     int(col.max()))
                 if max(abs(rng[0]), abs(rng[1])) >= 2 ** 24:
                     raise HandScanIneligible("int32_range")
         for c in consts:
