@@ -12,8 +12,12 @@ Phases (any failed check raises and the script exits non-zero):
   2. hold every kernel against its plain PyTorch version on the card, on
      the main path's own inputs: K1/K2 on the SF1 columns padded to the
      4096-row grid, K3 on the Q6 and Q1 lanes of the 8,388,608-row
-     bucket — and time kernel, plain version and (where one exists) the
-     one-call PyTorch equivalent with CUDA events;
+     bucket, in the batch's own dtypes — and time kernel, plain version
+     and (where one exists) the one-call PyTorch equivalent with CUDA
+     events; print K3's form, registers and spills per signature (K1's
+     and K2's come from ptxas in phase 1), and time the grouped K3 on
+     Q1's lanes in each of its (form, SUB, warps) choices, rounds
+     interleaved (one k3_config line each);
   3. drive the main path at TPC-H SF1 (6,000,000 lineitem rows, one
      tablet): generate_lineitem -> TableCodec.bulk_blocks(262144-row
      blocks) -> build_batch(device="cuda") -> ScanKernel.run for Q6 and
@@ -41,6 +45,11 @@ SF = 1.0                         # TPC-H scale: 6,000,000 lineitem rows
 PROFILE_ITERS = 10               # queries per timed and profiled window
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+SWEEP_ROUNDS = 5                 # interleaved timing rounds per K3 config
+#: K3 grouped (form, SUB, num_warps) configs timed beside the chosen one
+K3_GROUPED_CONFIGS = [("unrolled", 256, 4), ("unrolled", 128, 4),
+                      ("tile", 128, 4), ("tile", 128, 8), ("tile", 256, 4),
+                      ("tile", 256, 8), ("tile", 512, 8)]
 
 
 class SmokeFailure(RuntimeError):
@@ -235,10 +244,8 @@ def main(argv=None) -> int:
             reps)))
 
     probe = ScanKernel(device="cuda")
-    k3_entries = {}
-    for q in (tpch.TPCH_Q6, tpch.TPCH_Q1):
-        entry, call = probe.hand_scan_plan(batch, q.where, q.aggs, q.group)
-        k3_entries[q.name] = entry
+
+    def k3_check(entry, call, what):
         got = entry(*call)
         want = entry.plain(*call)
         torch.cuda.synchronize()
@@ -246,15 +253,47 @@ def main(argv=None) -> int:
         for i, ((op, _), g_, w_) in enumerate(zip(
                 list(entry.aggs) + [("count", None)], got, want)):
             err = max(err, same_partials(
-                torch, g_, w_, f"K3 {q.name} output {i} ({op})",
+                torch, g_, w_, f"K3 {what} output {i} ({op})",
                 exact=op != "sum"))
-        lanes = len(call[1]) + len(call[2]) + 1
+        return err
+
+    def k3_config_sweep(entry, call):
+        """K3's grouped (form, SUB, warps) choices on the main path's
+        lanes, each checked against the plain version, then timed in
+        interleaved rounds so that every config sees the same card
+        state: one k3_config line each, with the ms of every round."""
+        runs = []
+        for cfg in [entry.config] + [c for c in K3_GROUPED_CONFIGS
+                                     if c != entry.config]:
+            k = hs.GenericScan(entry.where, entry.aggs, entry.group_cols,
+                               entry.G, entry.col_order, entry.null_order,
+                               entry.n_consts)
+            k.config = cfg
+            k3_check(k, call, f"{cfg}")
+            runs.append((k, []))
+        for _ in range(SWEEP_ROUNDS):
+            for k, ms in runs:
+                ms.append(cuda_ms(torch, lambda k=k: k.launch(*call), reps))
+        for k, ms in runs:
+            print(json.dumps({"k3_config": k.config,
+                              "chosen": k.config == entry.config,
+                              **k.compiled_stats(), "ms_rounds": ms,
+                              "ms_median": statistics.median(ms)}))
+
+    for q in (tpch.TPCH_Q6, tpch.TPCH_Q1):
+        entry, call = probe.hand_scan_plan(batch, q.where, q.aggs, q.group)
+        err = k3_check(entry, call, q.name)
+        print(json.dumps({"k3": q.name, **entry.compiled_stats()}))
+        # K3 reads every lane once in its own dtype (the batch's: int32,
+        # f32, bool), so the bound counts each at its element size
+        row_bytes = sum(t.element_size()
+                        for t in list(call[1]) + list(call[2]) + [call[3]])
         n_out = len(entry.aggs) + 1
         gw = q.group.num_groups if q.group else 1
         bucket = batch.padded_rows
         ops_row = (expr_nodes(q.where) + sum(expr_nodes(a.expr) + 2 * gw
                                              for a in q.aggs) + 2 * gw)
-        bms, bby = bound(lanes * 4 * bucket + 4 * n_out * gw
+        bms, bby = bound(row_bytes * bucket + 4 * n_out * gw
                          * (bucket // hs.BLOCK_ROWS), ops_row * bucket)
         kernels.append(dict(
             name=f"generic_scan[{q.name}]", route="triton",
@@ -264,6 +303,8 @@ def main(argv=None) -> int:
             ms=cuda_ms(torch, lambda: entry.launch(*call), reps),
             plain_ms=cuda_ms(torch, lambda: entry.plain(*call), reps),
             bound_ms=bms, bound_by=bby, library_ms=None))
+        if q.group is not None:
+            k3_config_sweep(entry, call)
     print("[phase 2] every kernel agrees with its plain version")
 
     # --- phase 3: the main path -----------------------------------------

@@ -15,9 +15,9 @@ from yugabyte_db_tpu_torch.ops import hand_scan as hs
 # plain module name: the test directory is on sys.path (pytest's
 # default import mode), and the card's machine may carry an unrelated
 # top-level `tests` package
-from torch_parity import (K3_CASES, assert_partials,  # noqa: F401
-                                collect_consts, cuda_device, k3_lanes,
-                                q6_inputs)
+from torch_parity import (K3_CASES, K3_LANE_DTYPES,  # noqa: F401
+                          assert_partials, collect_consts, cuda_device,
+                          k3_typed_lanes, q6_inputs)
 
 B = hs.BLOCK_ROWS
 
@@ -39,8 +39,10 @@ def test_cuda_q6_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [1, 6, 64, 4096])
+@pytest.mark.parametrize("G", [1, 6, 32, 33, 64, 4096])
 def test_cuda_grouped_kernel_matches_plain(cuda_device, G):
+    # 32 and 33 sit on both sides of K2's cut-off between the one-hot
+    # register body and the shared histogram
     rng = np.random.default_rng(G)
     n = 16 * B
     gids, vals, mask = (torch.tensor(a, dtype=torch.float32,
@@ -55,24 +57,35 @@ def test_cuda_grouped_kernel_matches_plain(cuda_device, G):
         hs.grouped_sum_kernel(gids, vals, mask, 4097)
 
 
+_OTHER_FORM = {"unrolled": ("tile", 128, 8), "tile": ("unrolled", 256, 4)}
+_K3_CARD_CASES = ([(name, lanes, "chosen") for name in sorted(K3_CASES)
+                   for lanes in sorted(K3_LANE_DTYPES)]
+                  + [(name, "native", "other") for name in sorted(K3_CASES)
+                     if K3_CASES[name][2] is not None])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(K3_CASES))
-def test_cuda_generic_kernel_matches_plain(cuda_device, name):
+@pytest.mark.parametrize("name,lanes,form", _K3_CARD_CASES)
+def test_cuda_generic_kernel_matches_plain(cuda_device, name, lanes, form):
+    # every case on every lane dtype set in the form K3 picks, and the
+    # grouped cases once more in the other grouped form
     where, aggs, group = K3_CASES[name]
-    cols, nulls, valid = k3_lanes(8 * B, null_frac=0.1)
+    cols, nulls, valid, _ = k3_typed_lanes(8 * B, lanes, null_frac=0.1)
     order = tuple(sorted(cols))
     consts = collect_consts(where, aggs)
     G = int(np.prod([d for _, d, _ in group])) if group else None
-    k3 = hs.GenericScan(where, aggs, group, G, order, order,
-                               len(consts))
+    k3 = hs.GenericScan(where, aggs, group, G, order, order, len(consts))
+    if form == "other":
+        k3.config = _OTHER_FORM[k3.config[0]]
     dev = cuda_device
     call = (torch.tensor([float(c) for c in consts] or [0.0],
                          dtype=torch.float32, device=dev),
-            [torch.from_numpy(cols[c]).to(dev) for c in order],
-            [torch.from_numpy(nulls[c]).to(dev) for c in order],
-            torch.from_numpy(valid).to(dev))
+            [cols[c].to(dev) for c in order],
+            [nulls[c].to(dev) for c in order], valid.to(dev))
     got = k3(*call)
     assert k3.launches == 1
+    stats = k3.compiled_stats()
+    assert stats["n_spills"] == 0 or form == "other", stats
     want = k3.plain(*call)
     for (op, _), g, w in zip(list(aggs) + [("count", None)], got, want):
-        assert_partials(g, w, op, f"{name} {op}")
+        assert_partials(g, w, op, f"{name} {lanes} {form} {op}")

@@ -16,8 +16,10 @@ from yugabyte_db_tpu.ops import pallas_scan as jps
 from yugabyte_db_tpu.ops.expr import compile_expr as jcompile
 from yugabyte_db_tpu.ops.expr import const_count
 from yugabyte_db_tpu_torch.ops import hand_scan as hs
-from tests.torch_parity import (K3_CASES, assert_partials, collect_consts,
-                                flags_set, k3_lanes, q6_inputs)
+from tests.torch_parity import (K3_CASES, K3_LANE_DTYPES, assert_partials,
+                                collect_consts, flags_set, float_dtype,
+                                interpret_triton, k3_lanes, k3_typed_lanes,
+                                lineitem_data, port_blocks, q6_inputs)
 
 B = hs.BLOCK_ROWS
 
@@ -114,12 +116,11 @@ def test_grouped_nonfinite_spreads_nan_like_the_matmul():
 
 
 # --- K3 ---------------------------------------------------------------------
-def _run_k3(name, n, null_frac):
+def _jax_k3(name, carr, cols, nulls, valid):
+    """The reference's build_generic_scan (interpret mode) on f32 numpy
+    lanes; col_order = null_order = the sorted column ids."""
     where, aggs, group = K3_CASES[name]
-    cols, nulls, valid = k3_lanes(n, null_frac=null_frac)
-    col_order = tuple(sorted(cols))
-    null_order = col_order
-    consts = collect_consts(where, aggs)
+    order = tuple(sorted(cols))
     G = int(np.prod([d for _, d, _ in group])) if group else None
     off = const_count(where) if where is not None else 0
     jfns = []
@@ -127,12 +128,22 @@ def _run_k3(name, n, null_frac):
         jfns.append((op, jcompile(e, offset=off) if e is not None else None))
         if e is not None:
             off += const_count(e)
-    jrun = jps.build_generic_scan(where, jfns, group, G, col_order,
-                                  null_order, len(consts), interpret=True)
+    jrun = jps.build_generic_scan(where, jfns, group, G, order, order,
+                                  len(collect_consts(where, aggs)),
+                                  interpret=True)
+    return jrun(jnp.asarray(carr), [jnp.asarray(cols[c]) for c in order],
+                [jnp.asarray(nulls[c]) for c in order], jnp.asarray(valid))
+
+
+def _run_k3(name, n, null_frac):
+    where, aggs, group = K3_CASES[name]
+    cols, nulls, valid = k3_lanes(n, null_frac=null_frac)
+    col_order = tuple(sorted(cols))
+    null_order = col_order
+    consts = collect_consts(where, aggs)
+    G = int(np.prod([d for _, d, _ in group])) if group else None
     carr = np.asarray([float(c) for c in consts] or [0.0], np.float32)
-    jout = jrun(jnp.asarray(carr), [jnp.asarray(cols[c]) for c in col_order],
-                [jnp.asarray(nulls[c]) for c in null_order],
-                jnp.asarray(valid))
+    jout = _jax_k3(name, carr, cols, nulls, valid)
     k3 = hs.GenericScan(where, aggs, group, G, col_order, null_order,
                                len(consts))
     pout = k3(torch.from_numpy(carr),
@@ -186,6 +197,140 @@ def test_generic_triton_source_is_python(name):
     src = k3.triton_source()
     compile(src, "<generic_scan>", "exec")
     assert "@triton.jit" in src and "def generic_scan(" in src
+
+
+# --- K3 on native-dtype lanes ----------------------------------------------
+def _k3_typed(name, lanes, n=2 * B, null_frac=0.2):
+    """A K3 for case `name` and its call on one K3_LANE_DTYPES set of
+    lanes, plus those lanes cast to f32 in numpy."""
+    where, aggs, group = K3_CASES[name]
+    cols, nulls, valid, cols_f32 = k3_typed_lanes(n, lanes,
+                                                  null_frac=null_frac)
+    order = tuple(sorted(cols))
+    consts = collect_consts(where, aggs)
+    G = int(np.prod([d for _, d, _ in group])) if group else None
+    k3 = hs.GenericScan(where, aggs, group, G, order, order, len(consts))
+    carr = torch.tensor([float(c) for c in consts] or [0.0],
+                        dtype=torch.float32)
+    call = (carr, [cols[c] for c in order], [nulls[c] for c in order],
+            valid)
+    return k3, call, cols_f32
+
+
+@pytest.mark.parametrize("lanes", ["native", "narrow"])
+@pytest.mark.parametrize("name", sorted(K3_CASES))
+def test_generic_plain_on_native_lanes_matches_pallas(name, lanes):
+    # the reference's caller casts every lane to f32 before its kernel;
+    # the port's plain version takes the lanes as they are and casts
+    # them itself
+    k3, (carr, cols, nulls, valid), cols_f32 = _k3_typed(name, lanes)
+    f32 = torch.float32
+    jout = _jax_k3(name, carr.numpy(), cols_f32,
+                   {c: t.to(f32).numpy() for c, t in zip(k3.null_order,
+                                                         nulls)},
+                   valid.to(f32).numpy())
+    pout = k3(carr, cols, nulls, valid)
+    assert {t.dtype for t in cols + nulls + [valid]} != {f32}
+    assert len(jout) == len(pout)
+    for (op, _), j, p in zip(list(k3.aggs) + [("count", None)], jout, pout):
+        assert_partials(p, j, op, f"{name} {lanes} {op}")
+
+
+@pytest.mark.parametrize("lanes", sorted(K3_LANE_DTYPES))
+@pytest.mark.parametrize("name", sorted(K3_CASES))
+def test_generic_triton_source_parses_for_lane_dtypes(name, lanes):
+    import ast
+    k3, call, _ = _k3_typed(name, lanes)
+    dtypes = [t.dtype for t in call[1] + call[2] + [call[3]]]
+    tree = ast.parse(k3.triton_source(dtypes))
+    kernel = [f for f in tree.body if isinstance(f, ast.FunctionDef)
+              and f.name == "generic_scan"]
+    assert len(kernel) == 1
+
+
+_FORMS = {"unrolled": ("unrolled", 256, 4), "tile": ("tile", 128, 8)}
+_SOURCE_CASES = [(name, lanes, form) for name in sorted(K3_CASES)
+                 for lanes in sorted(K3_LANE_DTYPES)
+                 for form in (("flat",) if K3_CASES[name][2] is None
+                              else ("unrolled", "tile"))]
+
+
+def _interpreted(k3, form):
+    """Run K3's own launch() with its generated source executed by the
+    CPU interpreter of tests/torch_parity.py in place of Triton."""
+    if form != "flat":
+        k3.config = _FORMS[form]
+    k3._load_kernel = lambda dtypes: interpret_triton(
+        k3.triton_source(dtypes), hs._TRITON_PRELUDE)
+    return k3
+
+
+@pytest.mark.parametrize("name,lanes,form", _SOURCE_CASES)
+def test_generic_source_matches_plain(name, lanes, form):
+    # the generated program's logic, in every form and on every lane
+    # dtype set, against the plain version (the card checks that Triton
+    # compiles it, tests/test_torch_cuda.py)
+    k3, call, _ = _k3_typed(name, lanes)
+    if form == "flat":
+        assert k3.config[0] == "flat"
+    want = k3.plain(*call)
+    got = _interpreted(k3, form).launch(*call)
+    hs.reset_launches()
+    assert got.shape == (len(want),) + tuple(want[0].shape)
+    for (op, _), g, w in zip(list(k3.aggs) + [("count", None)], got, want):
+        assert_partials(g, w, op, f"{name} {lanes} {form} {op}")
+
+
+@pytest.mark.parametrize("form", ["unrolled", "tile"])
+def test_generic_source_spreads_nan_like_plain(form):
+    # a valid +inf SUM value gives NaN in the other groups of its block;
+    # a NaN MIN value gives NaN in its own group only
+    aggs = [("sum", ("col", 0)), ("min", ("col", 1)), ("count", None)]
+    cols, nulls, valid, _ = k3_typed_lanes(B, "native")
+    cols[0][10] = float("inf")
+    cols[4][10] = 1
+    cols[1][20] = float("nan")
+    cols[4][20] = 2
+    order = tuple(sorted(cols))
+    k3 = hs.GenericScan(None, aggs, ((4, 3, 0),), 3, order, order, 0)
+    call = (torch.zeros(1), [cols[c] for c in order],
+            [nulls[c] for c in order], valid)
+    want = k3.plain(*call)
+    got = _interpreted(k3, form).launch(*call)
+    hs.reset_launches()
+    assert torch.isnan(want[0][0, [0, 2]]).all()
+    assert torch.isinf(want[0][0, 1])
+    assert torch.isnan(want[1][0]).tolist() == [False, False, True]
+    for (op, _), g, w in zip(aggs + [("count", None)], got, want):
+        assert_partials(g, w, op, f"{form} {op}")
+
+
+def test_k3_config_forms():
+    # grouped_q1 (4 distinct accumulators x 6 groups) takes the unrolled
+    # form; G = 64 with min/max flags takes the register tile; ungrouped
+    # scans keep the flat body
+    cfg = {name: _k3_typed(name, "f32")[0].config for name in K3_CASES}
+    assert cfg["grouped_q1"] == ("unrolled", 256, 4)
+    assert cfg["grouped_g64"][0] == "tile"
+    assert cfg["q6_sum_count"] == ("flat", 1024, 4)
+    for form, sub, warps in cfg.values():
+        assert B % sub == 0 and sub & (sub - 1) == 0 and warps in (4, 8)
+
+
+def test_partials_is_one_buffer_and_call_its_views():
+    k3, call, _ = _k3_typed("grouped_q1", "native")
+    buf = k3.partials(*call)
+    outs = k3(*call)
+    assert buf.shape == (5, 2, 6) and buf.dtype == torch.float32
+    assert all(torch.equal(o, b) for o, b in zip(outs, buf))
+
+
+def test_k3_rejects_lanes_outside_the_hand_set():
+    k3, (carr, cols, nulls, valid), _ = _k3_typed("no_where", "native")
+    for bad in (cols[0].to(torch.int64), torch.zeros(4 * B)[::2],
+                cols[0][:B], torch.zeros(2 * B, dtype=torch.uint8)):
+        with pytest.raises(ValueError):
+            k3(carr, [bad] + cols[1:], nulls, valid)
 
 
 def test_plain_versions_never_count_launches():
@@ -430,3 +575,103 @@ class TestHandRoutedPath:
             assert k.hand_scan_refusals == {"column_dtype": 2}
         assert int(out[0]) == batch.padded_rows - 10 - int(
             (~batch.valid).sum())
+
+
+# --- the hand route hands K3 the batch's own lanes --------------------------
+@pytest.fixture(scope="module")
+def q1_batches():
+    """A small lineitem batch on the CPU, under the CPU's own float
+    policy (fractional columns f64) and under the card's (f32)."""
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops.device_batch import build_batch
+    blocks = port_blocks(lineitem_data())
+    out = {"auto": build_batch(blocks, tpch.TPCH_Q1.columns, device="cpu")}
+    with float_dtype("float32"):
+        out["float32"] = build_batch(blocks, tpch.TPCH_Q1.columns,
+                                     device="cpu")
+    return out
+
+
+@pytest.mark.parametrize("mode", ["auto", "float32"])
+def test_hand_plan_passes_the_batch_tensors(q1_batches, mode):
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops.scan import ScanKernel
+    batch = q1_batches[mode]
+    q = tpch.TPCH_Q1
+    k = ScanKernel(device="cpu")
+    entry, (carr, cols, nulls, valid) = k.hand_scan_plan(
+        batch, q.where, q.aggs, q.group)
+    for t, cid in zip(cols, entry.col_order):
+        assert t.data_ptr() == batch.cols[cid].data_ptr()
+        assert t.dtype == batch.cols[cid].dtype
+    for t, cid in zip(nulls, entry.null_order):
+        assert t.data_ptr() == batch.nulls[cid].data_ptr()
+        assert t.dtype == torch.bool
+    assert valid.data_ptr() == batch.valid.data_ptr()
+    assert valid.dtype == torch.bool
+    frac = torch.float64 if mode == "auto" else torch.float32
+    assert {t.dtype for t in cols} == {torch.int32, frac}
+    # 36 bytes a row on the card's policy: 3 f32 + 4 int32 columns, 7
+    # bool null lanes and valid (60 with every lane cast to f32)
+    if mode == "float32":
+        assert sum(t.element_size() for t in cols + nulls + [valid]) == 36
+    assert carr.dtype == torch.float32
+
+
+@pytest.mark.parametrize("second", ["sum", "avg"])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_cached_entry_keeps_each_querys_constants(q1_batches, grouped,
+                                                  second):
+    # one cached K3 entry serves every query of its signature, and the
+    # signature leaves constant values out: two aggregates alike but for
+    # their constants must each read their own (here through the
+    # generated source, run by the CPU stand-in for Triton).  AVG
+    # expands to a SUM of the same shape beside the first
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops.scan import AggSpec, ScanKernel
+    batch = q1_batches["float32"]
+    q = tpch.TPCH_Q1
+    qty = q.aggs[0].expr
+
+    def aggs(c):
+        return [AggSpec("sum", ("arith", "mul", qty, ("const", 2.0))),
+                AggSpec(second, ("arith", "mul", qty, ("const", c)))]
+    group = q.group if grouped else None
+    k = ScanKernel(device="cpu")
+    first, _ = k.hand_scan_plan(batch, q.where, aggs(2.0), group)
+    entry, call = k.hand_scan_plan(batch, q.where, aggs(3.0), group)
+    assert entry is first                    # served from the cache
+    want = entry.plain(*call)
+    entry._load_kernel = lambda dtypes: interpret_triton(
+        entry.triton_source(dtypes), hs._TRITON_PRELUDE)
+    got = entry.launch(*call)
+    hs.reset_launches()
+    for (op, _), g, w in zip(list(entry.aggs) + [("count", None)], got,
+                             want):
+        assert_partials(g, w, op, f"{second} {op}")
+    assert_partials(got[1], got[0] * 1.5, "sum")
+
+
+def test_try_hand_copies_all_partials_at_once(q1_batches, monkeypatch):
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops import scan as pscan
+    batch = q1_batches["float32"]
+    q = tpch.TPCH_Q1
+    copies = []
+    real_np = pscan._np
+    monkeypatch.setattr(pscan, "_np", lambda x: copies.append(
+        tuple(x.shape)) or real_np(x))
+
+    def no_views(*a):
+        raise AssertionError("the hand route reads GenericScan.partials")
+    monkeypatch.setattr(hs.GenericScan, "__call__", no_views)
+    k = pscan.ScanKernel(device="cpu")
+    with flags_set({}, {"hand_scan_enabled": True}):
+        out, counts, mask = k.run(batch, q.where, q.aggs, q.group)
+    assert mask is None and k.hand_scan_refusals == {}
+    grid = batch.padded_rows // B
+    assert copies == [(len(q.aggs) + 1, grid, 6)]
+    ref = tpch.numpy_reference(q, lineitem_data())
+    for g in range(6):
+        assert int(counts[g]) == ref[g][2] == int(out[4][g])
+        assert float(out[0][g]) == ref[g][0]

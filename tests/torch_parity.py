@@ -143,7 +143,176 @@ def k3_lanes(n, seed=7, null_frac=0.0):
             valid.astype(np.float32))
 
 
-Q6_WHERE = ("and", ("and", ("and", ("cmp", "ge", ("col", 3), ("const", 8766)),
+#: lane dtype sets K3 is held to: the reference's f32-cast lanes, a
+#: batch's native lanes (integer-valued columns as int32, a fractional
+#: column in f64 as under device_float_dtype=float64, bool null lanes
+#: and valid), and narrow integers, a bool column and non-bool flags,
+#: so that every dtype of HAND_DTYPES is loaded by the kernel
+K3_LANE_DTYPES = {
+    "f32": ({c: torch.float32 for c in range(6)}, torch.float32,
+            torch.float32),
+    "native": ({0: torch.float32, 1: torch.float64, 2: torch.float32,
+                3: torch.int32, 4: torch.int32, 5: torch.int32},
+               torch.bool, torch.bool),
+    "narrow": ({0: torch.float32, 1: torch.float64, 2: torch.float32,
+                3: torch.int16, 4: torch.int8, 5: torch.bool},
+               torch.int8, torch.float64),
+}
+
+
+def k3_typed_lanes(n, dtypes: str, seed=7, null_frac=0.0):
+    """k3_lanes' rows as torch lanes of one K3_LANE_DTYPES set ->
+    (cols, nulls, valid) dicts/tensor, plus the same values cast to f32
+    in numpy (what the reference's caller hands its kernel)."""
+    cols, nulls, valid = k3_lanes(n, seed=seed, null_frac=null_frac)
+    if dtypes != "f32":
+        # an f64 lane of values f32 does not hold exactly, so that the
+        # rounding to f32 happens in the port, as it does on a batch
+        cols[1] = np.random.default_rng(seed).uniform(900, 105000, n)
+    col_t, null_t, valid_t = K3_LANE_DTYPES[dtypes]
+    tc = {c: torch.from_numpy(np.asarray(v)).to(col_t[c])
+          for c, v in cols.items()}
+    tn = {c: torch.from_numpy(v).to(null_t) for c, v in nulls.items()}
+    tv = torch.from_numpy(valid).to(valid_t)
+    f32 = {c: t.to(torch.float32).numpy() for c, t in tc.items()}
+    return tc, tn, tv, f32
+
+
+# --- a CPU interpreter for K3's generated Triton source --------------------
+class _Ptr:
+    """A pointer argument: a flat tensor and an element offset."""
+
+    def __init__(self, t, off=0):
+        self.t, self.off = t.reshape(-1), off
+
+    def __add__(self, o):
+        return _Ptr(self.t, self.off + o)
+
+    __radd__ = __add__
+
+
+def _as_t(x, like=None):
+    if isinstance(x, torch.Tensor):
+        return x
+    dt = like.dtype if isinstance(like, torch.Tensor) else torch.float32
+    return torch.tensor(x, dtype=dt)
+
+
+class _FakeTL:
+    """The slice of triton.language that K3's source uses, on CPU
+    tensors: enough to run the generated program's logic (not its
+    compilation, which only the card can check)."""
+    float32, int32, int64, int1 = (torch.float32, torch.int32, torch.int64,
+                                   torch.bool)
+    constexpr = object
+    pid = 0
+
+    @classmethod
+    def program_id(cls, axis):
+        return torch.tensor(cls.pid, dtype=torch.int32)
+
+    @staticmethod
+    def arange(lo, hi):
+        return torch.arange(lo, hi, dtype=torch.int32)
+
+    @staticmethod
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype)
+
+    @staticmethod
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype)
+
+    @staticmethod
+    def load(p):
+        return p.t[p.off]
+
+    @staticmethod
+    def store(p, v, mask=None):
+        idx, v = p.off, _as_t(v, p.t).to(p.t.dtype)
+        if mask is not None:
+            idx, v = idx[mask], v.expand(mask.shape)[mask]
+        p.t[idx] = v
+
+    @staticmethod
+    def where(c, a, b):
+        like = a if isinstance(a, torch.Tensor) else b
+        return torch.where(c, _as_t(a, like), _as_t(b, like))
+
+    # Triton's minimum/maximum drop a NaN operand (fmin/fmax)
+    @staticmethod
+    def minimum(a, b):
+        like = a if isinstance(a, torch.Tensor) else b
+        return torch.fmin(_as_t(a, like), _as_t(b, like))
+
+    @staticmethod
+    def maximum(a, b):
+        like = a if isinstance(a, torch.Tensor) else b
+        return torch.fmax(_as_t(a, like), _as_t(b, like))
+
+    @staticmethod
+    def sum(x, axis):
+        return x.sum(axis)
+
+    @staticmethod
+    def min(x, axis):
+        return x.amin(axis)
+
+    @staticmethod
+    def max(x, axis):
+        return x.amax(axis)
+
+    @staticmethod
+    def broadcast_to(x, shape):
+        return torch.broadcast_to(_as_t(x), shape)
+
+    @staticmethod
+    def reduce(xs, axis, fn):
+        """Tree reduction of one or several [N] tensors (N a power of
+        two) with the combine function, as a CTA does it."""
+        single = isinstance(xs, torch.Tensor)
+        xs = [xs] if single else list(xs)
+        assert axis == 0 and all(x.dim() == 1 for x in xs)
+        while xs[0].shape[0] > 1:
+            h = xs[0].shape[0] // 2
+            out = fn(*[x[:h] for x in xs], *[x[h:] for x in xs])
+            xs = [out] if isinstance(out, torch.Tensor) else list(out)
+        return xs[0][0] if single else tuple(x[0] for x in xs)
+
+
+class _FakeJit:
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+    def __getitem__(self, grid):
+        def run(*args, num_warps=None, **constexprs):
+            args = [_Ptr(a) if isinstance(a, torch.Tensor) else a
+                    for a in args]
+            for pid in range(grid[0]):
+                _FakeTL.pid = pid
+                self.fn(*args, **constexprs)
+        return run
+
+
+class _FakeLibdevice:
+    fmod = staticmethod(torch.fmod)
+
+
+def interpret_triton(src: str, prelude: str, name: str = "generic_scan"):
+    """The kernel ``name`` of generated Triton source, runnable on CPU
+    tensors through _FakeTL (the source's import prelude is replaced
+    by the fake modules)."""
+    assert src.startswith(prelude)
+    ns = {"triton": type("triton", (), {"jit": staticmethod(_FakeJit)}),
+          "tl": _FakeTL, "libdevice": _FakeLibdevice}
+    exec(compile(src[len(prelude):], f"<{name}>", "exec"), ns)
+    return ns[name]
+
+
+Q6_WHERE = ("and",("and", ("and", ("cmp", "ge", ("col", 3), ("const", 8766)),
                              ("cmp", "lt", ("col", 3), ("const", 9131))),
                     ("between", ("col", 2), ("const", 0.05), ("const", 0.07))),
             ("cmp", "lt", ("col", 0), ("const", 24.0)))
@@ -177,6 +346,18 @@ K3_CASES = {
          ("min", ("arith", "mod", ("col", 1), ("const", 0.37))),
          ("max", ("arith", "div", ("col", 0), ("col", 1))),
          ("count", ("arith", "div", ("col", 2), ("col", 0)))], None),
+    # one group and one accumulator: the epilogue's reduction has a
+    # single operand
+    "grouped_g1": (None, [("count", None)], ((5, 1, 0),)),
+    # the largest G the hand route takes (64): three group columns
+    # (4 x 4 x 4; columns 4 and 5 fill two of each domain, the WHERE's
+    # shipdate column the other), with offsets and out-of-domain values
+    # clamped into the edge groups
+    "grouped_g64": (("cmp", "ge", ("col", 0), ("const", 5.0)),
+                    [("sum", ("col", 1)), ("min", ("col", 0)),
+                     ("max", ("arith", "mul", ("col", 2), ("col", 1))),
+                     ("count", ("col", 2))],
+                    ((4, 4, 0), (5, 4, -1), (3, 4, 9000))),
 }
 
 

@@ -20,7 +20,10 @@ there is no fallback.  ``LAUNCHES`` counts kernel launches, and only
 those.
 
 All three are bound by memory traffic on an H100 (see each source's
-note): the design goal is one read of every input lane.
+note): the design goal is one read of every input lane.  K1 and K2 take
+f32 lanes, as their Pallas kernels did; K3 takes a batch's lanes in
+their own dtypes (int32, f32, bool, ...) and converts them in
+registers, so the hand route reads each column once, at its width.
 
 Building: the CUDA sources compile with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into one plain-C shared library each
@@ -151,14 +154,22 @@ def _lib(name: str) -> ctypes.CDLL:
         return lib
 
 
-def _check_lanes(lanes: Sequence[torch.Tensor], n: int) -> None:
+#: lane dtypes K3 loads natively and converts to f32 in registers (the
+#: hand-route gate refuses columns of any other dtype); K1 and K2 take f32
+HAND_DTYPES = (torch.float32, torch.float64, torch.int32, torch.int16,
+               torch.int8, torch.bool)
+
+
+def _check_lanes(lanes: Sequence[torch.Tensor], n: int,
+                 dtypes: Sequence[torch.dtype] = (torch.float32,)) -> None:
     for t in lanes:
-        if t.dtype != torch.float32 or t.dim() != 1 or t.shape[0] != n \
+        if t.dtype not in dtypes or t.dim() != 1 or t.shape[0] != n \
                 or not t.is_contiguous() or t.device != lanes[0].device \
                 or (t.device.type == "cuda" and t.data_ptr() % 16):
             raise ValueError(
-                "hand kernels take contiguous, 16-byte aligned f32 [N] "
-                "lanes on one device, N a multiple of 4096")
+                "hand kernels take contiguous, 16-byte aligned [N] lanes "
+                f"on one device, each of {[str(d) for d in dtypes]}, N a "
+                "multiple of 4096")
     if n % BLOCK_ROWS:
         raise ValueError(f"rows ({n}) must be a multiple of {BLOCK_ROWS}")
 
@@ -273,8 +284,8 @@ def grouped_sum_kernel(gids, values, mask, num_groups: int):
     max_g = lib.grouped_sum_max_groups()
     if not 0 < num_groups <= max_g:
         raise ValueError(
-            f"grouped_sum kernel takes 1..{max_g} groups (shared-memory "
-            f"accumulator), got {num_groups}")
+            f"grouped_sum kernel takes 1..{max_g} groups, got "
+            f"{num_groups}")
     grid = n // BLOCK_ROWS
     partials = torch.empty((grid, num_groups), dtype=torch.float32,
                            device=gids.device)
@@ -311,10 +322,66 @@ def _next_pow2(x: int) -> int:
     return p
 
 
+def _pow2_floor(x: int) -> int:
+    p = 1
+    while p * 2 <= x:
+        p <<= 1
+    return p
+
+
+#: accumulator registers per thread that K3's grouped forms aim for,
+#: well under the 255-register cap: the lanes, the expression
+#: temporaries and the one-hot flags need the rest
+_K3_ACC_REGS = 64
+
+
+def k3_config(num_groups, n_acc: int) -> Tuple[str, int, int]:
+    """(form, SUB, num_warps) of K3 for ``num_groups`` groups (None:
+    ungrouped) and ``n_acc`` accumulators per group (distinct
+    aggregates plus the NaN flags of MIN/MAX).
+
+    flat      ungrouped: [SUB] accumulators, reduced once per block;
+    unrolled  one [SUB] accumulator per (aggregate, group), emitted
+              unrolled, for n_acc * G <= 96 (Q1: 5 * 6);
+    tile      one [GP, SUB] register tile per aggregate, for the
+              larger G up to the gate's 64, where the unrolled form
+              would spill.
+    Both grouped forms reduce across the CTA once per 4096-row block;
+    SUB is sized so the accumulators hold about _K3_ACC_REGS registers
+    a thread.  On Q1's lanes the unrolled form takes 15 % less time
+    than the best tile config (chip_smoke.py's k3_config lines)."""
+    if num_groups is None:
+        return "flat", 1024, 4
+    per_row = n_acc * num_groups
+    if per_row <= 96:
+        r = _pow2_floor(max(1, min(4, _K3_ACC_REGS // per_row)))
+        return "unrolled", 32 * 4 * r, 4
+    gp = max(2, _next_pow2(num_groups))
+    sub = _pow2_floor(max(1, _K3_ACC_REGS * 32 * 8 // (n_acc * gp)))
+    return "tile", max(16, min(1024, sub)), 8
+
+
+def _load_lane(ptr: str, dtype: torch.dtype, flag: bool) -> str:
+    """Triton expression that loads one lane at ``offs`` in its own
+    dtype.  A value lane becomes f32 in registers (as ``.to(float32)``
+    does: exact for int8/16/32 under the int32 range gate, round to
+    nearest for f64).  A flag lane (a null lane or valid) becomes
+    ``f32(x) > 0``, the plain version's test; a bool lane arrives as a
+    uint8 view and is compared ``!= 0``."""
+    raw = f"tl.load({ptr} + offs)"
+    if not flag:
+        return raw if dtype == torch.float32 else f"{raw}.to(tl.float32)"
+    if dtype == torch.bool:
+        return f"{raw} != 0"
+    if dtype == torch.float64:
+        return f"{raw}.to(tl.float32) > 0"
+    return f"{raw} > 0"
+
+
 class TritonOps:
     """Operator backend for expr._lower that emits Triton statements.
-    Values are variable names; every lane is f32 (the kernel's
-    contract), so no promotion is needed."""
+    Values are variable names; every column lane is f32 once loaded
+    (see _load_lane), so no promotion is needed."""
 
     _CMP = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==",
             "ne": "!="}
@@ -367,6 +434,11 @@ except ImportError:                  # Triton 3.0 keeps it under extra.cuda
 
 '''
 
+_FILL = {"min": "float('inf')", "max": "-float('inf')"}
+_PICK = {"min": "tl.minimum", "max": "tl.maximum"}
+_REDUCE = {"sum": "tl.sum", "count": "tl.sum", "min": "tl.min",
+           "max": "tl.max"}
+
 
 class GenericScan:
     """K3 for one query signature — counterpart of the reference's
@@ -374,6 +446,10 @@ class GenericScan:
     the ASTs to generate its source): fn(consts f32 [max(n_consts,1)],
     col lanes, null lanes, valid) -> per-aggregate partials ([grid] or
     [grid, G]) followed by the row-count partials, all f32.
+
+    Lanes come in their own dtypes (any of HAND_DTYPES): the kernel
+    loads each natively and converts it in registers; the plain version
+    casts them to f32 first, as the reference's caller does.
 
     ``aggs``: [(op, expr node or None)] — op in sum|count|min|max, None
     meaning COUNT(*).  group_cols: GroupSpec cols ((cid, domain,
@@ -403,7 +479,28 @@ class GenericScan:
         self._agg_fns = [(op, compile_expr(e, offset=o) if e is not None
                           else None)
                          for (op, e), o in zip(self.aggs, self._offsets)]
-        self._kernel = None
+        # the kernel keeps one accumulator per distinct output (Q1's
+        # COUNT(*) aggregate and the row count share one).  Only outputs
+        # free of constants merge: a cached entry serves every query of
+        # its signature, and the signature leaves constant values out
+        self._accs: List[tuple] = []       # (op, expr, const offset)
+        self._acc_of: List[int] = []       # output -> accumulator
+        seen: Dict[str, int] = {}
+        for (op, e), o in zip(list(self.aggs) + [("count", None)],
+                              self._offsets + [0]):
+            key = repr((op, e)) if e is None or const_count(e) == 0 \
+                else len(self._accs)
+            if key not in seen:
+                seen[key] = len(self._accs)
+                self._accs.append((op, e, o))
+            self._acc_of.append(seen[key])
+        n_acc = len(self._accs) + sum(op in ("min", "max")
+                                      for op, _, _ in self._accs)
+        #: (form, SUB, num_warps), see k3_config
+        self.config = k3_config(self.G, n_acc)
+        self._kernels: Dict[tuple, object] = {}
+        #: the last launch's compiled kernel (registers, spills)
+        self.compiled = None
         #: this signature's own kernel launches (LAUNCHES has the total)
         self.launches = 0
 
@@ -413,12 +510,12 @@ class GenericScan:
         grid = n // BLOCK_ROWS
         shp = (grid, BLOCK_ROWS)
         f32 = torch.float32
-        cols = {cid: col_arrs[i].view(shp)
+        cols = {cid: col_arrs[i].to(f32).view(shp)
                 for i, cid in enumerate(self.col_order)}
-        nulls = {cid: null_arrs[i].view(shp) > 0
+        nulls = {cid: null_arrs[i].to(f32).view(shp) > 0
                  for i, cid in enumerate(self.null_order)}
         cs = [consts[i] for i in range(self.n_consts)]
-        mask = valid.view(shp) > 0
+        mask = valid.to(f32).view(shp) > 0
         if self._where_fn is not None:
             wv, wn = self._where_fn(cols, nulls, cs)
             mask = mask & wv
@@ -456,7 +553,7 @@ class GenericScan:
             gn = nulls.get(cid)
             if gn is not None:
                 mask = mask & torch.logical_not(gn)
-            c = (cols[cid].to(f32) - offset).clamp(0.0, float(domain - 1))
+            c = (cols[cid] - offset).clamp(0.0, float(domain - 1))
             gid = c * stride if gid is None else gid + c * stride
             stride *= domain
         maskf = mask.to(f32)
@@ -484,47 +581,57 @@ class GenericScan:
         return tuple(outs)
 
     # --- Triton source -----------------------------------------------------
-    def triton_source(self) -> str:
-        """The kernel specialised to this signature, generated from the
-        same expression walk as compile_expr (TritonOps backend)."""
-        grouped = self.G is not None
-        n_out = len(self.aggs) + 1
-        args = (["consts_ptr"]
-                + [f"x{i}_ptr" for i in range(len(self.col_order))]
-                + [f"n{i}_ptr" for i in range(len(self.null_order))]
-                + ["valid_ptr"] + [f"o{k}_ptr" for k in range(n_out)])
-        L = [_TRITON_PRELUDE, "@triton.jit",
-             "def generic_scan(" + ", ".join(args) + ",",
-             "                 BLOCK_ROWS: tl.constexpr, SUB: tl.constexpr,"
-             " GP: tl.constexpr, G: tl.constexpr):",
-             "    pid = tl.program_id(0)",
-             "    base = pid.to(tl.int64) * BLOCK_ROWS"]
+    def triton_source(self, dtypes: Sequence[torch.dtype] = None) -> str:
+        """The kernel specialised to this signature and to its lanes'
+        dtypes (columns, null lanes, valid, in order; all f32 when
+        None), generated from the same expression walk as compile_expr
+        (TritonOps backend)."""
+        n_cols, n_nulls = len(self.col_order), len(self.null_order)
+        n_lanes = n_cols + n_nulls + 1
+        dtypes = tuple(dtypes) if dtypes is not None \
+            else (torch.float32,) * n_lanes
+        if len(dtypes) != n_lanes:
+            raise ValueError(f"{n_lanes} lane dtypes expected, got "
+                             f"{len(dtypes)}")
+        form = self.config[0]
+        args = (["consts_ptr"] + [f"x{i}_ptr" for i in range(n_cols)]
+                + [f"n{i}_ptr" for i in range(n_nulls)]
+                + ["valid_ptr", "out_ptr", "out_stride"])
+        L = [_TRITON_PRELUDE]
+        if form == "unrolled":
+            L += self._combine_source()
+        L += ["@triton.jit",
+              "def generic_scan(" + ", ".join(args) + ",",
+              "                 BLOCK_ROWS: tl.constexpr, SUB: tl.constexpr,"
+              " GP: tl.constexpr, G: tl.constexpr):",
+              "    pid = tl.program_id(0)",
+              "    base = pid.to(tl.int64) * BLOCK_ROWS"]
         for i in range(self.n_consts):
             L.append(f"    c{i} = tl.load(consts_ptr + {i})")
-        width = "GP" if grouped else "SUB"
-        # accumulators: per agg (and NaN flags for min/max)
-        ops_all = [op for op, _ in self.aggs] + ["count"]
-        for k, op in enumerate(ops_all):
-            if op in ("min", "max"):
-                init = "float('inf')" if op == "min" else "-float('inf')"
-                L.append(f"    a{k} = tl.full([{width}], {init}, "
-                         f"tl.float32)")
-                L.append(f"    nan{k} = tl.zeros([{width}], "
-                         f"dtype=tl.float32)")
-            else:
-                L.append(f"    a{k} = tl.zeros([{width}], dtype=tl.float32)")
+        shape = "[GP, SUB]" if form == "tile" else "[SUB]"
+        for j, (op, _, _) in enumerate(self._accs):
+            for a, f in self._acc_names(j):
+                if op in ("min", "max"):
+                    L.append(f"    {a} = tl.full({shape}, {_FILL[op]}, "
+                             "tl.float32)")
+                    L.append(f"    {f} = tl.zeros({shape}, "
+                             "dtype=tl.float32)")
+                else:
+                    L.append(f"    {a} = tl.zeros({shape}, "
+                             "dtype=tl.float32)")
         L.append("    for s in range(0, BLOCK_ROWS, SUB):")
         ind = "        "
         L.append(ind + "offs = base + s + tl.arange(0, SUB)")
-        cols = {}
+        cols, nulls = {}, {}
         for i, cid in enumerate(self.col_order):
-            L.append(ind + f"x{i} = tl.load(x{i}_ptr + offs)")
+            L.append(ind + f"x{i} = "
+                     + _load_lane(f"x{i}_ptr", dtypes[i], False))
             cols[cid] = f"x{i}"
-        nulls = {}
         for i, cid in enumerate(self.null_order):
-            L.append(ind + f"n{i} = tl.load(n{i}_ptr + offs) > 0")
+            L.append(ind + f"n{i} = "
+                     + _load_lane(f"n{i}_ptr", dtypes[n_cols + i], True))
             nulls[cid] = f"n{i}"
-        L.append(ind + "mask = tl.load(valid_ptr + offs) > 0")
+        L.append(ind + "mask = " + _load_lane("valid_ptr", dtypes[-1], True))
         consts = [f"c{i}" for i in range(self.n_consts)]
         ops = TritonOps(L, ind)
         if self.where is not None:
@@ -532,57 +639,51 @@ class GenericScan:
             L.append(ind + f"mask = mask & {wv}")
             if wn is not None:
                 L.append(ind + f"mask = mask & ~{wn}")
-        if grouped:
-            gid = None
-            stride = 1
-            for cid, domain, offset in self.group_cols:
-                if cid in nulls:
-                    L.append(ind + f"mask = mask & ~{nulls[cid]}")
-                c = ops._tmp(f"tl.minimum(tl.maximum({cols[cid]} - "
-                             f"{float(offset)!r}, 0.0), "
-                             f"{float(domain - 1)!r})")
-                term = ops._tmp(f"{c} * {float(stride)!r}")
-                gid = term if gid is None else ops._tmp(f"{gid} + {term}")
-                stride *= domain
-            L.append(ind + "maskf = mask.to(tl.float32)")
-            L.append(ind + "garange = tl.arange(0, GP)")
-            L.append(ind + f"onehot = ({gid}.to(tl.int32)[:, None] == "
-                     "garange[None, :]).to(tl.float32) * maskf[:, None]")
+        if form == "flat":
+            self._flat_body(L, ops, cols, nulls, consts)
+            return "\n".join(L) + "\n"
+        gid = None
+        stride = 1
+        for cid, domain, offset in self.group_cols:
+            if cid in nulls:
+                L.append(ind + f"mask = mask & ~{nulls[cid]}")
+            c = ops._tmp(f"tl.minimum(tl.maximum({cols[cid]} - "
+                         f"{float(offset)!r}, 0.0), "
+                         f"{float(domain - 1)!r})")
+            term = ops._tmp(f"{c} * {float(stride)!r}")
+            gid = term if gid is None else ops._tmp(f"{gid} + {term}")
+            stride *= domain
+        L.append(ind + f"gi = {gid}.to(tl.int32)")
+        # rows whose one-hot row is not all zero: the reference's
+        # row max of the one-hot, without the [rows, G] reduction
+        L.append(ind + "rin = mask & (gi >= 0) & (gi < G)")
+        if form == "unrolled":
+            self._unrolled_body(L, ops, cols, nulls, consts)
         else:
-            L.append(ind + "maskf = mask.to(tl.float32)")
-        for k, (op, e) in enumerate(list(self.aggs) + [("count", None)]):
-            a = f"a{k}"
+            self._tile_body(L, ops, cols, nulls, consts)
+        return "\n".join(L) + "\n"
+
+    def _acc_names(self, j: int) -> List[Tuple[str, str]]:
+        """(accumulator, NaN flag) variable names of accumulator j: one
+        pair, or one per group in the unrolled form."""
+        if self.config[0] == "unrolled":
+            return [(f"a{j}_{g}", f"f{j}_{g}") for g in range(self.G)]
+        return [(f"a{j}", f"f{j}")]
+
+    def _values(self, ops, cols, nulls, consts, e, off):
+        v, vn = _lower(e, ops, off)(cols, nulls, consts)
+        v = ops._tmp(f"tl.broadcast_to(({v}).to(tl.float32), (SUB,))")
+        return v, vn
+
+    def _flat_body(self, L, ops, cols, nulls, consts):
+        ind = ops.indent
+        L.append(ind + "maskf = mask.to(tl.float32)")
+        for j, (op, e, off) in enumerate(self._accs):
+            a, f = f"a{j}", f"f{j}"
             if e is None:
-                if grouped:
-                    L.append(ind + f"{a} += tl.sum(onehot, axis=0)")
-                else:
-                    L.append(ind + f"{a} += maskf")
+                L.append(ind + f"{a} += maskf")
                 continue
-            v, vn = _lower(e, ops, self._offsets[k])(cols, nulls, consts)
-            v = ops._tmp(f"tl.broadcast_to(({v}).to(tl.float32), (SUB,))")
-            if grouped:
-                oh = "onehot" if vn is None else ops._tmp(
-                    f"onehot * (~{vn}).to(tl.float32)[:, None]")
-                if op == "count":
-                    L.append(ind + f"{a} += tl.sum({oh}, axis=0)")
-                elif op == "sum":
-                    rm = ops._tmp(f"tl.max({oh}, axis=1)")
-                    vm = ops._tmp(f"tl.where({rm} > 0, {v}, 0.0)")
-                    L.append(ind + f"{a} += tl.sum({vm}[:, None] * {oh}, "
-                             "axis=0)")
-                else:
-                    fill = "float('inf')" if op == "min" else \
-                        "-float('inf')"
-                    red = "tl.min" if op == "min" else "tl.max"
-                    pick = "tl.minimum" if op == "min" else "tl.maximum"
-                    vv = ops._tmp(f"tl.where({oh} > 0, {v}[:, None], "
-                                  f"{fill})")
-                    isn = ops._tmp(f"{vv} != {vv}")
-                    L.append(ind + f"nan{k} = tl.maximum(nan{k}, tl.max("
-                             f"{isn}.to(tl.float32), axis=0))")
-                    L.append(ind + f"{a} = {pick}({a}, {red}(tl.where("
-                             f"{isn}, {fill}, {vv}), axis=0))")
-                continue
+            v, vn = self._values(ops, cols, nulls, consts, e, off)
             m = "maskf" if vn is None else ops._tmp(
                 f"maskf * (~{vn}).to(tl.float32)")
             if op == "count":
@@ -590,41 +691,149 @@ class GenericScan:
             elif op == "sum":
                 L.append(ind + f"{a} += tl.where({m} > 0, {v}, 0.0)")
             else:
-                fill = "float('inf')" if op == "min" else "-float('inf')"
-                pick = "tl.minimum" if op == "min" else "tl.maximum"
-                vv = ops._tmp(f"tl.where({m} > 0, {v}, {fill})")
+                vv = ops._tmp(f"tl.where({m} > 0, {v}, {_FILL[op]})")
                 isn = ops._tmp(f"{vv} != {vv}")
-                L.append(ind + f"nan{k} = tl.maximum(nan{k}, "
+                L.append(ind + f"{f} = tl.maximum({f}, "
                          f"{isn}.to(tl.float32))")
-                L.append(ind + f"{a} = {pick}({a}, tl.where({isn}, {fill},"
-                         f" {vv}))")
-        # epilogue: one partial (or one [G] row) per block
-        for k, op in enumerate(ops_all):
-            a = f"a{k}"
-            if grouped:
-                r = a
-            elif op in ("min", "max"):
-                red = "tl.min" if op == "min" else "tl.max"
-                r = f"{red}({a}, axis=0)"
-            else:
-                r = f"tl.sum({a}, axis=0)"
+                L.append(ind + f"{a} = {_PICK[op]}({a}, tl.where({isn}, "
+                         f"{_FILL[op]}, {vv}))")
+        # epilogue: one partial per block and output
+        for j, (op, _, _) in enumerate(self._accs):
+            r = f"{_REDUCE[op]}(a{j}, axis=0)"
             if op in ("min", "max"):
-                flag = f"nan{k}" if grouped else f"tl.max(nan{k}, axis=0)"
-                L.append(f"    r{k} = tl.where({flag} > 0, float('nan'), "
-                         f"{r})")
-            else:
-                L.append(f"    r{k} = {r}")
-            if grouped:
-                L.append(f"    tl.store(o{k}_ptr + pid * G + "
-                         f"tl.arange(0, GP), r{k}, "
-                         f"mask=tl.arange(0, GP) < G)")
-            else:
-                L.append(f"    tl.store(o{k}_ptr + pid, r{k})")
-        return "\n".join(L) + "\n"
+                r = f"tl.where(tl.max(f{j}, axis=0) > 0, float('nan'), {r})"
+            L.append(f"    r{j} = {r}")
+        for k, j in enumerate(self._acc_of):
+            L.append(f"    tl.store(out_ptr + {k} * out_stride + pid, r{j})")
 
-    def _load_kernel(self):
-        if self._kernel is None:
-            src = self.triton_source()
+    def _unrolled_body(self, L, ops, cols, nulls, consts):
+        """One [SUB] accumulator per (aggregate, group), added to as
+        accumulator += value * one_hot_g (the product, so inf * 0 = NaN
+        reaches the other groups as in the reference's matmul)."""
+        ind = ops.indent
+        G = self.G
+        for g in range(G):
+            L.append(ind + f"h{g} = mask & (gi == {g})")
+            L.append(ind + f"hf{g} = h{g}.to(tl.float32)")
+        for j, (op, e, off) in enumerate(self._accs):
+            if e is None:
+                for g in range(G):
+                    L.append(ind + f"a{j}_{g} += hf{g}")
+                continue
+            v, vn = self._values(ops, cols, nulls, consts, e, off)
+
+            def hot(g, as_float):
+                if vn is None:
+                    return f"hf{g}" if as_float else f"h{g}"
+                h = f"(h{g} & ~{vn})"
+                return f"{h}.to(tl.float32)" if as_float else h
+            if op == "count":
+                for g in range(G):
+                    L.append(ind + f"a{j}_{g} += {hot(g, True)}")
+            elif op == "sum":
+                # vm is +0.0 on null rows, so vm * hf_g is bitwise
+                # vm * (h_g & ~null): one product a group
+                rk = "rin" if vn is None else ops._tmp(f"rin & ~{vn}")
+                vm = ops._tmp(f"tl.where({rk}, {v}, 0.0)")
+                for g in range(G):
+                    L.append(ind + f"a{j}_{g} += {vm} * hf{g}")
+            else:
+                for g in range(G):
+                    a, f = f"a{j}_{g}", f"f{j}_{g}"
+                    vv = ops._tmp(f"tl.where({hot(g, False)}, {v}, "
+                                  f"{_FILL[op]})")
+                    isn = ops._tmp(f"{vv} != {vv}")
+                    L.append(ind + f"{f} = tl.maximum({f}, "
+                             f"{isn}.to(tl.float32))")
+                    L.append(ind + f"{a} = {_PICK[op]}({a}, tl.where("
+                             f"{isn}, {_FILL[op]}, {vv}))")
+        # epilogue: every accumulator of the block in ONE CTA-wide
+        # reduction (one multi-operand tl.reduce), then G scalars an
+        # output
+        names = [n for j, _ in enumerate(self._accs)
+                 for a, f in self._acc_names(j)
+                 for n in ((a, f) if self._accs[j][0] in ("min", "max")
+                           else (a,))]
+        sums = [f"s_{n}" for n in names]
+        L.append(f"    {', '.join(sums)}, = tl.reduce(("
+                 f"{', '.join(names)},), 0, k3_combine)")
+        for j, (op, _, _) in enumerate(self._accs):
+            for g in range(G):
+                r = f"s_a{j}_{g}"
+                if op in ("min", "max"):
+                    r = f"tl.where(s_f{j}_{g} > 0, float('nan'), {r})"
+                L.append(f"    r{j}_{g} = {r}")
+        for k, j in enumerate(self._acc_of):
+            for g in range(G):
+                L.append(f"    tl.store(out_ptr + {k} * out_stride + "
+                         f"pid * G + {g}, r{j}_{g})")
+
+    def _combine_source(self) -> List[str]:
+        """The combine function of the unrolled epilogue's reduction:
+        add for SUM/COUNT, min/max for MIN/MAX, max for NaN flags; the
+        operands in the order _unrolled_body lists them."""
+        kinds = []
+        for op, _, _ in self._accs:
+            if op in ("min", "max"):
+                kinds += [_PICK[op], "tl.maximum"] * self.G
+            else:
+                kinds += ["+"] * self.G
+        n = len(kinds)
+        lhs = [f"l{i}" for i in range(n)]
+        rhs = [f"r{i}" for i in range(n)]
+        terms = [f"{a} + {b}" if k == "+" else f"{k}({a}, {b})"
+                 for k, a, b in zip(kinds, lhs, rhs)]
+        return ["@triton.jit",
+                f"def k3_combine({', '.join(lhs + rhs)}):",
+                f"    return {', '.join(terms)}", "", ""]
+
+    def _tile_body(self, L, ops, cols, nulls, consts):
+        """One [GP, SUB] accumulator tile per aggregate, added to
+        elementwise (the one-hot product) and summed over rows once."""
+        ind = ops.indent
+        L.append(ind + "garange = tl.arange(0, GP)")
+        L.append(ind + "h = (garange[:, None] == gi[None, :]) & "
+                 "mask[None, :]")
+        L.append(ind + "hf = h.to(tl.float32)")
+        for j, (op, e, off) in enumerate(self._accs):
+            a, f = f"a{j}", f"f{j}"
+            if e is None:
+                L.append(ind + f"{a} += hf")
+                continue
+            v, vn = self._values(ops, cols, nulls, consts, e, off)
+            hk = "h" if vn is None or op == "sum" else \
+                ops._tmp(f"h & ~{vn}[None, :]")
+            if op == "count":
+                L.append(ind + f"{a} += " + (
+                    "hf" if vn is None else f"{hk}.to(tl.float32)"))
+            elif op == "sum":
+                # vm is +0.0 on null rows, so vm * hf is bitwise
+                # vm * (h & ~null)
+                rk = "rin" if vn is None else ops._tmp(f"rin & ~{vn}")
+                vm = ops._tmp(f"tl.where({rk}, {v}, 0.0)")
+                L.append(ind + f"{a} += {vm}[None, :] * hf")
+            else:
+                vv = ops._tmp(f"tl.where({hk}, {v}[None, :], {_FILL[op]})")
+                isn = ops._tmp(f"{vv} != {vv}")
+                L.append(ind + f"{f} = tl.maximum({f}, "
+                         f"{isn}.to(tl.float32))")
+                L.append(ind + f"{a} = {_PICK[op]}({a}, tl.where({isn}, "
+                         f"{_FILL[op]}, {vv}))")
+        L.append("    garange = tl.arange(0, GP)")
+        for j, (op, _, _) in enumerate(self._accs):
+            r = f"{_REDUCE[op]}(a{j}, axis=1)"
+            if op in ("min", "max"):
+                r = f"tl.where(tl.max(f{j}, axis=1) > 0, float('nan'), {r})"
+            L.append(f"    r{j} = {r}")
+        for k, j in enumerate(self._acc_of):
+            L.append(f"    tl.store(out_ptr + {k} * out_stride + pid * G + "
+                     f"garange, r{j}, mask=garange < G)")
+
+    # --- launch -------------------------------------------------------------
+    def _load_kernel(self, dtypes: tuple):
+        kernel = self._kernels.get(dtypes)
+        if kernel is None:
+            src = self.triton_source(dtypes)
             digest = hashlib.sha1(src.encode()).hexdigest()[:16]
             path = BUILD_DIR / "triton_scan" / f"generic_scan_{digest}.py"
             if not path.exists():
@@ -636,34 +845,44 @@ class GenericScan:
                 f"_generic_scan_{digest}", path)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)     # imports triton
-            self._kernel = mod.generic_scan
-        return self._kernel
+            kernel = self._kernels[dtypes] = mod.generic_scan
+        return kernel
 
-    def launch(self, consts, col_arrs, null_arrs, valid):
-        kernel = self._load_kernel()
-        n = valid.shape[0]
-        grid = n // BLOCK_ROWS
-        dev = valid.device
-        if self.G is None:
-            gp, sub, g = 1, 1024, 1
-            shapes = [(grid,)] * (len(self.aggs) + 1)
-        else:
-            gp = max(2, _next_pow2(self.G))
-            sub, g = max(16, min(1024, 8192 // gp)), self.G
-            shapes = [(grid, self.G)] * (len(self.aggs) + 1)
-        outs = [torch.empty(s, dtype=torch.float32, device=dev)
-                for s in shapes]
+    def launch(self, consts, col_arrs, null_arrs, valid) -> torch.Tensor:
+        lanes = list(col_arrs) + list(null_arrs) + [valid]
+        kernel = self._load_kernel(tuple(t.dtype for t in lanes))
+        grid = valid.shape[0] // BLOCK_ROWS
+        width = 1 if self.G is None else self.G
+        out = torch.empty((len(self.aggs) + 1, grid)
+                          + (() if self.G is None else (self.G,)),
+                          dtype=torch.float32, device=valid.device)
+        _, sub, warps = self.config
+        gp = 1 if self.G is None else max(2, _next_pow2(self.G))
         LAUNCHES["generic_scan"] += 1
         self.launches += 1
-        kernel[(grid,)](consts, *col_arrs, *null_arrs, valid, *outs,
-                        BLOCK_ROWS=BLOCK_ROWS, SUB=sub, GP=gp, G=g,
-                        num_warps=8 if self.G is not None else 4)
-        return tuple(outs)
+        # bool lanes go in as uint8 views (no copy)
+        self.compiled = kernel[(grid,)](
+            consts, *[t.view(torch.uint8) if t.dtype == torch.bool else t
+                      for t in lanes],
+            out, grid * width, BLOCK_ROWS=BLOCK_ROWS, SUB=sub, GP=gp,
+            G=width, num_warps=warps)
+        return out
 
-    def __call__(self, consts, col_arrs, null_arrs, valid):
+    def compiled_stats(self) -> dict:
+        """Form, SUB, warps, and the registers and spills a thread of
+        the last launched kernel uses."""
+        form, sub, warps = self.config
+        ck = self.compiled
+        return {"form": form, "SUB": sub, "num_warps": warps,
+                "n_regs": getattr(ck, "n_regs", None),
+                "n_spills": getattr(ck, "n_spills", None)}
+
+    def partials(self, consts, col_arrs, null_arrs, valid) -> torch.Tensor:
+        """Every output in one f32 buffer [n_aggs + 1, grid(, G)]: the
+        aggregates' partials in order, then the row counts."""
         n = valid.shape[0]
-        lanes = list(col_arrs) + list(null_arrs) + [valid]
-        _check_lanes(lanes, n)
+        _check_lanes(list(col_arrs) + list(null_arrs) + [valid], n,
+                     HAND_DTYPES)
         if consts.dtype != torch.float32 or consts.device != valid.device \
                 or consts.shape[0] < max(self.n_consts, 1):
             raise ValueError("consts must be f32 [max(n_consts, 1)] on the "
@@ -672,6 +891,10 @@ class GenericScan:
                 len(null_arrs) != len(self.null_order):
             raise ValueError("lane count does not match the signature")
         if _device_of(valid) == "cpu":
-            return self.plain(consts, col_arrs, null_arrs, valid)
+            return torch.stack(self.plain(consts, col_arrs, null_arrs,
+                                          valid))
         return self.launch(consts, col_arrs, null_arrs, valid)
 
+    def __call__(self, consts, col_arrs, null_arrs, valid):
+        return tuple(self.partials(consts, col_arrs, null_arrs,
+                                   valid).unbind(0))

@@ -33,7 +33,7 @@ from ..device import DeviceLike, resolve_device
 from .device_batch import DeviceBatch, flipped_i64_scalar
 from .expr import (collect_constants, compile_expr, const_count,
                    expr_bound, expr_signature, referenced_columns)
-from .hand_scan import GenericScan, HandScanIneligible
+from .hand_scan import HAND_DTYPES, GenericScan, HandScanIneligible
 
 _U64_MAX = 0xFFFFFFFFFFFFFFFF
 
@@ -370,10 +370,6 @@ def _rescale_outs(raw_outs, raw_scales):
     return tuple(final)
 
 
-_HAND_DTYPES = (torch.float32, torch.float64, torch.int32, torch.int16,
-                torch.int8, torch.bool)
-
-
 class ScanKernel:
     """Signature-keyed cache of scan programs for one device."""
 
@@ -421,7 +417,7 @@ class ScanKernel:
             needed |= {cid for cid, _, _ in group.cols}
         for cid in needed:
             col = batch.cols.get(cid)
-            if col is None or col.dtype not in _HAND_DTYPES:
+            if col is None or col.dtype not in HAND_DTYPES:
                 raise HandScanIneligible("column_dtype")
             if col.dtype == torch.int32:
                 rng = batch.col_bounds.get(cid) or \
@@ -457,12 +453,13 @@ class ScanKernel:
                 col_order, null_order, len(consts))
             self._cache[key] = entry
             self.compiles += 1
-        f32 = torch.float32
-        carr = torch.tensor([float(c) for c in consts] or [0.0], dtype=f32,
-                            device=batch.device)
-        col_arrs = [batch.cols[cid].to(f32) for cid in col_order]
-        null_arrs = [batch.nulls[cid].to(f32) for cid in null_order]
-        return entry, (carr, col_arrs, null_arrs, batch.valid.to(f32))
+        carr = torch.tensor([float(c) for c in consts] or [0.0],
+                            dtype=torch.float32, device=batch.device)
+        # K3 loads every lane in its own dtype: the batch's tensors go
+        # in as they are, with no per-query cast or copy
+        return entry, (carr, [batch.cols[cid] for cid in col_order],
+                       [batch.nulls[cid] for cid in null_order],
+                       batch.valid)
 
     def hand_scan_plan(self, batch: DeviceBatch, where=None, aggs=(),
                        group=None):
@@ -485,11 +482,10 @@ class ScanKernel:
             r = str(e)
             self.hand_scan_refusals[r] = self.hand_scan_refusals.get(r, 0) + 1
             return None
-        outs = entry(*args)
-        agg_parts, cnt_parts = outs[:-1], outs[-1]
+        # every output's partials come back in one copy
+        parts = np.asarray(_np(entry.partials(*args)), np.float64)
         results = []
-        for a, p in zip(aggs, agg_parts):
-            p = np.asarray(_np(p), np.float64)
+        for a, p in zip(aggs, parts[:-1]):
             if a.op == "count":
                 # per-block partials are exact ints (block <= 4096 rows);
                 # summing them in int64 on the host keeps totals exact
@@ -502,8 +498,7 @@ class ScanKernel:
                 results.append(p.min(axis=0).astype(np.float32))
             else:
                 results.append(p.max(axis=0).astype(np.float32))
-        counts = np.asarray(_np(cnt_parts), np.float64).sum(axis=0).astype(
-            np.int64)
+        counts = parts[-1].sum(axis=0).astype(np.int64)
         return tuple(results), counts, None
 
     def _prepare(self, batch, where, aggs, group, read_ht) -> dict:
