@@ -12,6 +12,7 @@ Phases (any failed check raises and the script exits non-zero):
   2. hold every kernel against its plain PyTorch version on the card, on
      the main path's own inputs: K1/K2 on the SF1 columns padded to the
      4096-row grid, K3 on the Q6 and Q1 lanes of the 8,388,608-row
+     bucket and of the streamed scan's last chunk in its 1,048,576-row
      bucket, in the batch's own dtypes — and time kernel, plain version
      and (where one exists) the one-call PyTorch equivalent with CUDA
      events; print K3's form, registers and spills per signature (K1's
@@ -22,12 +23,29 @@ Phases (any failed check raises and the script exits non-zero):
      tablet): generate_lineitem -> TableCodec.bulk_blocks(262144-row
      blocks) -> build_batch(device="cuda") -> ScanKernel.run for Q6 and
      Q1 on the exact route (MVCC modes none and visible) and the hand
-     route, plus q6_scan and grouped_sum; every answer is held against
-     numpy_reference, and every kernel's launch count must rise;
-  4. profile each route of ScanKernel.run (exact and hand, Q6 and Q1):
-     wall time per query on the host clock (profiler off), device-busy
-     time per query from torch.profiler, the device's idle share and the
-     kernels that take most device time — one JSON line per route;
+     route, plus q6_scan and grouped_sum; then the tablet's other read
+     shapes at the same scale:
+       dedup   an update overlay (every 10th rowid's quantity and price,
+               at ht2) and tombstones (every 100th rowid, at ht3) over
+               the bulk load; Q6 and Q1 at read points below ht2,
+               between ht2 and ht3, and above ht3;
+       hash    Q1's aggregates GROUP BY l_shipdate (HashGroupSpec);
+       dict    Q1 over the string-keyed lineitem (flag columns as
+               STRING), monolithic and through streaming_scan_aggregate;
+       stream  Q6 and Q1 through streaming_scan_aggregate: on the hand
+               route with no read point (K3 per chunk; its launch count
+               must rise) and on the exact route at a read point;
+     every answer is held against its numpy reference (and each streamed
+     answer against the monolithic one), and every kernel's launch count
+     must rise;
+  4. profile each route (exact and hand, Q6 and Q1, then dedup, hash,
+     dict and the streamed routes): wall time per query on the host
+     clock (profiler off), device-busy time per query from
+     torch.profiler, the device's idle share and the activities that
+     take most device time — one JSON line per route; a window that
+     lost device activity (none at all, fewer hand-kernel activities
+     than launches, a count that is not a whole multiple of the
+     queries) fails the run;
   5. print the kernels line, then the device line last.
 
 It imports nothing of JAX: the port stands alone.
@@ -46,6 +64,15 @@ PROFILE_ITERS = 10               # queries per timed and profiled window
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 SWEEP_ROUNDS = 5                 # interleaved timing rounds per K3 config
+STREAM_ITERS = 2                 # streamed queries per timed window (each
+                                 # forms every chunk's batch on the host)
+PROFILE_MARGIN_S = 0.05          # host time between a profiling window's
+                                 # edges and the route's first/last launch
+#: the device names of each hand kernel's launches (hs.LAUNCHES keys)
+HAND_KERNEL_NAMES = {"q6_scan": ("q6_scan_kernel",),
+                     "grouped_sum": ("grouped_sum_onehot",
+                                     "grouped_sum_histogram"),
+                     "generic_scan": ("generic_scan",)}
 #: K3 grouped (form, SUB, num_warps) configs timed beside the chosen one
 K3_GROUPED_CONFIGS = [("unrolled", 256, 4), ("unrolled", 128, 4),
                       ("tile", 128, 4), ("tile", 128, 8), ("tile", 256, 4),
@@ -136,6 +163,276 @@ def expr_nodes(node) -> int:
                    and isinstance(c[0], str))
 
 
+def profile_route(torch, hs, name, card, rows, run, iters) -> list:
+    """One `profile` JSON line for a route: wall ms per query on the
+    host clock (profiler off), device-busy ms per query from
+    torch.profiler (device activities only: kernels and copies, from
+    every thread), the idle share and the top device activities.
+
+    The profiler keeps only device activities whose timestamps fall
+    inside its capture window, so the window opens and closes
+    PROFILE_MARGIN_S of host time away from the route's first and last
+    launch: a short window (hand Q6 is about 3.5 ms) is never cut at an
+    edge.  Returns what the window failed to record, for the caller to
+    fail on: no device activity at all, a hand kernel recorded fewer or
+    more times than its launch count rose, or a device activity recorded
+    a number of times that is not a whole multiple of the queries run
+    (each query launches the same work, so a lost edge shows there)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()                                   # warm (built above)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / iters
+    before = dict(hs.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    launched = {k: v - before[k] for k, v in hs.LAUNCHES.items()}
+    recorded = {k: 0 for k in launched}
+    top, busy_us, problems = [], 0.0, []
+    for e in prof.key_averages():
+        # an aten op's row repeats its kernels' time: device rows only
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us <= 0:
+            continue
+        busy_us += us
+        top.append((us / iters, e.key, e.count / iters))
+        if e.count % iters:
+            problems.append(f"{e.key[:60]} recorded {e.count} times "
+                            f"over {iters} queries")
+        for k, device_names in HAND_KERNEL_NAMES.items():
+            if e.key in device_names:
+                recorded[k] += e.count
+    if busy_us <= 0:
+        problems.append("no device activity recorded")
+    if recorded != launched:
+        problems.append(f"hand kernels recorded {recorded}, launched "
+                        f"{launched}")
+    top.sort(reverse=True)
+    busy = busy_us / iters / 1e6
+    print(json.dumps({"profile": name, "card": card, "wall_ms": wall * 1e3,
+                      "device_busy_ms": busy * 1e3,
+                      "idle_share": 1.0 - busy / wall,
+                      "rows_per_s": rows / wall,
+                      "top_kernels": [
+                          {"name": k[:80], "us_per_query": us,
+                           "launches_per_query": c}
+                          for us, k, c in top[:6]],
+                      "window_problems": problems}))
+    return [f"profile {name}: {p}" for p in problems]
+
+
+def tablet_read_shapes(torch, np, seed, data, blocks, batch, kern, timed,
+                       host, rel, check_q6, check_q1) -> dict:
+    """Phase 3's second half: dedup, hash group, dictionary group and
+    the streamed scan at SF1, each held against numpy.  Returns the
+    routes phase 4 profiles: name -> (hand flag, run(), iterations)."""
+    from yugabyte_db_tpu_torch.docdb.table_codec import TableCodec
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops import hand_scan as hs
+    from yugabyte_db_tpu_torch.ops import stream_scan as ss
+    from yugabyte_db_tpu_torch.ops.device_batch import build_batch
+    from yugabyte_db_tpu_torch.ops.grouped_scan import decode_slot_groups
+    from yugabyte_db_tpu_torch.ops.scan import HashGroupSpec
+    from yugabyte_db_tpu_torch.storage.columnar import ColumnarBlock
+    from yugabyte_db_tpu_torch.utils import flags
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    Q6, Q1 = tpch.TPCH_Q6, tpch.TPCH_Q1
+    n = len(data["rowid"])
+    routes = {}
+
+    # --- dedup: overlay at ht2, tombstones at ht3 -------------------------
+    t0 = time.perf_counter()
+    ht1 = int(blocks[0].ht[0])
+    ht2, ht3 = ht1 + (1 << 12), ht1 + (2 << 12)
+    rowid = np.concatenate([b.pk[tpch.ROWID] for b in blocks])
+    kh = np.concatenate([b.key_hash for b in blocks])
+    up = np.nonzero(rowid % 10 == 0)[0]
+    dl = np.nonzero(rowid % 100 == 0)[0]
+    rng = np.random.default_rng(seed + 1)
+    new_qty = rng.integers(1, 51, len(up)).astype(np.float64)
+    new_price = rng.uniform(900, 105000, len(up))
+    fixed = {}
+    for c in Q1.columns:
+        full = np.concatenate([b.fixed[c][0] for b in blocks])
+        fixed[c] = (full[up], np.zeros(len(up), bool))
+    fixed[tpch.QTY] = (new_qty, fixed[tpch.QTY][1])
+    fixed[tpch.EXTPRICE] = (new_price, fixed[tpch.EXTPRICE][1])
+    overlay = ColumnarBlock.from_arrays(
+        1, kh[up], np.full(len(up), ht2, np.uint64),
+        write_id=np.arange(len(up)), fixed=fixed, unique_keys=False)
+    tombs = ColumnarBlock.from_arrays(
+        1, kh[dl], np.full(len(dl), ht3, np.uint64),
+        write_id=np.arange(len(dl)),
+        fixed={c: (np.zeros(len(dl), v.dtype), np.ones(len(dl), bool))
+               for c, (v, _) in fixed.items()},
+        tombstone=np.ones(len(dl), bool), unique_keys=False)
+    dbatch = build_batch(list(blocks) + [overlay, tombs], Q1.columns,
+                         device="cuda")
+    torch.cuda.synchronize()
+    check(not dbatch.unique_keys, "dedup batch claims unique keys")
+    print(json.dumps({"dedup_load": {
+        "rows": dbatch.n_rows, "bucket": dbatch.padded_rows,
+        "overlay_rows": len(up), "tombstones": len(dl),
+        "build_s": time.perf_counter() - t0}}))
+    # the table at each read point: rowid r is row r of `data`
+    after_up = dict(data)
+    after_up["l_quantity"] = data["l_quantity"].copy()
+    after_up["l_extendedprice"] = data["l_extendedprice"].copy()
+    after_up["l_quantity"][rowid[up]] = new_qty
+    after_up["l_extendedprice"][rowid[up]] = new_price
+    keep = np.ones(n, bool)
+    keep[rowid[dl]] = False
+    views = {"below_ht2": (ht1, data), "between": (ht2, after_up),
+             "above_ht3": (ht3 + 1, {k: v[keep]
+                                     for k, v in after_up.items()})}
+    for label, (read_ht, view) in views.items():
+        refs = (tpch.numpy_reference(Q6, view),
+                tpch.numpy_reference(Q1, view))
+        out, _ = timed(lambda: kern.run(dbatch, Q6.where, Q6.aggs,
+                                        read_ht=read_ht))
+        check_q6(out, f"dedup Q6 {label}", refs[0])
+        out, _ = timed(lambda: kern.run(dbatch, Q1.where, Q1.aggs,
+                                        Q1.group, read_ht=read_ht))
+        check_q1(out, f"dedup Q1 {label}", True, refs[1])
+    check(any(sig[0] != "hand" and sig[3] == "dedup"
+              for sig in kern._cache),
+          "dedup mode was not selected")
+    for q in (Q6, Q1):
+        routes[f"dedup_{q.name}"] = (False, lambda q=q: kern.run(
+            dbatch, q.where, q.aggs, q.group, read_ht=ht2),
+            PROFILE_ITERS)
+    print("[phase 3] dedup OK at three read points")
+
+    # --- hash group: Q1's aggregates by l_shipdate -------------------------
+    hg = HashGroupSpec(cols=(tpch.SHIPDATE,))
+    (outs, counts, _, gvals, n_groups), _ = timed(
+        lambda: kern.run(batch, Q1.where, Q1.aggs, hg))
+    m = data["l_shipdate"] <= tpch._Q1_CUT
+    day = data["l_shipdate"][m]
+    days = np.unique(day)
+    check(int(host(n_groups)) == len(days),
+          f"hash group n_groups {int(host(n_groups))} != {len(days)}")
+    counts = host(counts)
+    live = counts > 0
+    check(np.array_equal(host(gvals[0])[live], days),
+          "hash group values differ from numpy's distinct days")
+    idx = np.searchsorted(days, day)
+    want_cnt = np.bincount(idx, minlength=len(days))
+    want_qty = np.bincount(idx, weights=data["l_quantity"][m],
+                           minlength=len(days))
+    want_price = np.bincount(idx, weights=data["l_extendedprice"][m],
+                             minlength=len(days))
+    check(np.array_equal(counts[live], want_cnt), "hash group counts")
+    check(np.array_equal(np.asarray(outs[0])[live], want_qty),
+          "hash group quantity sums not exact")
+    err = np.max(np.abs(np.asarray(outs[1])[live] - want_price)
+                 / want_price)
+    check(err < 1e-5, f"hash group price sums: relative error {err}")
+    routes["hash_q1_by_shipdate"] = (False, lambda: kern.run(
+        batch, Q1.where, Q1.aggs, hg), PROFILE_ITERS)
+    print(f"[phase 3] hash group OK: {len(days)} groups")
+
+    # --- dictionary group: Q1 over the string-keyed lineitem ---------------
+    t0 = time.perf_counter()
+    sq = tpch.tpch_q1_str()
+    sblocks = TableCodec(tpch.lineitem_str_info()).bulk_blocks(
+        tpch.lineitem_str_data(data), HybridTime(ht1), block_rows=262144)
+    t1 = time.perf_counter()
+    sbatch = build_batch(sblocks, sq.columns, device="cuda")
+    torch.cuda.synchronize()
+    print(json.dumps({"dict_load": {
+        "rows": sbatch.n_rows, "blocks": len(sblocks),
+        "bulk_blocks_s": t1 - t0,
+        "build_batch_s": time.perf_counter() - t1}}))
+    ref = tpch.numpy_reference(sq, data)
+
+    def check_dict(outs, counts, spill, dicts, what):
+        check(int(host(spill)) == 0, f"{what}: spill {int(host(spill))}")
+        vals, cnts, gv = decode_slot_groups(sq.group, dicts, outs,
+                                            host(counts))
+        got = {k: i for i, k in enumerate(zip(*gv))}
+        check(set(got) == set(ref), f"{what}: groups {sorted(got)}")
+        for key, i in got.items():
+            qsum, psum, cnt = ref[key]
+            check(int(cnts[i]) == cnt, f"{what}: count {key}")
+            check(float(vals[0][i]) == qsum, f"{what}: qty sum {key}")
+            check(rel(vals[1][i], psum) < 1e-5, f"{what}: price {key}")
+        return {k: (float(vals[0][i]), float(vals[1][i]), int(cnts[i]))
+                for k, i in got.items()}
+    (outs, counts, _, spill), _ = timed(
+        lambda: kern.run(sbatch, sq.where, sq.aggs, sq.group))
+    mono = check_dict(outs, counts, spill, sbatch.dicts, "dict Q1")
+    grouped = {}
+    (souts, scounts), _ = timed(lambda: ss.streaming_scan_aggregate(
+        sblocks, sq.columns, sq.where, sq.aggs, sq.group, kernel=kern,
+        grouped_out=grouped))
+    check(ss.LAST_STREAM_STATS["chunks"] >= 3, "dict Q1 did not stream")
+    streamed = check_dict(souts, scounts, grouped["spill"],
+                          grouped["dicts"], "streamed dict Q1")
+    for key, (qsum, psum, cnt) in mono.items():
+        s_q, s_p, s_c = streamed[key]
+        check(s_c == cnt and s_q == qsum and rel(s_p, psum) < 1e-9,
+              f"streamed dict Q1 differs from monolithic at {key}")
+    routes["dict_q1_str"] = (False, lambda: kern.run(
+        sbatch, sq.where, sq.aggs, sq.group), PROFILE_ITERS)
+    routes["stream_dict_q1_str"] = (False, lambda: ss.streaming_scan_aggregate(
+        sblocks, sq.columns, sq.where, sq.aggs, sq.group, kernel=kern),
+        STREAM_ITERS)
+    print(f"[phase 3] dict Q1 OK, monolithic and streamed "
+          f"({ss.LAST_STREAM_STATS['chunks']} chunks)")
+
+    # --- streaming: hand route (K3 per chunk), exact route at a read point
+    cols = Q1.columns
+    for hand, read_ht in ((True, None), (False, ht1)):
+        with flags.overridden("hand_scan_enabled", hand):
+            for q in (Q6, Q1):
+                what = (f"streamed {'hand' if hand else 'exact'} {q.name}"
+                        f"{'' if read_ht is None else ' at ht1'}")
+                k3_before = hs.LAUNCHES["generic_scan"]
+                (souts, scounts), _ = timed(
+                    lambda: ss.streaming_scan_aggregate(
+                        blocks, cols, q.where, q.aggs, q.group, read_ht,
+                        kernel=kern))
+                chunks = ss.LAST_STREAM_STATS["chunks"]
+                check(chunks >= 3, f"{what}: {chunks} chunks")
+                k3 = hs.LAUNCHES["generic_scan"] - k3_before
+                check(k3 == (chunks if hand else 0),
+                      f"{what}: K3 launched {k3} times over {chunks} chunks")
+                mono = kern.run(batch, q.where, q.aggs, q.group, read_ht)
+                if q is Q6:
+                    check_q6((souts,), what)
+                    check(rel(souts[0], host(mono[0][0])) < 1e-9,
+                          f"{what}: differs from monolithic")
+                else:
+                    check_q1((souts, scounts), what, True)
+                    check(np.array_equal(scounts, host(mono[1]))
+                          and np.array_equal(souts[0], host(mono[0][0])),
+                          f"{what}: counts/qty differ from monolithic")
+                    check(max(rel(a, b) for a, b in zip(
+                        souts[1], host(mono[0][1]))) < 1e-9,
+                          f"{what}: price differs from monolithic")
+                routes[f"stream_{'hand' if hand else 'exact_read'}_"
+                       f"{q.name}"] = (hand, lambda q=q, r=read_ht:
+                                       ss.streaming_scan_aggregate(
+                                           blocks, cols, q.where, q.aggs,
+                                           q.group, r, kernel=kern),
+                                       STREAM_ITERS)
+                print(json.dumps({"stream": what, **ss.LAST_STREAM_STATS}))
+    return routes
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -151,7 +448,9 @@ def main(argv=None) -> int:
     from yugabyte_db_tpu_torch.docdb.table_codec import TableCodec
     from yugabyte_db_tpu_torch.models import tpch
     from yugabyte_db_tpu_torch.ops import hand_scan as hs
-    from yugabyte_db_tpu_torch.ops.device_batch import build_batch
+    from yugabyte_db_tpu_torch.ops import stream_scan as ss
+    from yugabyte_db_tpu_torch.ops.device_batch import (bucket_rows,
+                                                        build_batch)
     from yugabyte_db_tpu_torch.ops.scan import ScanKernel
     from yugabyte_db_tpu_torch.utils import flags
     from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
@@ -280,10 +579,22 @@ def main(argv=None) -> int:
                               **k.compiled_stats(), "ms_rounds": ms,
                               "ms_median": statistics.median(ms)}))
 
+    # the streamed path's chunk bucket: its last chunk (the one padded
+    # most), formed as streaming_scan_aggregate forms every chunk
+    chunks = ss.plan_chunks(blocks, int(flags.get("streaming_chunk_rows")))
+    chunk_bucket = bucket_rows(max(sum(b.n for b in c) for c in chunks))
+    chunk_batch = build_batch(chunks[-1], sorted(tpch.TPCH_Q1.columns),
+                              device="cuda", pad_to=chunk_bucket)
     for q in (tpch.TPCH_Q6, tpch.TPCH_Q1):
         entry, call = probe.hand_scan_plan(batch, q.where, q.aggs, q.group)
         err = k3_check(entry, call, q.name)
         print(json.dumps({"k3": q.name, **entry.compiled_stats()}))
+        c_entry, c_call = probe.hand_scan_plan(chunk_batch, q.where, q.aggs,
+                                               q.group)
+        c_err = k3_check(c_entry, c_call, f"{q.name} chunk bucket")
+        print(json.dumps({"k3_chunk": q.name, "bucket": chunk_bucket,
+                          "rows": chunk_batch.n_rows, "max_abs_err": c_err}))
+        err = max(err, c_err)
         # K3 reads every lane once in its own dtype (the batch's: int32,
         # f32, bool), so the bound counts each at its element size
         row_bytes = sum(t.element_size()
@@ -319,15 +630,15 @@ def main(argv=None) -> int:
     def rel(a, b):
         return abs(float(a) - float(b)) / max(abs(float(b)), 1e-300)
 
-    def check_q6(out, what):
-        r = rel(host(out[0][0]), ref_q6)
+    def check_q6(out, what, ref=None):
+        r = rel(host(out[0][0]), ref_q6 if ref is None else ref)
         check(r < 1e-5, f"{what}: Q6 relative error {r}")
         return r
 
-    def check_q1(out, what, exact_qty):
+    def check_q1(out, what, exact_qty, ref=None):
         counts = host(out[1])
         for g in range(6):
-            qsum, psum, cnt = ref_q1[g]
+            qsum, psum, cnt = (ref_q1 if ref is None else ref)[g]
             check(int(counts[g]) == cnt, f"{what}: Q1 count g{g}")
             check(int(host(out[0][4])[g]) == cnt,
                   f"{what}: Q1 count(*) g{g}")
@@ -386,12 +697,16 @@ def main(argv=None) -> int:
         for g in range(6):
             check(rel(sums[g], ref_q1[g][0]) < 1e-5, f"grouped_sum g{g}")
         rates["grouped_sum_host_wrapper"] = n / t
+    routes = tablet_read_shapes(torch, np, args.seed, data, blocks, batch,
+                                kern, timed, host, rel, check_q6, check_q1)
     launches = dict(hs.LAUNCHES)
     per_query = {}
     for key, e in kern._cache.items():
         if key[0] == "hand":
-            per_query[f"generic_scan[{'q6' if e.G is None else 'q1'}]"] = \
-                e.launches
+            # one entry per signature: the monolithic bucket and the
+            # streamed chunks' bucket count under one kernel name
+            name = f"generic_scan[{'q6' if e.G is None else 'q1'}]"
+            per_query[name] = per_query.get(name, 0) + e.launches
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
     check(not kern.hand_scan_refusals,
@@ -401,51 +716,18 @@ def main(argv=None) -> int:
         print(f"[rate] {r}: {v:.1f} rows/s ({card})")
 
     # --- phase 4: where the time goes, per route --------------------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    problems = []
     for route in ("exact", "hand"):
         with flags.overridden("hand_scan_enabled", route == "hand"):
             for q in (Q6, Q1):
-                def run():
-                    return kern.run(batch, q.where, q.aggs, q.group)
-                run()                           # warm (built above)
-                torch.cuda.synchronize()
-                t = time.perf_counter()         # wall: profiler off
-                for _ in range(PROFILE_ITERS):
-                    run()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t) / PROFILE_ITERS
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    for _ in range(PROFILE_ITERS):
-                        run()
-                    torch.cuda.synchronize()
-                rows, busy_us = [], 0.0
-                for e in prof.key_averages():
-                    # device-side activities only (kernels, copies): an
-                    # aten op's row repeats its kernels' time
-                    if e.device_type != DeviceType.CUDA:
-                        continue
-                    us = getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0))
-                    if us > 0:
-                        busy_us += us
-                        rows.append((us / PROFILE_ITERS, e.key,
-                                     e.count // PROFILE_ITERS))
-                rows.sort(reverse=True)
-                busy = busy_us / PROFILE_ITERS / 1e6
-                print(json.dumps({"profile": f"{route}_{q.name}",
-                                  "card": card,
-                                  "wall_ms": wall * 1e3,
-                                  "device_busy_ms": busy * 1e3 if busy
-                                  else None,
-                                  "idle_share": 1.0 - busy / wall if busy
-                                  else None,
-                                  "rows_per_s": n / wall,
-                                  "top_kernels": [
-                                      {"name": k[:80], "us_per_query": us,
-                                       "launches_per_query": c}
-                                      for us, k, c in rows[:6]]}))
+                problems += profile_route(
+                    torch, hs, f"{route}_{q.name}", card, n,
+                    lambda q=q: kern.run(batch, q.where, q.aggs, q.group),
+                    PROFILE_ITERS)
+    for name, (hand, run, iters) in routes.items():
+        with flags.overridden("hand_scan_enabled", hand):
+            problems += profile_route(torch, hs, name, card, n, run, iters)
+    check(not problems, "; ".join(problems))
     check(not kern.hand_scan_refusals,
           f"hand route refused: {kern.hand_scan_refusals}")
 

@@ -89,3 +89,124 @@ def test_cuda_generic_kernel_matches_plain(cuda_device, name, lanes, form):
     want = k3.plain(*call)
     for (op, _), g, w in zip(list(aggs) + [("count", None)], got, want):
         assert_partials(g, w, op, f"{name} {lanes} {form} {op}")
+
+
+# --- the exact route's new shapes on the card against the CPU -------------------
+def _run_on(device, blocks, cols, where, aggs, group=None, read_ht=None):
+    from yugabyte_db_tpu_torch.ops.device_batch import build_batch
+    from yugabyte_db_tpu_torch.ops.scan import ScanKernel
+    from yugabyte_db_tpu_torch.utils import flags
+    # both batches in f32 (the card's policy), so the two devices run
+    # the same computation: int64 sums, sorts and masks are exact
+    with flags.overridden("device_float_dtype", "float32"):
+        batch = build_batch(blocks, cols, device=device)
+    out = ScanKernel(device=device).run(batch, where, aggs, group, read_ht)
+    return [[np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+             for x in o] if isinstance(o, tuple) else
+            np.asarray(o.cpu() if isinstance(o, torch.Tensor) else o)
+            for o in out]
+
+
+def _same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, list):
+            _same(g, w)
+        else:
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert np.array_equal(np.atleast_1d(g).view(np.uint8),
+                                  np.atleast_1d(w).view(np.uint8))
+
+
+def _lineitem(str_keys=False, n=5 * B + 77):
+    from yugabyte_db_tpu_torch.docdb.table_codec import TableCodec
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    data = tpch.generate_lineitem(n / tpch.ROWS_PER_SF, seed=3)
+    info = tpch.lineitem_info()
+    if str_keys:
+        data, info = tpch.lineitem_str_data(data), tpch.lineitem_str_info()
+    return TableCodec(info).bulk_blocks(data, HybridTime(1000),
+                                        block_rows=B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("read_ht", [999, 1000, 1500, 2500])
+def test_cuda_dedup_matches_cpu(cuda_device, read_ht):
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.storage.columnar import ColumnarBlock
+    blocks = _lineitem()
+    kh = np.concatenate([b.key_hash for b in blocks])
+    rng = np.random.default_rng(1)
+    up = rng.choice(len(kh), len(kh) // 5, replace=False)
+    cols = tpch.TPCH_Q1.columns
+    fixed = {c: (np.concatenate([b.fixed[c][0] for b in blocks])[up],
+                 np.zeros(len(up), bool)) for c in cols}
+    blocks.append(ColumnarBlock.from_arrays(
+        1, kh[up], np.full(len(up), 1200, np.uint64),
+        write_id=np.arange(len(up)), fixed=fixed,
+        tombstone=rng.random(len(up)) < 0.3, unique_keys=False))
+    blocks.append(ColumnarBlock.from_arrays(
+        1, kh[up[:500]], np.full(500, 2000, np.uint64),
+        write_id=np.arange(500),
+        fixed={c: (v[:500] * 2, m[:500]) for c, (v, m) in fixed.items()},
+        unique_keys=False))
+    for q in (tpch.TPCH_Q6, tpch.TPCH_Q1):
+        _same(_run_on(cuda_device, blocks, cols, q.where, q.aggs, q.group,
+                      read_ht),
+              _run_on("cpu", blocks, cols, q.where, q.aggs, q.group,
+                      read_ht))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [(6,), (5,), (6, 7), (3,)])
+def test_cuda_hash_group_matches_cpu(cuda_device, cols):
+    # int32 keys (flags, shipdate) and a float key (discount)
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops.scan import HashGroupSpec
+    blocks = _lineitem()
+    q = tpch.TPCH_Q1
+    aggs = q.aggs + (tpch.AggSpec("min", ("col", tpch.EXTPRICE)),
+                     tpch.AggSpec("max", ("col", tpch.TAX)))
+    group = HashGroupSpec(cols=cols)
+    _same(_run_on(cuda_device, blocks, q.columns, q.where, aggs, group),
+          _run_on("cpu", blocks, q.columns, q.where, aggs, group))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_slots", [4, 4096])
+def test_cuda_dict_group_matches_cpu(cuda_device, max_slots):
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops.grouped_scan import DictGroupSpec
+    blocks = _lineitem(str_keys=True)
+    q = tpch.tpch_q1_str()
+    group = DictGroupSpec(cols=q.group.cols, max_slots=max_slots)
+    where = ("and", q.where, ("dictlut", ("col", tpch.LINESTATUS), [0, 1]))
+    for w in (q.where, where):
+        _same(_run_on(cuda_device, blocks, q.columns, w, q.aggs, group),
+              _run_on("cpu", blocks, q.columns, w, q.aggs, group))
+
+
+@pytest.mark.cuda
+def test_cuda_streamed_q1_runs_k3_per_chunk(cuda_device):
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops import stream_scan as ss
+    from yugabyte_db_tpu_torch.ops.scan import ScanKernel
+    from yugabyte_db_tpu_torch.utils import flags
+    blocks = _lineitem(n=12 * B + 5)
+    q = tpch.TPCH_Q1
+    with flags.overridden("hand_scan_enabled", True), \
+            flags.overridden("device_float_dtype", "float32"):
+        before = hs.LAUNCHES["generic_scan"]
+        go, gc = ss.streaming_scan_aggregate(
+            blocks, q.columns, q.where, q.aggs, q.group,
+            kernel=ScanKernel(device=cuda_device), chunk_rows=4 * B)
+        chunks = ss.LAST_STREAM_STATS["chunks"]
+        assert chunks == 4
+        assert hs.LAUNCHES["generic_scan"] - before == chunks
+        wo, wc = ss.streaming_scan_aggregate(
+            blocks, q.columns, q.where, q.aggs, q.group,
+            kernel=ScanKernel(device="cpu"), chunk_rows=4 * B)
+    assert np.array_equal(gc, wc)
+    for (op, _), g, w in zip([(a.op, a.expr) for a in q.aggs], go, wo):
+        assert_partials(g, w, op)

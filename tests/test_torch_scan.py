@@ -9,8 +9,6 @@ import pytest
 import torch
 
 from yugabyte_db_tpu.ops.device_batch import build_batch as jbuild
-from yugabyte_db_tpu.ops.scan import AggSpec as JAgg
-from yugabyte_db_tpu.ops.scan import GroupSpec as JGroup
 from yugabyte_db_tpu.ops.scan import ScanKernel as JKernel
 from yugabyte_db_tpu.storage.columnar import ColumnarBlock as JBlock
 from yugabyte_db_tpu_torch.models import tpch
@@ -19,9 +17,10 @@ from yugabyte_db_tpu_torch.ops.scan import (AggSpec, GroupSpec,
                                             HashGroupSpec, NotPortedError,
                                             ScanKernel)
 from yugabyte_db_tpu_torch.storage.columnar import ColumnarBlock
-from tests.torch_parity import (assert_bitwise, flags_set, float_dtype,
-                                jax_blocks, lineitem_data,
-                                port_blocks_from, reference_arrays)
+from tests.torch_parity import (assert_bitwise, assert_same_run, flags_set,
+                                float_dtype, jax_blocks, lineitem_data,
+                                port_blocks_from, reference_arrays,
+                                to_jax_aggs, to_jax_group)
 
 C = tpch.C
 Q, P, D, T, S, R, L = (tpch.QTY, tpch.EXTPRICE, tpch.DISCOUNT, tpch.TAX,
@@ -46,15 +45,6 @@ QUERIES = {
 }
 
 
-def _to_jax(obj):
-    """A port AggSpec/GroupSpec tuple as the reference's classes."""
-    if obj is None:
-        return None
-    if isinstance(obj, GroupSpec):
-        return JGroup(cols=obj.cols)
-    return tuple(JAgg(a.op, a.expr) for a in obj)
-
-
 @pytest.fixture(scope="module")
 def blocks():
     data = lineitem_data()
@@ -73,27 +63,17 @@ def _batches(blocks, mode, bounds=True):
     return jbat, pbat
 
 
-def _assert_same_run(jout, pout, what):
-    jo, jc, jm = jout[:3]
-    po, pc, pm = pout[:3]
-    assert len(jo) == len(po), what
-    for i, (a, b) in enumerate(zip(po, jo)):
-        assert_bitwise(a, b, f"{what} agg {i}")
-    assert_bitwise(pc, jc, f"{what} counts")
-    assert_bitwise(pm, jm, f"{what} mask")
-
-
 @pytest.mark.parametrize("read_ht", [None, 1000, 999])
 @pytest.mark.parametrize("mode", ["float32", "float64"])
 @pytest.mark.parametrize("query", sorted(QUERIES))
 def test_exact_route_bitwise(blocks, query, mode, read_ht):
     where, aggs, group = QUERIES[query]
     jbat, pbat = _batches(blocks, mode)
-    jout = JKernel().run(jbat, where, _to_jax(aggs), _to_jax(group),
+    jout = JKernel().run(jbat, where, to_jax_aggs(aggs), to_jax_group(group),
                          read_ht=read_ht)
     pout = ScanKernel(device="cpu").run(pbat, where, aggs, group,
                                         read_ht=read_ht)
-    _assert_same_run(jout, pout, f"{query}/{mode}/{read_ht}")
+    assert_same_run(jout, pout, f"{query}/{mode}/{read_ht}")
 
 
 @pytest.mark.parametrize("mode", ["float32", "float64"])
@@ -110,7 +90,7 @@ def test_dynamic_scale_path_matches_reference(blocks, query, mode):
     # the device dtype (positive values: relative error <= eps).
     where, aggs, group = QUERIES[query]
     jbat, pbat = _batches(blocks, mode, bounds=False)
-    jo, jc, jm = JKernel().run(jbat, where, _to_jax(aggs), _to_jax(group))
+    jo, jc, jm = JKernel().run(jbat, where, to_jax_aggs(aggs), to_jax_group(group))
     po, pc, pm = ScanKernel(device="cpu").run(pbat, where, aggs, group)
     assert_bitwise(pc, jc, "counts")
     assert_bitwise(pm, jm, "mask")
@@ -131,9 +111,9 @@ def test_group_strategies_bitwise(blocks, strategy):
     jbat, pbat = _batches(blocks, "float32")
     with flags_set({"scan_group_strategy": strategy},
                    {"scan_group_strategy": strategy}):
-        jout = JKernel().run(jbat, where, _to_jax(aggs), _to_jax(group))
+        jout = JKernel().run(jbat, where, to_jax_aggs(aggs), to_jax_group(group))
         pout = ScanKernel(device="cpu").run(pbat, where, aggs, group)
-    _assert_same_run(jout, pout, strategy)
+    assert_same_run(jout, pout, strategy)
 
 
 @pytest.mark.parametrize("mode", ["float32", "float64"])
@@ -159,11 +139,11 @@ def test_visible_mode_with_tombstones_and_versions(blocks, mode):
     for q in ("q6", "q1"):
         where, aggs, group = QUERIES[q]
         for read_ht in (1000, 2 ** 63 + 4, 2 ** 63 + 5, 2 ** 64 - 1):
-            jout = JKernel().run(jbat, where, _to_jax(aggs), _to_jax(group),
+            jout = JKernel().run(jbat, where, to_jax_aggs(aggs), to_jax_group(group),
                                  read_ht=read_ht)
             pout = ScanKernel(device="cpu").run(pbat, where, aggs, group,
                                                 read_ht=read_ht)
-            _assert_same_run(jout, pout, f"tomb {q} {read_ht}")
+            assert_same_run(jout, pout, f"tomb {q} {read_ht}")
 
 
 def test_signature_cache_and_compiles(blocks):
@@ -181,13 +161,24 @@ def test_signature_cache_and_compiles(blocks):
 
 
 def test_unported_shapes_raise_naming_the_roadmap(blocks):
+    # dedup mode and HashGroupSpec are served now (tests/test_torch_mvcc.py,
+    # tests/test_torch_grouped.py); the native prefilter of the streamed
+    # scan is what still raises, naming its ROADMAP.md item
+    from yugabyte_db_tpu_torch.ops.stream_scan import \
+        streaming_scan_aggregate
+    _, _, pb = blocks
     _, pbat = _batches(blocks, "float32")
     k = ScanKernel(device="cpu")
-    with pytest.raises(NotPortedError, match="ROADMAP.md"):
-        k.run(pbat, None, (AggSpec("count"),), HashGroupSpec(cols=(R,)))
+    out = k.run(pbat, None, (AggSpec("count"),), HashGroupSpec(cols=(R,)))
+    assert int(out[4]) == 3 and int(np.asarray(out[1]).sum()) == \
+        pbat.n_rows
     pbat.unique_keys = False
-    with pytest.raises(NotPortedError, match="dedup"):
-        k.run(pbat, None, (AggSpec("count"),), read_ht=1000)
+    out = k.run(pbat, None, (AggSpec("count"),), read_ht=1000)
+    assert int(out[0][0]) == pbat.n_rows      # one version per key
+    with pytest.raises(NotPortedError, match="ROADMAP.md"):
+        streaming_scan_aggregate(pb, [S], None, (AggSpec("count"),),
+                                 kernel=k, chunk_rows=4096,
+                                 prefilter=lambda b: b)
     # no read point: mode none, served
     out = k.run(pbat, None, (AggSpec("count"),))
     assert int(out[0][0]) == pbat.n_rows

@@ -77,7 +77,62 @@ def reference_arrays(block) -> dict:
             "key_hash": block.key_hash, "ht": block.ht,
             "write_id": block.write_id, "tombstone": block.tombstone,
             "pk": dict(block.pk), "fixed": dict(block.fixed),
+            "varlen": dict(block.varlen), "keys": block.keys,
             "unique_keys": block.unique_keys}
+
+
+def block_pair(d: dict):
+    """One JAX ColumnarBlock and its port twin from the same lanes (the
+    reference_arrays dict shape)."""
+    from yugabyte_db_tpu.storage.columnar import ColumnarBlock as JBlock
+    from yugabyte_db_tpu_torch.storage.columnar import ColumnarBlock
+    jb = JBlock.from_arrays(
+        d.get("schema_version", 1), d["key_hash"], d["ht"], d["write_id"],
+        pk=d.get("pk"), fixed=d.get("fixed"), varlen=d.get("varlen"),
+        tombstone=d["tombstone"], unique_keys=d["unique_keys"],
+        keys=d.get("keys"))
+    return jb, ColumnarBlock.from_reference_arrays(
+        dict(d, n=len(d["key_hash"]), pk=d.get("pk") or {},
+             fixed=d.get("fixed") or {}))
+
+
+def to_jax_aggs(aggs):
+    from yugabyte_db_tpu.ops.scan import AggSpec as JAgg
+    return tuple(JAgg(a.op, a.expr) for a in aggs)
+
+
+def to_jax_group(group):
+    """A port group spec as the reference's class."""
+    from yugabyte_db_tpu.ops.grouped_scan import DictGroupSpec as JDict
+    from yugabyte_db_tpu.ops.scan import GroupSpec as JGroup
+    from yugabyte_db_tpu.ops.scan import HashGroupSpec as JHash
+    from yugabyte_db_tpu_torch.ops.grouped_scan import DictGroupSpec
+    from yugabyte_db_tpu_torch.ops.scan import GroupSpec, HashGroupSpec
+    if group is None:
+        return None
+    if isinstance(group, GroupSpec):
+        return JGroup(cols=group.cols)
+    if isinstance(group, HashGroupSpec):
+        return JHash(cols=group.cols, max_groups=group.max_groups)
+    assert isinstance(group, DictGroupSpec)
+    return JDict(cols=group.cols, max_slots=group.max_slots)
+
+
+def assert_same_run(jout, pout, what=""):
+    """Two ScanKernel.run results equal bit for bit, whatever trailing
+    outputs the group shape adds (group values, n_groups, spill)."""
+    assert len(jout) == len(pout), (what, len(jout), len(pout))
+    jo, po = jout[0], pout[0]
+    assert len(jo) == len(po), what
+    for i, (a, b) in enumerate(zip(po, jo)):
+        assert_bitwise(a, b, f"{what} agg {i}")
+    for i, (a, b) in enumerate(zip(pout[1:], jout[1:])):
+        if isinstance(b, tuple):
+            assert len(a) == len(b), what
+            for j, (x, y) in enumerate(zip(a, b)):
+                assert_bitwise(x, y, f"{what} out {i + 1}.{j}")
+        else:
+            assert_bitwise(a, b, f"{what} out {i + 1}")
 
 
 def port_blocks_from(jblocks):

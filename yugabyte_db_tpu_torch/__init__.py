@@ -6,10 +6,12 @@ same relative path as its counterpart.  It imports ``torch`` and numpy
 only — never ``jax`` and nothing of the JAX package.
 
 Ported so far (ROADMAP.md queue 1): the TPC-H Q6/Q1 scan-aggregate
-path — bulk-loaded lineitem blocks -> one padded device batch ->
-``ops.scan.ScanKernel.run`` (exact int64 fixed-point route, MVCC modes
-``none`` and ``visible``) or the hand-written Hopper kernels of
-``ops.hand_scan`` -> host-combined partials.
+path as a tablet serves it — bulk-loaded lineitem blocks (string
+columns included) -> one padded device batch, or pow2 chunks through
+``ops.stream_scan`` -> ``ops.scan.ScanKernel.run`` (exact int64
+fixed-point route, MVCC modes ``none``, ``visible`` and ``dedup``;
+dense, hash and dictionary GROUP BY) or the hand-written Hopper kernels
+of ``ops.hand_scan`` -> host-combined partials.
 
 Device rule: every entry point takes ``device=`` and defaults to
 ``"cuda"``; asking for CUDA where there is none raises
@@ -20,11 +22,15 @@ Package layout:
   device.py   device resolution and validation
   utils/      flags (only those this slice reads), hybrid time
   dockv/      column schemas, key type bytes, partitioning, bulk encoders
-  storage/    ColumnarBlock (struct-of-arrays rows)
-  docdb/      TableInfo + TableCodec bulk block builder
+  storage/    ColumnarBlock (struct-of-arrays rows, string lanes),
+              dictionary coding (lane_codec), the stage pipeline
+  docdb/      TableInfo + TableCodec bulk block builder, the string
+              predicate rewrite (operations)
   models/     TPC-H lineitem generator, Q6/Q1 and their numpy answers
-  ops/        expression compiler, device batches, scan kernel, hand
-              kernels (hand_scan.py; CUDA sources under csrc/)
+  ops/        expression compiler, device batches and cache, scan
+              kernel, dictionary GROUP BY (grouped_scan), streaming scan
+              (stream_scan), hand kernels (hand_scan.py; CUDA sources
+              under csrc/)
 """
 
 __version__ = "0.1.0"

@@ -4,8 +4,9 @@ Counterpart of ``yugabyte_db_tpu/docdb/table_codec.py`` cut to
 ``TableInfo`` and the vectorized bulk load
 (``TableCodec.bulk_blocks``/``bulk_blocks_iter``).  Where the reference
 gathers through its native library (``native_lib.gather_columns``) this
-port gathers with numpy; the blocks are the same lane for lane.  Scalar
-row encode/decode, packed rows and varlen columns stay in ROADMAP.md."""
+port gathers with numpy; the blocks are the same lane for lane, string
+value columns included.  Scalar row encode/decode and packed rows stay
+in ROADMAP.md."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -41,6 +42,9 @@ _BULK_ENC = {
         ValueType.kTimestampDesc if desc else ValueType.kTimestamp),
 }
 
+#: value column types the bulk load stores as varlen lanes
+_VARLEN_TYPES = (ColumnType.STRING, ColumnType.BINARY)
+
 
 class TableCodec:
     def __init__(self, info: TableInfo):
@@ -66,14 +70,16 @@ class TableCodec:
         """Turn user column arrays into sorted columnar-only blocks,
         yielded one at a time.
 
-        Every PK component must be fixed-width numeric and every value
-        column fixed-width.  partition: optional dockv.partition.Partition
-        — rows outside it are dropped."""
+        Every PK component must be fixed-width numeric; value columns
+        are fixed-width or STRING/BINARY (varlen lanes: per-row UTF-8 or
+        raw bytes on one heap).  partition: optional
+        dockv.partition.Partition — rows outside it are dropped."""
         for c in self.schema.columns:
-            if not ColumnType.is_fixed(c.type):
+            if not ColumnType.is_fixed(c.type) and (
+                    c.is_key or c.type not in _VARLEN_TYPES):
                 raise NotImplementedError(
-                    f"varlen column {c.name!r} is not ported (ROADMAP.md "
-                    f"queue 1: storage/LSM copy)")
+                    f"{c.type} column {c.name!r} is not ported "
+                    f"(ROADMAP.md queue 1 item 9: storage/LSM copy)")
         n = len(next(iter(columns.values())))
         ps = self.info.partition_schema
         pk_blocks = [_BULK_ENC[c.type](np.asarray(columns[c.name]),
@@ -131,13 +137,20 @@ class TableCodec:
             bn = len(ord_b)
             sel = ord_b if identity else idx[ord_b]
             keys_b = full[ord_b]
-            fixed, pk = {}, {}
+            fixed, varlen, pk = {}, {}, {}
             for c in self.schema.columns:
                 out = arrs[c.id][sel]
                 if c.is_key:
                     pk[c.id] = out
-                else:
+                elif ColumnType.is_fixed(c.type):
                     fixed[c.id] = (out, np.zeros(bn, bool))
+                else:
+                    raws = [x.encode() if isinstance(x, str) else bytes(x)
+                            for x in out]
+                    ends = np.cumsum([len(r) for r in raws]).astype(
+                        np.uint32)
+                    varlen[c.id] = (ends, b"".join(raws),
+                                    np.zeros(bn, bool))
             # unique keys: adjacent-distinct doc keys inside the block,
             # plus the boundary row against the previous block
             dk_b = keys_b[:, :dk_w]
@@ -152,7 +165,8 @@ class TableCodec:
                 key_hash=key_hash_all[ord_b],
                 ht=np.full(bn, ht.value, np.uint64),
                 write_id=ord_b.astype(np.uint32),
-                pk=pk, fixed=fixed, keys=keys_b, unique_keys=uniq)
+                pk=pk, fixed=fixed, varlen=varlen, keys=keys_b,
+                unique_keys=uniq)
 
 
 def _rows_ge(mat: np.ndarray, bound: np.ndarray) -> np.ndarray:

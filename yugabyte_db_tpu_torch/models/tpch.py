@@ -1,7 +1,8 @@
 """TPC-H lineitem, Q6 and Q1 — the scan path's two query shapes.
 
-Counterpart of ``yugabyte_db_tpu/models/tpch.py`` (lineitem schema,
-generator, Q6/Q1 specs and their direct numpy answers).  The generator
+Counterpart of ``yugabyte_db_tpu/models/tpch.py`` (lineitem schema and
+its string-keyed variant, generator, Q6/Q1 specs, Q1 grouped by the
+flag strings, and their direct numpy answers).  The generator
 draws the same numbers from the same seed as the reference, so both
 packages load identical tables."""
 from __future__ import annotations
@@ -15,6 +16,7 @@ from ..docdb.table_codec import TableInfo
 from ..dockv.packed_row import ColumnSchema, ColumnType, TableSchema
 from ..dockv.partition import PartitionSchema
 from ..ops.expr import Expr
+from ..ops.grouped_scan import DictGroupSpec
 from ..ops.scan import AggSpec, GroupSpec
 
 C = Expr.col
@@ -41,6 +43,36 @@ def lineitem_schema() -> TableSchema:
 def lineitem_info() -> TableInfo:
     return TableInfo("lineitem", "lineitem", lineitem_schema(),
                      PartitionSchema("hash", 1))
+
+
+#: TPC-H's flag domains — the string-keyed lineitem maps the synthetic
+#: int codes onto them so Q1 groups over dictionary-coded strings
+RETFLAG_STRINGS = np.array(["A", "N", "R"], object)
+LINESTATUS_STRINGS = np.array(["F", "O"], object)
+
+
+def lineitem_str_info() -> TableInfo:
+    """Range-sharded lineitem with STRING l_returnflag / l_linestatus
+    (the TPC-H spec's types): Q1 over it is the dictionary GROUP BY."""
+    cols = lineitem_schema().columns
+    str_cols = (ColumnSchema(cols[0].id, cols[0].name, cols[0].type,
+                             is_range_key=True),) + cols[1:RETFLAG] + (
+        ColumnSchema(RETFLAG, "l_returnflag", ColumnType.STRING),
+        ColumnSchema(LINESTATUS, "l_linestatus", ColumnType.STRING),
+    )
+    return TableInfo("lineitem_s", "lineitem_s",
+                     TableSchema(columns=str_cols, version=1),
+                     PartitionSchema("range", 0))
+
+
+def lineitem_str_data(data: Dict[str, np.ndarray]
+                      ) -> Dict[str, np.ndarray]:
+    """The same rows as `data` (generate_lineitem output) with the flag
+    columns mapped onto their TPC-H string domains."""
+    out = dict(data)
+    out["l_returnflag"] = RETFLAG_STRINGS[data["l_returnflag"]]
+    out["l_linestatus"] = LINESTATUS_STRINGS[data["l_linestatus"]]
+    return out
 
 
 def generate_lineitem(sf: float, seed: int = 0) -> Dict[str, np.ndarray]:
@@ -104,9 +136,20 @@ TPCH_Q1 = QuerySpec(
 )
 
 
+# Q1 over the string-keyed lineitem: the same WHERE and aggregates,
+# GROUP BY the two STRING flag columns (6 groups + spill: 8 slots)
+def tpch_q1_str() -> QuerySpec:
+    return QuerySpec(
+        name="q1_str", where=TPCH_Q1.where, aggs=TPCH_Q1.aggs,
+        group=DictGroupSpec(cols=(RETFLAG, LINESTATUS)),
+        columns=TPCH_Q1.columns)
+
+
 def numpy_reference(query: QuerySpec, data: Dict[str, np.ndarray]):
     """Direct numpy answer for verification: Q6 -> revenue float; Q1 ->
-    {gid: (qty_sum, price_sum, count)} with gid = retflag + 3*linestatus."""
+    {gid: (qty_sum, price_sum, count)} with gid = retflag + 3*linestatus;
+    q1_str -> {(returnflag, linestatus) strings: (qty_sum, price_sum,
+    count)}, from int-coded or string flag columns."""
     qty, price, disc = (data["l_quantity"], data["l_extendedprice"],
                         data["l_discount"])
     if query.name == "q6":
@@ -120,5 +163,17 @@ def numpy_reference(query: QuerySpec, data: Dict[str, np.ndarray]):
         for g in range(6):
             mg = m & (gid == g)
             out[g] = (qty[mg].sum(), price[mg].sum(), int(mg.sum()))
+        return out
+    if query.name == "q1_str":
+        rf, ls = data["l_returnflag"], data["l_linestatus"]
+        if rf.dtype != object:
+            rf, ls = RETFLAG_STRINGS[rf], LINESTATUS_STRINGS[ls]
+        m = data["l_shipdate"] <= _Q1_CUT
+        out = {}
+        for rv in RETFLAG_STRINGS:
+            for lv in LINESTATUS_STRINGS:
+                mg = m & (rf == rv) & (ls == lv)
+                out[(rv, lv)] = (qty[mg].sum(), price[mg].sum(),
+                                 int(mg.sum()))
         return out
     raise ValueError(query.name)

@@ -221,9 +221,17 @@ def _lower(node: ExprNode, ops, offset: int) -> Callable:
                 return (xn if xn is not None else ops.false_like(xv)), None
             return f
         if kind == "dictlut":
-            raise NotImplementedError(
-                "dictionary-code LUT predicates are not ported (ROADMAP.md "
-                "queue 1: grouped_scan and dictionary columns)")
+            # boolean lookup table over dictionary codes: the host
+            # evaluated a string predicate (LIKE, ...) over the
+            # dictionary once; rows gather the verdict
+            xf = build(n[1])
+            idx = counter[0]
+            counter[0] += 1
+
+            def f(cols, nulls, consts):
+                xv, xn = xf(cols, nulls, consts)
+                return ops.dictlut(xv, consts[idx]), xn
+            return f
         raise ValueError(f"unknown expr node {kind}")
 
     return build(node)
@@ -400,6 +408,15 @@ class _TorchOps:
         if t is None:
             return torch.zeros((), dtype=torch.bool)
         return torch.zeros_like(t, dtype=torch.bool)
+
+    @staticmethod
+    def dictlut(codes, lut):
+        # jnp.take over clipped codes: out-of-range codes read the edges
+        codes = _tensor_of(codes)
+        lut = torch.as_tensor(np.asarray(lut, np.bool_),
+                              device=codes.device)
+        safe = torch.clamp(codes, 0, lut.shape[0] - 1).to(torch.int64)
+        return lut[safe]
 
 
 def _strong(x):

@@ -423,6 +423,11 @@ class TritonOps:
     def false_like(self, x):
         return self._tmp("tl.zeros([SUB], dtype=tl.int1)")
 
+    def dictlut(self, codes, lut):
+        # the reference's Pallas route never sees a LUT: its gate refuses
+        # the array constant (const_shape) first, as ScanKernel's does
+        raise HandScanIneligible("const_shape")
+
 
 _TRITON_PRELUDE = '''\
 import triton

@@ -17,9 +17,13 @@ and typed hand-route gate; two routes serve it:
   (HandScanIneligible), tallied in ``hand_scan_refusals`` and served by
   the exact route.  A build or launch failure raises: no fallback.
 
-MVCC modes ``none`` and ``visible`` are ported; ``dedup``,
-``HashGroupSpec`` and dictionary grouping raise NotPortedError naming
-their ROADMAP.md item.
+MVCC modes: ``none`` (no read point), ``visible`` (unique keys: ht
+filter and tombstones) and ``dedup`` (several versions per key: the
+newest visible version per key hash, by a stable multi-key sort).
+Grouping: dense ``GroupSpec``, ``HashGroupSpec`` (sort + segment
+aggregation over arbitrary columns) and ``DictGroupSpec`` (dictionary
+codes, ops/grouped_scan.py).  The hand route refuses the last three
+shapes by type, as the reference's Pallas gate does.
 """
 from __future__ import annotations
 
@@ -33,9 +37,12 @@ from ..device import DeviceLike, resolve_device
 from .device_batch import DeviceBatch, flipped_i64_scalar
 from .expr import (collect_constants, compile_expr, const_count,
                    expr_bound, expr_signature, referenced_columns)
+from .grouped_scan import (GROUPED_STATS, DictGroupSpec, ResolvedDictGroup,
+                           grouped_reduce, resolve_group)
 from .hand_scan import HAND_DTYPES, GenericScan, HandScanIneligible
 
 _U64_MAX = 0xFFFFFFFFFFFFFFFF
+_I64_MAX = 0x7FFFFFFFFFFFFFFF      # U64_MAX in the flipped encoding
 
 
 class NotPortedError(NotImplementedError):
@@ -46,10 +53,6 @@ class NotPortedError(NotImplementedError):
         super().__init__(f"{what} is not ported yet (ROADMAP.md: "
                          f"{roadmap_item})")
         self.roadmap_item = roadmap_item
-
-
-_DEDUP_ITEM = "queue 1, dedup mode and hash group"
-_DICT_ITEM = "queue 1, grouped_scan"
 
 
 @dataclass(frozen=True)
@@ -79,9 +82,11 @@ class GroupSpec:
 
 @dataclass(frozen=True)
 class HashGroupSpec:
-    """GROUP BY over arbitrary-domain columns (device sort + segment
-    aggregation in the reference) — declared so callers can name it;
-    ScanKernel.run raises NotPortedError for it."""
+    """GROUP BY over arbitrary-domain fixed-width columns: a device sort
+    by the group-key tuple + segment aggregation, no declared domains.
+    `max_groups` caps the per-batch group count; the kernel reports the
+    true count, so overflow shows there.  NULL group values are
+    excluded, as on GroupSpec's path."""
     cols: Tuple[int, ...]
     max_groups: int = 4096
 
@@ -175,12 +180,16 @@ def _grouped_sum(q, gid, G: int, strategy: str = "unroll"):
 def _type_max(v):
     if v.dtype.is_floating_point:
         return float("inf")
+    if v.dtype == torch.bool:
+        return True
     return torch.iinfo(v.dtype).max
 
 
 def _type_min(v):
     if v.dtype.is_floating_point:
         return float("-inf")
+    if v.dtype == torch.bool:
+        return False
     return torch.iinfo(v.dtype).min
 
 
@@ -203,22 +212,100 @@ def _grouped_extreme(v, m, gid, G: int, is_min: bool,
                                include_self=True)
 
 
+def _sort_key(t: torch.Tensor) -> torch.Tensor:
+    """An integer lane that sorts like `t` under the reference's
+    ``lax.sort`` order: floats ordered with -0.0 == 0.0 and every NaN
+    equal and last (the bits of the canonical value, negatives folded so
+    integer order is float order), bools as uint8, integers as they are.
+    Sorting these ints keeps the CPU and CUDA sorts in one order."""
+    if t.dtype == torch.bool:
+        return t.to(torch.uint8)
+    if not t.dtype.is_floating_point:
+        return t
+    if t.element_size() == 2:
+        t = t.to(torch.float32)       # exact for f16/bf16
+    it, imax =((torch.int32, 0x7FFFFFFF) if t.element_size() == 4
+                else (torch.int64, 0x7FFFFFFFFFFFFFFF))
+    t = torch.where(t == 0, torch.zeros_like(t), t)
+    t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+    bits = t.view(it)
+    return torch.where(bits < 0, bits ^ imax, bits)
+
+
+def _lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Permutation sorting rows by `keys` (most significant first),
+    stable: one stable argsort pass per key from the least significant
+    to the most, each over the key gathered through the permutation so
+    far.  Torch has no multi-key sort, and the 64-bit keys leave no bits
+    to pack two into one word."""
+    perm = None
+    for k in reversed(keys):
+        k = _sort_key(k)
+        if perm is None:
+            perm = torch.argsort(k, stable=True)
+        else:
+            perm = perm[torch.argsort(k[perm], stable=True)]
+    return perm
+
+
+def _first_of_run(*sorted_keys) -> torch.Tensor:
+    """True where a row starts a new run of equal keys (row 0 always).
+    NaN never equals NaN, so each NaN row starts its own run, as in the
+    reference."""
+    changed = None
+    for k in sorted_keys:
+        c = k[1:] != k[:-1]
+        changed = c if changed is None else changed | c
+    head = torch.ones(1, dtype=torch.bool, device=sorted_keys[0].device)
+    return torch.cat([head, changed])
+
+
+def _mvcc_visible_latest(key_hash, ht, write_id, tombstone, valid, read_ht):
+    """Mask of rows that are the newest visible, non-tombstone version
+    of their key at read_ht — the reference's 4-key sort over (key_hash
+    with invalid rows at U64_MAX, not-visible, ~ht, ~write_id), first
+    row per key, scattered back.  key_hash, ht and read_ht are flipped
+    int64 (device_batch), where U64_MAX is INT64_MAX and U64_MAX - x is
+    bitwise NOT.  The key is the 64-bit FNV key hash: two doc keys that
+    collide share one newest version, as in the reference."""
+    n = key_hash.shape[0]
+    visible = valid & (ht <= read_ht)
+    sort_kh = torch.where(valid, key_hash,
+                          torch.full_like(key_hash, _I64_MAX))
+    inv_vis = torch.logical_not(visible)
+    inv_ht = torch.bitwise_not(ht)
+    inv_wid = 0xFFFFFFFF - write_id
+    perm = _lexsort((sort_kh, inv_vis, inv_ht, inv_wid))
+    first = _first_of_run(sort_kh[perm])
+    sel_sorted = first & visible[perm] & torch.logical_not(tombstone[perm])
+    out = torch.zeros(n, dtype=torch.bool, device=key_hash.device)
+    out[perm] = sel_sorted
+    return out
+
+
 def visibility_mask(mvcc_mode: str, valid, key_hash, ht, write_id,
                     tombstone, read_ht):
     """The MVCC row mask.  mvcc_mode: 'none' (valid only), 'visible' (ht
-    filter, unique keys).  ht and read_ht are in the flipped int64
-    encoding of device_batch (unsigned order under signed compares)."""
+    filter, unique keys), 'dedup' (newest visible version per key).  ht
+    and read_ht are in the flipped int64 encoding of device_batch
+    (unsigned order under signed compares)."""
     if mvcc_mode == "none":
         return valid
     if mvcc_mode == "visible":
         return valid & (ht <= read_ht) & torch.logical_not(tombstone)
-    raise NotPortedError(f"MVCC mode {mvcc_mode!r}", _DEDUP_ITEM)
+    return _mvcc_visible_latest(key_hash, ht, write_id, tombstone, valid,
+                                read_ht)
 
 
 def masked_aggregate(group, agg_fns, prep, cols, nulls, consts, mask,
-                     sum_scales, n_total: int, strategy: str):
-    """Aggregate the masked rows, ungrouped or over a dense GroupSpec.
-    Returns (outs, scales, counts, mask), the reference's contract."""
+                     domains, sum_scales, n_total: int, strategy: str):
+    """Aggregate the masked rows: ungrouped, over a dense GroupSpec, or
+    over a ResolvedDictGroup (ops/grouped_scan.grouped_reduce, which
+    adds a trailing spill count).  Returns (outs, scales, counts, mask),
+    the reference's contract."""
+    if isinstance(group, ResolvedDictGroup):
+        return grouped_reduce(group, agg_fns, prep, cols, nulls, consts,
+                              mask, domains, sum_scales, strategy)
     if group is None:
         out, scales = [], []
         for i, (op, f) in enumerate(agg_fns):
@@ -318,7 +405,7 @@ def _build_kernel(where_node, agg_specs: Tuple[AggSpec, ...],
         return _sum_prep(v, m, n_total)
 
     def fn(cols, nulls, consts, valid, key_hash, ht, write_id, tombstone,
-           read_ht, sum_scales):
+           read_ht, sum_scales, group_domains=()):
         mask = visibility_mask(mvcc_mode, valid, key_hash, ht, write_id,
                                tombstone, read_ht)
         if where_fn is not None:
@@ -326,10 +413,81 @@ def _build_kernel(where_node, agg_specs: Tuple[AggSpec, ...],
             mask = mask & wv
             if wn is not None:
                 mask = mask & torch.logical_not(wn)
+        if isinstance(group, HashGroupSpec):
+            return _hash_group(group, agg_fns, _prep, cols, nulls, consts,
+                               mask, sum_scales)
         return masked_aggregate(group, agg_fns, _prep, cols, nulls, consts,
-                                mask, sum_scales, mask.shape[0], strategy)
+                                mask, group_domains, sum_scales,
+                                mask.shape[0], strategy)
 
     return fn
+
+
+def _segment_sum(x, seg, G: int):
+    return torch.zeros(G, dtype=x.dtype, device=x.device).index_add_(
+        0, seg, x)
+
+
+def _segment_extreme(x, seg, G: int, is_min: bool):
+    """jax.ops.segment_min/max: empty segments hold the dtype's
+    identity (max for min, min for max)."""
+    ident = _type_max(x) if is_min else _type_min(x)
+    out = torch.full((G,), ident, dtype=x.dtype, device=x.device)
+    return out.scatter_reduce_(0, seg, x, "amin" if is_min else "amax",
+                               include_self=True)
+
+
+def _hash_group(group: HashGroupSpec, agg_fns, prep, cols, nulls, consts,
+                mask, sum_scales):
+    """HashGroupSpec: sort by (not-in-mask, *group columns); segment ids
+    are the cumsum of group starts, clipped to max_groups - 1;
+    ``n_groups`` is the true count, so overflow shows there.  Returns
+    (outs, scales, counts, mask, gvals, n_groups); group values come
+    back by segment-min (constant within a segment)."""
+    for cid in group.cols:
+        gn = nulls.get(cid)
+        if gn is not None:
+            mask = mask & torch.logical_not(gn)
+    n = mask.shape[0]
+    G = group.max_groups
+    gcols = [cols[cid] for cid in group.cols]
+    perm = _lexsort([torch.logical_not(mask)] + gcols)
+    g_s = [g[perm] for g in gcols]
+    valid_s = mask[perm]
+    first = valid_s & _first_of_run(*g_s)
+    n_groups = first.sum(dtype=torch.int32)
+    seg = torch.clamp(torch.cumsum(first, 0, dtype=torch.int64) - 1, 0,
+                      G - 1)
+    out, scales = [], []
+    for i, (op, f) in enumerate(agg_fns):
+        if f is None:
+            out.append(_segment_sum(valid_s.to(torch.int64), seg, G))
+            scales.append(_NOSCALE)
+            continue
+        v, vn = f(cols, nulls, consts)
+        v_s = v.expand(mask.shape)[perm]
+        m = valid_s if vn is None else \
+            valid_s & torch.logical_not(vn)[perm]
+        if op == "count":
+            out.append(_segment_sum(m.to(torch.int64), seg, G))
+            scales.append(_NOSCALE)
+        elif op == "sum":
+            q, s, vm = prep(i, v_s, m, n, sum_scales)
+            out.append(_segment_sum(q, seg, G))
+            scales.append(s if vm is None
+                          else (s, _segment_sum(vm, seg, G)))
+        elif op in ("min", "max"):
+            is_min = op == "min"
+            fill = _type_max(v) if is_min else _type_min(v)
+            out.append(_segment_extreme(_fill_where(m, v_s, fill), seg, G,
+                                        is_min))
+            scales.append(_NOSCALE)
+        else:
+            raise ValueError(op)
+    counts = _segment_sum(valid_s.to(torch.int64), seg, G)
+    gvals = tuple(_segment_extreme(_fill_where(valid_s, g, _type_max(g)),
+                                   seg, G, True) for g in g_s)
+    return tuple(out), tuple(scales), counts, mask, gvals, n_groups
 
 
 def _np(x):
@@ -508,19 +666,20 @@ class ScanKernel:
         if batch.device != self.device:
             raise ValueError(f"batch on {batch.device}, kernel for "
                              f"{self.device}")
-        if group is not None and not isinstance(group, GroupSpec):
-            item = _DEDUP_ITEM if isinstance(group, HashGroupSpec) \
-                else _DICT_ITEM
-            raise NotPortedError(type(group).__name__, item)
         aggs = tuple(_expand_avg(aggs))
         if read_ht is None:
             mvcc_mode = "none"
         elif batch.unique_keys:
             mvcc_mode = "visible"
         else:
-            raise NotPortedError("MVCC mode 'dedup' (batch with "
-                                 "non-unique keys at a read point)",
-                                 _DEDUP_ITEM)
+            mvcc_mode = "dedup"
+        domains: tuple = ()
+        if isinstance(group, DictGroupSpec):
+            # resolve against the batch's scan-global dictionaries: the
+            # pow2 slot bucket enters the signature, the dictionary
+            # sizes are run-time values.  KeyError: a group column with
+            # no dictionary
+            group, domains = resolve_group(group, batch.dicts)
         consts: List = []
         if where is not None:
             collect_constants(where, consts)
@@ -536,21 +695,29 @@ class ScanKernel:
         sig = (
             expr_signature(where) if where is not None else None,
             tuple(a.signature() for a in aggs),
-            ("GroupSpec", group.cols, None) if group else None,
+            (type(group).__name__, group.cols,
+             getattr(group, "max_groups",
+                     getattr(group, "num_slots", None))) if group
+            else None,
             mvcc_mode, batch.padded_rows, col_sig, static_sums, strategy,
         )
         return dict(aggs=aggs, mvcc_mode=mvcc_mode, consts=consts,
                     static_sums=static_sums, scale_args=scale_args,
-                    strategy=strategy, sig=sig)
+                    strategy=strategy, sig=sig, group=group,
+                    domains=domains)
 
     def run(self, batch: DeviceBatch,
             where: Optional[tuple] = None,
             aggs: Sequence[AggSpec] = (),
-            group: Optional[GroupSpec] = None,
+            group=None,
             read_ht: Optional[int] = None):
         """Returns (agg_results tuple, count_or_group_counts, mask) —
-        mask is None when the hand route served the query."""
+        mask is None when the hand route served the query.
+        HashGroupSpec adds (group_values, n_groups); DictGroupSpec adds
+        a trailing spill count (nonzero: the slot budget overflowed and
+        the caller must discard the result)."""
         p = self._prepare(batch, where, aggs, group, read_ht)
+        group = p["group"]
         from ..utils import flags as _flags
         if _flags.get("hand_scan_enabled"):
             got = self._try_hand(p["sig"], batch, where, p["aggs"], group,
@@ -559,6 +726,8 @@ class ScanKernel:
                 return got
         fn = self._get(p["sig"], where, p["aggs"], group, p["mvcc_mode"],
                        p["static_sums"], p["strategy"])
+        if isinstance(group, ResolvedDictGroup):
+            GROUPED_STATS["launches"] += 1
         n = batch.padded_rows
         dev = batch.device
         zeros_i64 = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -572,10 +741,11 @@ class ScanKernel:
             torch.tensor(flipped_i64_scalar(
                 read_ht if read_ht is not None else _U64_MAX),
                 dtype=torch.int64, device=dev),
-            p["scale_args"],
+            p["scale_args"], p["domains"],
         )
-        # (outs, scales, counts, mask) -> rescale the fixed-point sums
-        # host-side; callers keep the shape (outs, counts, mask)
+        # (outs, scales, counts, mask[, gvals, n_groups | spill]) ->
+        # rescale the fixed-point sums host-side; callers keep the shape
+        # (outs, counts, mask[, ...])
         return (_rescale_outs(raw[0], raw[1]),) + tuple(raw[2:])
 
 
@@ -615,3 +785,22 @@ def _expand_avg(aggs: Sequence[AggSpec]) -> List[AggSpec]:
         else:
             out.append(a)
     return out
+
+
+# one kernel cache per device for the module-level entry points
+_DEFAULT_KERNELS: Dict[torch.device, ScanKernel] = {}
+
+
+def default_kernel(device: DeviceLike = "cuda") -> ScanKernel:
+    dev = resolve_device(device)
+    k = _DEFAULT_KERNELS.get(dev)
+    if k is None:
+        k = _DEFAULT_KERNELS[dev] = ScanKernel(dev)
+    return k
+
+
+def scan_aggregate(batch: DeviceBatch, where=None, aggs=(), group=None,
+                   read_ht=None):
+    return default_kernel(batch.device).run(batch, where, aggs, group,
+                                            read_ht)
+

@@ -1,7 +1,7 @@
 """Runtime flags read by the ported scan path.
 
-Counterpart of ``yugabyte_db_tpu/utils/flags.py``, cut to the flags this
-slice reads.  The registry keeps the reference's get/set_flag surface
+Counterpart of ``yugabyte_db_tpu/utils/flags.py``, cut to the flags the
+ported scan path reads, with the reference's defaults.  The registry keeps the reference's get/set_flag surface
 so call sites read the same; unknown names raise KeyError."""
 from __future__ import annotations
 
@@ -35,6 +35,11 @@ class FlagRegistry:
 
     def set(self, name: str, value: Any) -> None:
         self._flags[name].value = value
+
+    def reset(self, name: str) -> None:
+        """Back to the flag's default."""
+        f = self._flags[name]
+        f.value = f.default
 
 
 REGISTRY = FlagRegistry()
@@ -77,3 +82,12 @@ REGISTRY.define(
     "Grouped-aggregate reduction strategy: 'segment' (scatter-add), "
     "'unroll' (per-group masked reductions), or 'auto' (segment on the "
     "CPU, unroll on CUDA).")
+REGISTRY.define(
+    "streaming_chunk_rows", 1 << 20,
+    "Target rows per streamed scan chunk; the chunk bucket is the pow2 "
+    "ceiling, so every chunk of a scan shares one kernel signature.")
+REGISTRY.define(
+    "grouped_pushdown_enabled", True,
+    "Serve GROUP BY over dictionary-encoded (string) columns on the "
+    "device (ops/grouped_scan.py); off, streamed dict-grouped scans "
+    "decline (streaming_scan_aggregate returns None).")

@@ -19,3 +19,8 @@ class HybridTime:
 
     def __lt__(self, other: "HybridTime") -> bool:
         return self.value < other.value
+
+
+#: bytes of an encoded DocHybridTime (8-byte hybrid time + 4-byte write
+#: id, dockv/bulk.append_hybrid_times)
+ENCODED_SIZE = 12
