@@ -46,7 +46,19 @@ Phases (any failed check raises and the script exits non-zero):
      lost device activity (none at all, fewer hand-kernel activities
      than launches, a count that is not a whole multiple of the
      queries) fails the run;
-  5. print the kernels line, then the device line last.
+  5. compact a 100-SST TPC-H SF1 lineitem tablet (SSTs of
+     60,000 rows, each rewriting a quarter of its predecessor's rows,
+     plus a tombstone SST; history cutoff at SST 50's hybrid time; the
+     reference's default flags) with the device backend on the card and
+     the baseline backend on the host, each on a copy of the one store:
+     both outputs, read back, must be equal row for row and equal a
+     numpy oracle of the retention rule (doc keys encoded here from the
+     rowid, apart from the port's codec); chunk_merge_kernel on a real
+     524,288-row frontier must equal its CPU run; one `compaction` line
+     per backend (MB/s, stage split), a `compaction_profile` line from
+     torch.profiler over a third compaction, and a `compaction_program`
+     line for chunk_merge_kernel (ms per call against its bound);
+  6. print the kernels line, then the device line last.
 
 It imports nothing of JAX: the port stands alone.
 """
@@ -54,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -73,6 +86,12 @@ HAND_KERNEL_NAMES = {"q6_scan": ("q6_scan_kernel",),
                      "grouped_sum": ("grouped_sum_onehot",
                                      "grouped_sum_histogram"),
                      "generic_scan": ("generic_scan",)}
+#: phase 5: profile_compact.py's 100-SST tablet at SF1's full volume
+COMPACT_SSTS = 100
+COMPACT_ROWS_PER = 60_000        # rows per SST: 100 x 60,000 = SF1
+COMPACT_BLOCK_ROWS = 65_536
+COMPACT_BASE_US = 1_700_000_000_000_000   # SST i written at +i * 1000 us
+COMPACT_FRONTIER = 524_288       # compaction_chunk_rows' default (m_cap)
 #: K3 grouped (form, SUB, num_warps) configs timed beside the chosen one
 K3_GROUPED_CONFIGS = [("unrolled", 256, 4), ("unrolled", 128, 4),
                       ("tile", 128, 4), ("tile", 128, 8), ("tile", 256, 4),
@@ -193,7 +212,10 @@ def profile_route(torch, hs, name, card, rows, run, iters) -> list:
         time.sleep(PROFILE_MARGIN_S)
         for _ in range(iters):
             run()
-        torch.cuda.synchronize()
+            # one query at a time: with the next streamed query's worker
+            # copying while this one drains, the card's profiler (torch
+            # 2.11) dropped one host-to-device copy record per window
+            torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
     launched = {k: v - before[k] for k, v in hs.LAUNCHES.items()}
     recorded = {k: 0 for k in launched}
@@ -431,6 +453,358 @@ def tablet_read_shapes(torch, np, seed, data, blocks, batch, kern, timed,
                                        STREAM_ITERS)
                 print(json.dumps({"stream": what, **ss.LAST_STREAM_STATS}))
     return routes
+
+
+def tombstone_block(cb):
+    """A delete of every row of bulk-built block `cb` at its own ht and
+    write ids: keys, pk and key hashes kept, tombstone lane set, value
+    columns NULL with zeroed values (the reference's columnar form of a
+    tombstone)."""
+    import numpy as np
+    from yugabyte_db_tpu_torch.storage.columnar import ColumnarBlock
+    n = cb.n
+    out = ColumnarBlock.from_arrays(
+        cb.schema_version, cb.key_hash, cb.ht, write_id=cb.write_id,
+        pk=cb.pk, tombstone=np.ones(n, bool), unique_keys=cb.unique_keys,
+        keys=cb.keys,
+        fixed={c: (np.zeros(n, v.dtype), np.ones(n, bool))
+               for c, (v, _) in cb.fixed.items()},
+        varlen={c: (np.zeros(n, np.uint32), b"", np.ones(n, bool))
+                for c in cb.varlen})
+    out.keys_proven = cb.keys_proven
+    return out
+
+
+def build_compaction_tablet(np, data, root, n_ssts, rows_per, block_rows):
+    """The 100-SST lineitem tablet of profile_compact.py at SF1: SST i
+    holds rows (i * rows_per) mod (n - rows_per) onward, its first
+    quarter rewriting rows of SST i-1, written at BASE + i * 1000 us;
+    plus one tombstone SST (every 100th rowid) at BASE + 49,500 us.
+    Returns (store dir, versions): versions lists each SST's (rowids,
+    hybrid time, tombstone flag) — write ids are positions in the batch."""
+    from yugabyte_db_tpu_torch.docdb.table_codec import TableCodec
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.storage.lsm import LsmStore
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    n = len(data["rowid"])
+    codec = TableCodec(tpch.lineitem_info())
+    store = LsmStore(root, key_builder=codec.derive_keys,
+                     shred_cols=codec.shred_cols)
+    versions = []
+    for i in range(n_ssts):
+        fresh = (i * rows_per) % max(n - rows_per, 1)
+        sel = np.arange(fresh, fresh + rows_per) % n
+        if i > 0:
+            prev = (sel - rows_per // 4) % n
+            sel[: rows_per // 4] = prev[: rows_per // 4]
+        ht = HybridTime.from_micros(COMPACT_BASE_US + i * 1000)
+        codec.bulk_ingest(store, {k: v[sel] for k, v in data.items()}, ht,
+                          block_rows=block_rows)
+        versions.append((data["rowid"][sel], ht.value, False))
+    sel = np.nonzero(data["rowid"] % 100 == 0)[0]
+    ht = HybridTime.from_micros(COMPACT_BASE_US + 49_500)
+    blocks = [tombstone_block(b) for b in codec.bulk_blocks_iter(
+        {k: v[sel] for k, v in data.items()}, ht, block_rows=block_rows)]
+
+    def build(w):
+        for b in blocks:
+            w.add_columnar_block(b)
+    store.ingest_sst(build, stream=True)
+    versions.append((data["rowid"][sel], ht.value, True))
+    return codec, versions
+
+
+def lineitem_doc_keys(np, rowid):
+    """[n, 14] encoded doc keys of lineitem rows, written here from the
+    one hash pk column (rowid) and the key format, apart from the port's
+    TableCodec: kUInt16Hash (0x08), the 16-bit partition hash
+    big-endian, kInt64 (0x26), rowid + 2**63 big-endian, then kGroupEnd
+    (0x03) closing the hash group and the (empty) range group.  The
+    hash is FNV-1a 64 over the 9 encoded column bytes, folded h ^ h>>32,
+    low 16 bits (dockv/key_encoding.py's byte values, bulk.py's hash)."""
+    n = len(rowid)
+    col = np.empty((n, 9), np.uint8)
+    col[:, 0] = 0x26
+    col[:, 1:] = (np.asarray(rowid, np.int64).view(np.uint64)
+                  ^ np.uint64(1 << 63)).astype(">u8").view(
+                      np.uint8).reshape(n, 8)
+    h = np.full(n, np.uint64(0xCBF29CE484222325))
+    for j in range(col.shape[1]):
+        h = (h ^ col[:, j].astype(np.uint64)) * np.uint64(0x100000001B3)
+    h ^= h >> np.uint64(32)
+    out = np.empty((n, 14), np.uint8)
+    out[:, 0] = 0x08
+    out[:, 1:3] = (h & np.uint64(0xFFFF)).astype(">u2").view(
+        np.uint8).reshape(n, 2)
+    out[:, 3:12] = col
+    out[:, 12:14] = 0x03
+    return out
+
+
+def compaction_oracle(np, data, versions, dk_words_of_rowid, cutoff):
+    """The compacted table straight from the generated inputs and the
+    retention rule (ops/compaction.py:12-17), in full-encoded-key order:
+    (rowid, ht, write id, tombstone) of every kept version.  Sorted by
+    np.lexsort on (doc key words, ~ht, ~write id); `dk_words_of_rowid`
+    maps a rowid to its encoded doc key's two big-endian u64 words."""
+    rowid = np.concatenate([r for r, _, _ in versions])
+    ht = np.concatenate([np.full(len(r), h, np.uint64)
+                         for r, h, _ in versions])
+    wid = np.concatenate([np.arange(len(r), dtype=np.uint32)
+                          for r, _, _ in versions])
+    tomb = np.concatenate([np.full(len(r), t) for r, _, t in versions])
+    w0, w1 = dk_words_of_rowid[:, 0][rowid], dk_words_of_rowid[:, 1][rowid]
+    order = np.lexsort((~wid, ~ht, w1, w0))
+    rowid, ht, wid, tomb = rowid[order], ht[order], wid[order], tomb[order]
+    same = np.concatenate([[False], rowid[1:] == rowid[:-1]])
+    dup = same & np.concatenate([[False], (ht[1:] == ht[:-1])
+                                 & (wid[1:] == wid[:-1])])
+    leq = ht <= np.uint64(cutoff)
+    prev_leq = np.concatenate([[False], leq[:-1]])
+    first_leq = leq & (~same | ~prev_leq)
+    keep = ~dup & ((ht > np.uint64(cutoff)) | (first_leq & ~tomb))
+    return rowid[keep], ht[keep], wid[keep], tomb[keep]
+
+
+def read_sst_rows(np, path, codec):
+    """Every lane of every block of one SST through the port's reader,
+    concatenated: {lane: array} with pk/fixed/varlen flattened."""
+    from yugabyte_db_tpu_torch.storage.sst import SstReader
+    r = SstReader(path, key_builder=codec.derive_keys)
+    blocks = [r.columnar_block(i) for i in range(r.num_blocks())]
+    out = {"keys": np.concatenate([b.keys for b in blocks]),
+           "ht": np.concatenate([b.ht for b in blocks]),
+           "write_id": np.concatenate([b.write_id for b in blocks]),
+           "tombstone": np.concatenate([b.tombstone for b in blocks]),
+           "key_hash": np.concatenate([b.key_hash for b in blocks])}
+    for c in blocks[0].pk:
+        out[f"pk{c}"] = np.concatenate([b.pk[c] for b in blocks])
+    for c in blocks[0].fixed:
+        out[f"fixed{c}"] = np.concatenate([b.fixed[c][0] for b in blocks])
+        out[f"null{c}"] = np.concatenate([b.fixed[c][1] for b in blocks])
+    for c in blocks[0].varlen:
+        out[f"varlen{c}"] = [bytes(b.varlen[c][1]) for b in blocks]
+        out[f"vends{c}"] = np.concatenate([b.varlen[c][0] for b in blocks])
+        out[f"vnull{c}"] = np.concatenate([b.varlen[c][2] for b in blocks])
+    return out
+
+
+def compaction_profile(torch, card, run) -> dict:
+    """Device busy time, idle share and top device activities of one
+    compaction under torch.profiler (device rows only, every thread)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        time.sleep(PROFILE_MARGIN_S)
+    top, busy_us, h2d_us = [], 0.0, 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us <= 0:
+            continue
+        busy_us += us
+        if "HtoD" in e.key:
+            h2d_us += us
+        top.append((us, e.key, e.count))
+    top.sort(reverse=True)
+    check(busy_us > 0, "compaction profile recorded no device activity")
+    return {"card": card, "wall_s": wall, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / 1e6 / wall,
+            "h2d_ms": h2d_us / 1e3, "h2d_share_of_busy": h2d_us / busy_us,
+            "top_device_ops": [{"name": k[:80], "ms": us / 1e3,
+                                "count": c} for us, k, c in top[:8]]}
+
+
+def compaction_phase(torch, np, data, card, root) -> None:
+    """Phase 5: LSM compaction of a 100-SST SF1 lineitem tablet, device
+    backend on the card against the baseline backend on the host and a
+    numpy oracle; chunk_merge_kernel on a real frontier against its CPU
+    run."""
+    import shutil
+    from yugabyte_db_tpu_torch.docdb import compaction as comp
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops import compaction as oc
+    from yugabyte_db_tpu_torch.storage.lsm import LsmStore
+    from yugabyte_db_tpu_torch.utils import flags
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    n = len(data["rowid"])
+    t0 = time.perf_counter()
+    src = f"{root}/src"
+    codec, versions = build_compaction_tablet(
+        np, data, src, COMPACT_SSTS, COMPACT_ROWS_PER, COMPACT_BLOCK_ROWS)
+    build_s = time.perf_counter() - t0
+    cutoff = HybridTime.from_micros(COMPACT_BASE_US + 50 * 1000).value
+    check(flags.get("compaction_chunk_rows") == 524288,
+          "compaction runs at the reference's default flags")
+    # the doc key of every rowid, encoded apart from the port's codec
+    check(np.array_equal(np.sort(data["rowid"]), np.arange(n)),
+          "lineitem rowids are 0..n-1")
+    dk_bytes = lineitem_doc_keys(np, np.arange(n))
+    dk_of_rowid = np.zeros((n, 16), np.uint8)
+    dk_of_rowid[:, :14] = dk_bytes
+    dk_of_rowid = dk_of_rowid.view(">u8").astype(np.uint64)
+    store = LsmStore(src, key_builder=codec.derive_keys)
+    frontier_rows = []
+    for r in reversed(store.ssts):          # oldest (SST 0) first
+        for i in range(r.num_blocks()):
+            if sum(len(f[0]) for f in frontier_rows) < COMPACT_FRONTIER:
+                cb = r.columnar_block(i)
+                frontier_rows.append((oc.keys_to_words(
+                    cb.keys[:, :-oc._HT_SUFFIX]), cb.ht.copy(),
+                    cb.write_id.copy(), cb.tombstone.copy()))
+    input_mb = store.approximate_size() / 1e6
+    n_in = sum(r.num_entries for r in store.ssts)
+    del store
+    print(json.dumps({"compaction_load": {
+        "ssts": len(versions), "rows": n_in, "input_mb": input_mb,
+        "build_s": build_s, "card": card}}))
+
+    # --- chunk_merge_kernel on a real frontier: card against CPU ------------
+    dk, ht, wid, tomb = (np.concatenate(x)[:COMPACT_FRONTIER]
+                         for x in zip(*frontier_rows))
+    m = len(ht)
+    valid = np.ones(m, bool)
+    srt = np.lexsort((~wid, ~ht, dk[:, 1], dk[:, 0]))
+    b = srt[m // 2]
+    c = srt[m // 3]
+    fr_bound = (dk[b], int(ht[b]), int(wid[b]))
+    fr_carry = (dk[c], int(ht[c]), int(wid[c]), True)
+    for bd, cy in ((None, None), (fr_bound, fr_carry)):
+        got = oc.merge_frontier(dk, ht, wid, tomb, valid, bd, cy, cutoff,
+                                device="cuda")
+        want = oc.merge_frontier(dk, ht, wid, tomb, valid, bd, cy, cutoff,
+                                 device="cpu")
+        torch.cuda.synchronize()
+        for name, g, w_ in zip(("order", "emit", "keep"), got, want):
+            check(torch.equal(g.cpu(), w_),
+                  f"chunk_merge {name} on the card differs from the CPU "
+                  f"({'with' if bd else 'without'} bound and carry)")
+    lanes = oc.to_device_lanes(dk, ht, wid, tomb, valid,
+                               torch.device("cuda", 0))
+    reps = 5
+    row_in = 8 * dk.shape[1] + 8 + 8 + 1 + 1   # dk words, ht, wid, tomb, valid
+    row_out = 8 + 1 + 1                        # order, emit, keep
+    bms, bby = bound(m * (row_in + row_out), 0)
+    prog = {"program": "chunk_merge_kernel",
+            "replaces": "yugabyte_db_tpu/ops/compaction.py:263", "rows": m,
+            "ms": cuda_ms(torch, lambda: oc.chunk_merge_kernel(
+                *lanes, fr_bound, fr_carry, cutoff), reps),
+            "bound_ms": bms, "bound_by": bby,
+            "h2d_ms": cuda_ms(torch, lambda: oc.to_device_lanes(
+                dk, ht, wid, tomb, valid, torch.device("cuda", 0)), reps),
+            "card": card}
+    print("[phase 5] chunk_merge on the card equals its CPU run, with and "
+          "without bound and carry")
+
+    # --- the two backends on copies of one store ---------------------------
+    results = {}
+    for backend in ("device", "baseline"):
+        d = f"{root}/{backend}"
+        shutil.copytree(src, d)
+        store = LsmStore(d, key_builder=codec.derive_keys)
+        inputs = list(store.ssts)
+        oc.reset_kernel_stats()
+        comp.LAST_COMPACTION_STATS.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = comp.tpu_compact(store, codec, cutoff,
+                                block_rows=COMPACT_BLOCK_ROWS,
+                                backend=backend, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check(len(store.ssts) == 1 and store.ssts[0].path == path,
+              f"{backend}: store holds {len(store.ssts)} SSTs after")
+        check(not any(os.path.exists(r.path) for r in inputs),
+              f"{backend}: input SST files remain")
+        st = dict(comp.LAST_COMPACTION_STATS)
+        calls = oc.kernel_cache_stats()["calls"]
+        if backend == "device":
+            check(calls == st["chunks"] + st["m_growths"] and calls > 0,
+                  f"device: {calls} merge calls over {st} ")
+        else:
+            check(calls == 0 and not st, "baseline ran the device merge")
+        out = store.ssts[0]
+        results[backend] = (path, read_sst_rows(np, path, codec))
+        rows = results[backend][1]
+        line = {"compaction": backend, "card": card, "input_mb": input_mb,
+                "input_rows": n_in, "wall_s": wall,
+                "mb_per_s": input_mb / wall, "input_rows_per_s": n_in / wall,
+                "output_bytes": out.file_size,
+                "kept_rows": int(len(rows["ht"])),
+                "chunks": st.get("chunks"), "merge_calls": calls,
+                "stages_s": ({k: st[k] for k in (
+                    "decode_wait_s", "dispatch_s", "merge_wait_s",
+                    "gather_s", "write_wait_s")} if st else None)}
+        if backend == "device":
+            for k in ("m_cap", "m_growths", "frontier_rows", "emitted_rows",
+                      "fused_gather_calls", "gather_fallback_calls"):
+                line[k] = st[k]
+        print(json.dumps(line))
+        # the stage split times the fused host gather, never its numpy
+        # twin
+        check(backend != "device" or st["gather_fallback_calls"] == 0,
+              f"device: {st.get('gather_fallback_calls')} gathers fell "
+              "back to numpy")
+    dev_rows, base_rows = results["device"][1], results["baseline"][1]
+    check(dev_rows.keys() == base_rows.keys(), "lane sets differ")
+    for k in dev_rows:
+        same = (dev_rows[k] == base_rows[k] if isinstance(dev_rows[k], list)
+                else np.array_equal(dev_rows[k], base_rows[k]))
+        check(same, f"device and baseline outputs differ in {k}")
+    same_bytes = (open(results["device"][0], "rb").read()
+                  == open(results["baseline"][0], "rb").read())
+
+    # --- both against the numpy oracle --------------------------------------
+    rid = tpch.ROWID
+    o_rowid, o_ht, o_wid, o_tomb = compaction_oracle(
+        np, data, versions, dk_of_rowid, cutoff)
+    got = dev_rows
+    check(np.array_equal(got[f"pk{rid}"], o_rowid), "oracle: rowid order")
+    check(np.array_equal(got["ht"], o_ht), "oracle: ht")
+    check(np.array_equal(got["write_id"], o_wid), "oracle: write ids")
+    check(np.array_equal(got["tombstone"], o_tomb), "oracle: tombstones")
+    keys = got["keys"]
+    check(keys.shape[1] == 14 + 13
+          and np.array_equal(keys[:, :14], dk_bytes[o_rowid])
+          and np.all(keys[:, 14] == 0x05),          # kHybridTime
+          "oracle: doc keys")
+    check(np.array_equal(
+        keys[:, -12:-4].copy().view(">u8").reshape(-1), ~o_ht)
+        and np.array_equal(keys[:, -4:].copy().view(">u4").reshape(-1),
+                           ~o_wid), "oracle: hybrid-time suffixes")
+    for name, col in (("l_quantity", 1), ("l_extendedprice", 2),
+                      ("l_discount", 3), ("l_tax", 4), ("l_shipdate", 5),
+                      ("l_returnflag", 6), ("l_linestatus", 7)):
+        want = np.where(o_tomb, 0, data[name][o_rowid]).astype(
+            data[name].dtype)
+        check(np.array_equal(got[f"fixed{col}"], want)
+              and np.array_equal(got[f"null{col}"], o_tomb),
+              f"oracle: column {name}")
+    print(f"[phase 5] compaction OK: device == baseline row for row "
+          f"(files {'byte-identical' if same_bytes else 'differ in bytes'})"
+          f", both == the numpy oracle ({len(o_rowid)} rows kept of "
+          f"{n_in})")
+
+    # --- a second device compaction of a fresh copy, under the profiler -----
+    d = f"{root}/profiled"
+    shutil.copytree(src, d)
+    store = LsmStore(d, key_builder=codec.derive_keys)
+    prof = compaction_profile(torch, card, lambda: comp.tpu_compact(
+        store, codec, cutoff, block_rows=COMPACT_BLOCK_ROWS,
+        backend="device", device="cuda"))
+    print(json.dumps({"compaction_profile": "device", **prof}))
+    prog["launches_per_compaction"] = \
+        comp.LAST_COMPACTION_STATS["kernel_calls"]
+    print(json.dumps({"compaction_program": prog}))
+    shutil.rmtree(root)
 
 
 def main(argv=None) -> int:
@@ -726,12 +1100,21 @@ def main(argv=None) -> int:
                     PROFILE_ITERS)
     for name, (hand, run, iters) in routes.items():
         with flags.overridden("hand_scan_enabled", hand):
-            problems += profile_route(torch, hs, name, card, n, run, iters)
+            problems += profile_route(torch, hs, name, card, n, run,
+                                      iters)
     check(not problems, "; ".join(problems))
     check(not kern.hand_scan_refusals,
           f"hand route refused: {kern.hand_scan_refusals}")
 
-    # --- phase 5: report -------------------------------------------------
+    # --- phase 5: LSM compaction on the card ------------------------------
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "compaction_smoke")
+    if os.path.exists(root):
+        import shutil
+        shutil.rmtree(root)
+    compaction_phase(torch, np, data, card, root)
+
+    # --- phase 6: report -------------------------------------------------
     for k in kernels:
         k["launches"] = launches.get(k["name"], per_query.get(k["name"], 0))
         check(k["launches"] > 0, f"{k['name']} launched 0 times")

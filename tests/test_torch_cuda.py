@@ -1,9 +1,11 @@
 """The hand kernels themselves on the card (yugabyte_db_tpu_torch/ops/
 hand_scan.py): K1 and K2 (CUDA C++) and K3 (Triton), each against its
 plain PyTorch version on the same CUDA tensors — counts, MIN and MAX
-exact, f32 SUMs rtol 2e-4.  Every test here needs a GPU and skips
-without one; the file imports nothing of JAX, so it runs where JAX is
-not installed:
+exact, f32 SUMs rtol 2e-4; the exact route's shapes and the compaction
+merge program on the card against the CPU, bit for bit, and a small
+device-backend compaction against the baseline backend, byte for byte.
+Every test here needs a GPU and skips without one; the file imports
+nothing of JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -16,8 +18,10 @@ from yugabyte_db_tpu_torch.ops import hand_scan as hs
 # default import mode), and the card's machine may carry an unrelated
 # top-level `tests` package
 from torch_parity import (K3_CASES, K3_LANE_DTYPES,  # noqa: F401
-                          assert_partials, collect_consts, cuda_device,
-                          k3_typed_lanes, q6_inputs)
+                          MERGE_CASES, assert_partials, collect_consts,
+                          cuda_device, frontier_carries, k3_typed_lanes,
+                          merge_frontier_case, port_compaction_store,
+                          q6_inputs, sorted_frontier_row)
 
 B = hs.BLOCK_ROWS
 
@@ -210,3 +214,43 @@ def test_cuda_streamed_q1_runs_k3_per_chunk(cuda_device):
     assert np.array_equal(gc, wc)
     for (op, _), g, w in zip([(a.op, a.expr) for a in q.aggs], go, wo):
         assert_partials(g, w, op)
+
+
+# --- compaction: the merge programs and the engine on the card -----------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MERGE_CASES)
+def test_cuda_merge_programs_match_cpu(cuda_device, case):
+    from yugabyte_db_tpu_torch.ops import compaction as oc
+    dk, ht, wid, tomb, valid = merge_frontier_case(case, m=1 << 16, seed=1)
+    b = sorted_frontier_row(dk, ht, wid, valid, int(valid.sum()) // 2)
+    bound = (dk[b], int(ht[b]), int(wid[b]))
+    cutoff = int(np.median(ht[valid]))
+    for bd in (None, bound):
+        for carry in [None] + frontier_carries(dk, ht, wid, valid):
+            got = oc.merge_frontier(dk, ht, wid, tomb, valid, bd, carry,
+                                    cutoff, device=cuda_device)
+            want = oc.merge_frontier(dk, ht, wid, tomb, valid, bd, carry,
+                                     cutoff, device="cpu")
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_compaction_equals_baseline(cuda_device, tmp_path):
+    from yugabyte_db_tpu_torch.docdb import compaction as comp
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.utils import flags
+    data = tpch.generate_lineitem(0.002, seed=7)
+    outs = {}
+    for backend in ("device", "baseline"):
+        store, codec, hts = port_compaction_store(
+            tmp_path / backend, tpch.lineitem_info(), data)
+        with flags.overridden("compaction_chunk_rows", 4096):
+            outs[backend] = comp.tpu_compact(
+                store, codec, hts[len(hts) // 2], block_rows=700,
+                backend=backend, device=cuda_device)
+        if backend == "device":
+            assert comp.LAST_COMPACTION_STATS["chunks"] >= 8
+            assert comp.LAST_COMPACTION_STATS["device"].startswith("cuda")
+    assert open(outs["device"], "rb").read() == \
+        open(outs["baseline"], "rb").read()

@@ -201,22 +201,56 @@ def _imports(path):
 def test_port_imports_no_jax(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "yugabyte_db_tpu"), \
+        # msgpack: the card's machine lacks it (storage/wire_pack.py is
+        # the port's own codec); native/: the reference's host library
+        assert top not in ("jax", "jaxlib", "yugabyte_db_tpu", "msgpack",
+                           "native"), \
             f"{path.relative_to(REPO)} imports {mod}"
 
 
+_BLOCKED = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'yugabyte_db_tpu', 'msgpack'):\n"
+            "    sys.modules[m] = None\n")
+
+
 def test_port_package_imports_without_jax():
-    # a fresh interpreter where importing jax fails outright
-    code = ("import sys; sys.modules['jax'] = None; "
-            "sys.modules['jaxlib'] = None; "
-            "sys.modules['yugabyte_db_tpu'] = None\n"
+    # a fresh interpreter where importing jax (or msgpack) fails outright
+    code = (_BLOCKED +
             "import importlib, pkgutil, yugabyte_db_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
+            "from yugabyte_db_tpu_torch.docdb.compaction import tpu_compact\n"
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_compaction_runs_without_jax_and_msgpack(tmp_path):
+    """Bulk ingest, SST files and a device-backend compaction (on the
+    CPU) in an interpreter where jax and msgpack cannot be imported."""
+    code = (_BLOCKED +
+            "import numpy as np\n"
+            "from yugabyte_db_tpu_torch.docdb.compaction import tpu_compact\n"
+            "from yugabyte_db_tpu_torch.docdb.table_codec import TableCodec\n"
+            "from yugabyte_db_tpu_torch.models import tpch\n"
+            "from yugabyte_db_tpu_torch.storage.lsm import LsmStore\n"
+            "from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime\n"
+            "data = tpch.generate_lineitem(0.0005, seed=1)\n"
+            "codec = TableCodec(tpch.lineitem_info())\n"
+            f"store = LsmStore({str(tmp_path)!r},"
+            " key_builder=codec.derive_keys)\n"
+            "for i in range(3):\n"
+            "    codec.bulk_ingest(store, data, HybridTime(1000 + i))\n"
+            "tpu_compact(store, codec, 1001, device='cpu')\n"
+            "(out,) = store.ssts\n"
+            "print(out.num_entries)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    # cutoff at the second load: the newest version <= the cutoff and
+    # the one above it survive, the oldest goes
+    assert int(out.stdout.strip()) == 2 * 3000
 
 
 def test_flag_override_restores_on_exit():

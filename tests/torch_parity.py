@@ -425,3 +425,145 @@ def collect_consts(where, aggs):
         if e is not None:
             collect_constants(e, consts)
     return consts
+
+
+# --- compaction (tests/test_torch_compaction.py, tests/test_torch_cuda.py) ---
+U64_MAX = (1 << 64) - 1
+#: first hybrid time (us) of the seeded compaction stores
+COMPACT_BASE_US = 1_700_000_000_000_000
+MERGE_CASES = ["heavy", "replays", "padding", "u64max_first", "high_ht",
+               "random"]
+
+
+def merge_frontier_case(case: str, m: int = 4096, wd: int = 2,
+                        seed: int = 0):
+    """Seeded frontier lanes (dk u64 [m, wd], ht u64, wid u32, tomb,
+    valid) for one edge case of the merge program: heavy duplicates,
+    exact replays, padding rows, real first words equal to U64_MAX
+    (tied with padding), hybrid times above 2**63, or plain random."""
+    rng = np.random.default_rng(seed)
+    n_keys = {"heavy": 12, "replays": 300, "padding": 200,
+              "u64max_first": 50, "high_ht": 100, "random": 2000}[case]
+    key_tab = rng.integers(0, 1 << 62, (n_keys, wd), dtype=np.uint64) \
+        * np.uint64(3)
+    dk = key_tab[rng.integers(0, n_keys, m)]
+    ht_base = (1 << 63) + 12345 if case == "high_ht" else 1 << 40
+    ht = (np.uint64(ht_base)
+          + rng.integers(0, 64, m, dtype=np.uint64) * np.uint64(4096))
+    wid = rng.integers(0, 4, m).astype(np.uint32)
+    tomb = rng.random(m) < 0.2
+    valid = np.ones(m, bool)
+    if case == "heavy":
+        ht = np.uint64(ht_base) + rng.integers(0, 3, m, dtype=np.uint64)
+        wid = rng.integers(0, 2, m).astype(np.uint32)
+    if case == "replays":
+        src = rng.integers(0, m, m // 3)
+        dst = rng.integers(0, m, m // 3)
+        dk[dst], ht[dst], wid[dst] = dk[src], ht[src], wid[src]
+    if case == "padding":
+        valid[m - 1000:] = False
+        dk[m - 1000:] = 0
+        ht[m - 1000:] = 0
+        wid[m - 1000:] = 0
+        tomb[m - 1000:] = False
+    if case == "u64max_first":
+        dk[: m // 4, 0] = np.uint64(U64_MAX)
+        dk[m // 4: m // 4 + 16, 1] = 0
+        dk[m // 4: m // 4 + 16, 0] = np.uint64(U64_MAX)
+        ht[m // 4: m // 4 + 8] = 0
+        wid[m // 4: m // 4 + 8] = 0
+        valid[m - 500:] = False
+        dk[m - 500:] = 0
+        ht[m - 500:] = 0
+        wid[m - 500:] = 0
+    if case == "high_ht":
+        ht[::7] = np.uint64(U64_MAX - 1)
+    return dk, ht, wid, tomb, valid
+
+
+def sorted_frontier_row(dk, ht, wid, valid, pos):
+    """The frontier row at sorted position `pos` in the merge's order
+    (dk words ascending with padding last, then ht and wid descending)."""
+    first = np.where(valid, dk[:, 0], np.uint64(U64_MAX))
+    keys = [~wid, ~ht] + [dk[:, i] for i in range(dk.shape[1] - 1, 0, -1)]
+    return np.lexsort(keys + [first])[pos]
+
+
+def frontier_carries(dk, ht, wid, valid):
+    """Carries that exercise each field against the first sorted row:
+    all equal (an exact duplicate across the boundary), another ht,
+    another write id, another doc key; each with leq True and False."""
+    r = sorted_frontier_row(dk, ht, wid, valid, 0)
+    out = []
+    for leq in (True, False):
+        out += [(dk[r], int(ht[r]), int(wid[r]), leq),
+                (dk[r], int(ht[r]) + 1, int(wid[r]), leq),
+                (dk[r], int(ht[r]), int(wid[r]) + 1, leq),
+                (dk[r] ^ np.uint64(1), int(ht[r]), int(wid[r]), leq)]
+    return out
+
+
+def compaction_batches(data, n_ssts: int, rows_per: int,
+                       straddle: bool = False):
+    """(row selection, micros) of each SST of a seeded compaction store:
+    SST i rewrites a quarter of SST i-1's rows at a later hybrid time;
+    with `straddle` every SST rewrites the same 600 rows (many versions
+    per doc key)."""
+    n = len(data["rowid"])
+    out = []
+    for i in range(n_ssts):
+        if straddle:
+            sel = np.arange(600) * 3
+        else:
+            fresh = (i * rows_per) % (n - rows_per)
+            sel = np.arange(fresh, fresh + rows_per) % n
+            if i:
+                sel[: rows_per // 4] = ((sel - rows_per // 4) % n)[
+                    : rows_per // 4]
+        out.append((sel, COMPACT_BASE_US + i * 1000))
+    return out
+
+
+def tombstoned_block(cb, block_cls):
+    """A delete of every row of bulk-built block `cb` at its own ht and
+    write ids (tombstone lane set, value columns NULL with zero values),
+    as a `block_cls` block."""
+    n = cb.n
+    out = block_cls.from_arrays(
+        cb.schema_version, cb.key_hash, cb.ht, write_id=cb.write_id,
+        pk=cb.pk, tombstone=np.ones(n, bool), unique_keys=cb.unique_keys,
+        keys=cb.keys,
+        fixed={c: (np.zeros(n, v.dtype), np.ones(n, bool))
+               for c, (v, _) in cb.fixed.items()},
+        varlen={c: (np.zeros(n, np.uint32), b"", np.ones(n, bool))
+                for c in cb.varlen})
+    out.keys_proven = cb.keys_proven
+    return out
+
+
+def port_compaction_store(root, table_info, data, n_ssts: int = 8,
+                          rows_per: int = 4500, block_rows: int = 512):
+    """A port LsmStore of `compaction_batches` SSTs plus a tombstone SST
+    (every 10th rowid, between the middle SSTs); returns (store, codec,
+    sorted hybrid times)."""
+    from yugabyte_db_tpu_torch.docdb.table_codec import TableCodec
+    from yugabyte_db_tpu_torch.storage.columnar import ColumnarBlock
+    from yugabyte_db_tpu_torch.storage.lsm import LsmStore
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    codec = TableCodec(table_info)
+    store = LsmStore(str(root), key_builder=codec.derive_keys,
+                     shred_cols=codec.shred_cols)
+    hts = []
+    for sel, us in compaction_batches(data, n_ssts, rows_per):
+        codec.bulk_ingest(store, {k: v[sel] for k, v in data.items()},
+                          HybridTime.from_micros(us), block_rows=block_rows)
+        hts.append(HybridTime.from_micros(us).value)
+    sel = np.nonzero(data["rowid"] % 10 == 0)[0]
+    us = COMPACT_BASE_US + (n_ssts // 2) * 1000 - 500
+    blocks = [tombstoned_block(b, ColumnarBlock) for b in
+              codec.bulk_blocks_iter({k: v[sel] for k, v in data.items()},
+                                     HybridTime.from_micros(us),
+                                     block_rows=block_rows)]
+    store.ingest_sst(lambda w: [w.add_columnar_block(b) for b in blocks],
+                     stream=True)
+    return store, codec, sorted(hts)

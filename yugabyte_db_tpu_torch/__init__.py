@@ -11,26 +11,37 @@ columns included) -> one padded device batch, or pow2 chunks through
 ``ops.stream_scan`` -> ``ops.scan.ScanKernel.run`` (exact int64
 fixed-point route, MVCC modes ``none``, ``visible`` and ``dedup``;
 dense, hash and dictionary GROUP BY) or the hand-written Hopper kernels
-of ``ops.hand_scan`` -> host-combined partials.
+of ``ops.hand_scan`` -> host-combined partials; and the LSM compaction
+merge over columnar SSTs (``docdb.compaction.tpu_compact``: the
+pipelined chunked engine with the merge + MVCC GC on the card, or the
+monolithic host baseline) with the SST tier it runs on.
 
 Device rule: every entry point takes ``device=`` and defaults to
 ``"cuda"``; asking for CUDA where there is none raises
 (``device.resolve_device``).  The CPU is used only when the caller
-passes ``device="cpu"``.
+passes ``device="cpu"``.  Shapes not ported yet raise
+``errors.NotPortedError`` naming their ROADMAP.md item.
 
 Package layout:
   device.py   device resolution and validation
-  utils/      flags (only those this slice reads), hybrid time
-  dockv/      column schemas, key type bytes, partitioning, bulk encoders
-  storage/    ColumnarBlock (struct-of-arrays rows, string lanes),
-              dictionary coding (lane_codec), the stage pipeline
-  docdb/      TableInfo + TableCodec bulk block builder, the string
-              predicate rewrite (operations)
+  errors.py   the typed NotPortedError refusal
+  utils/      flags (only those the ported paths read), hybrid times
+  dockv/      column schemas, key and value type bytes, partitioning,
+              bulk encoders
+  storage/    ColumnarBlock (struct-of-arrays rows, string lanes, v1/v2
+              serialization, zone maps), lane and dictionary coding
+              (lane_codec), the MessagePack header codec (wire_pack),
+              columnar SST files (sst), the LSM store's manifest and
+              SST set (lsm), the host library (native_lib, csrc/
+              host_native.cpp), the stage pipeline
+  docdb/      TableInfo + TableCodec (bulk blocks and ingest, key
+              derivation), the string predicate rewrite (operations),
+              compaction engines (compaction)
   models/     TPC-H lineitem generator, Q6/Q1 and their numpy answers
   ops/        expression compiler, device batches and cache, scan
               kernel, dictionary GROUP BY (grouped_scan), streaming scan
-              (stream_scan), hand kernels (hand_scan.py; CUDA sources
-              under csrc/)
+              (stream_scan), compaction merge programs (compaction),
+              hand kernels (hand_scan.py; CUDA sources under csrc/)
 """
 
 __version__ = "0.1.0"

@@ -62,3 +62,7 @@ class TableSchema:
     @property
     def key_columns(self) -> List[ColumnSchema]:
         return [c for c in self.columns if c.is_key]
+
+    @property
+    def value_columns(self) -> List[ColumnSchema]:
+        return [c for c in self.columns if not c.is_key]

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..errors import NotPortedError  # noqa: F401 — re-exported
 from .device_batch import DeviceBatch, flipped_i64_scalar
 from .expr import (collect_constants, compile_expr, const_count,
                    expr_bound, expr_signature, referenced_columns)
@@ -43,16 +44,6 @@ from .hand_scan import HAND_DTYPES, GenericScan, HandScanIneligible
 
 _U64_MAX = 0xFFFFFFFFFFFFFFFF
 _I64_MAX = 0x7FFFFFFFFFFFFFFF      # U64_MAX in the flipped encoding
-
-
-class NotPortedError(NotImplementedError):
-    """A shape the port does not run yet; the message names the
-    ROADMAP.md item that will port it."""
-
-    def __init__(self, what: str, roadmap_item: str):
-        super().__init__(f"{what} is not ported yet (ROADMAP.md: "
-                         f"{roadmap_item})")
-        self.roadmap_item = roadmap_item
 
 
 @dataclass(frozen=True)

@@ -74,7 +74,7 @@ def chunk_safe_mvcc(blocks: Sequence[ColumnarBlock]) -> bool:
     for b in blocks:
         if not b.unique_keys or b.n == 0:
             return False
-        first, last = b.boundary_keys()
+        first, last = b.boundary_keys(materialize=False)
         if first is None or last is None or len(first) <= _HT_SUFFIX:
             return False
         first_dk = first[:-_HT_SUFFIX]

@@ -1,21 +1,51 @@
 """Columnar block representation: one sorted run of rows in
-struct-of-arrays form.
+struct-of-arrays form, and its on-disk serialization.
 
-Counterpart of ``yugabyte_db_tpu/storage/columnar.py`` cut to the lanes
-the scan path reads: fixed-width and PK columns, varlen (string) lanes
-with their block-local dictionaries, the MVCC lanes and the optional
-encoded-key matrix.  Serialization, zone maps and lazy key rebuilds stay
-in ROADMAP.md (storage/LSM copy)."""
+Counterpart of ``yugabyte_db_tpu/storage/columnar.py``: fixed-width and
+PK columns, varlen (string) lanes with their block-local dictionaries,
+the MVCC lanes, the encoded-key matrix (a lazy property on v2 keyless
+blocks, rebuilt through a bound key builder), and the on-disk
+formats, byte for byte the reference's:
+
+  v1  every lane dumped raw, keys matrix always inline (read only);
+  v2  the keys matrix DROPPED when provably derivable from the pk
+      columns + ht/write_id lanes, every lane through lane_codec's
+      "encode only if smaller" menu, per-block min/max zone maps
+      (read and written).
+
+Headers are MessagePack, written by the port's own codec
+(storage/wire_pack.py).  Derived scan-lifetime lanes (column ids at or
+above ``DERIVED_COL_BASE``) and shredded document lanes refuse to
+serialize with ``NotPortedError``; the native point-read extension
+(``native_hot``) is not ported."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import struct
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import lane_codec
+from ..errors import NotPortedError
+from . import lane_codec, wire_pack
+
+#: newest block format this build can read, and the one it writes;
+#: deserialize rejects anything newer with a clear error instead of
+#: misparsing it
+SUPPORTED_FORMAT_VERSION = 2
+
+#: column ids at or above this are DERIVED scan-lifetime lanes (join
+#: build columns, shredded document paths), never row data
+DERIVED_COL_BASE = 1 << 20
+
+#: lazy key-matrix rebuild tally: every time a v2 keyless block's
+#: ``keys`` property fires its key_builder thunk, one rebuild (and the
+#: block's row count) lands here
+KEY_REBUILD_STATS = {"rebuilds": 0, "rows": 0}
 
 _HASH_MULT = np.uint64(0x100000001B3)
 _HASH_OFF = np.uint64(0xCBF29CE484222325)
+
+_SHRED_ITEM = "ROADMAP.md queue 1 item 9 (document shredding)"
 
 
 def fnv64_rows(mat: np.ndarray) -> np.ndarray:
@@ -24,6 +54,34 @@ def fnv64_rows(mat: np.ndarray) -> np.ndarray:
     h = np.full(mat.shape[0], _HASH_OFF)
     for j in range(mat.shape[1]):
         h = (h ^ mat[:, j].astype(np.uint64)) * _HASH_MULT
+    return h
+
+
+def fnv64_bytes(data: bytes) -> int:
+    h = 0xCBF29CE484222325
+    for b in data:
+        h = ((h ^ b) * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+def fnv64_keys(keys: Sequence[bytes]) -> np.ndarray:
+    """Vectorized fnv64_bytes over variable-length keys: column-wise
+    masked updates, so the result is byte-exact with the scalar hash
+    whatever the padding."""
+    if not keys:
+        return np.zeros(0, np.uint64)
+    lens = np.array([len(k) for k in keys], np.int64)
+    w = int(lens.max())
+    mat = np.zeros((len(keys), w), np.uint8)
+    if lens.min() == w:
+        mat[:] = np.frombuffer(b"".join(keys), np.uint8).reshape(-1, w)
+    else:
+        for i, k in enumerate(keys):
+            mat[i, :len(k)] = np.frombuffer(k, np.uint8)
+    h = np.full(len(keys), _HASH_OFF)
+    for j in range(w):
+        upd = (h ^ mat[:, j].astype(np.uint64)) * _HASH_MULT
+        h = np.where(j < lens, upd, h)
     return h
 
 
@@ -42,12 +100,22 @@ class ColumnarBlock:
                    null_mask)}
       unique_keys  True when every doc key appears once in the block
       keys         optional encoded SubDocKeys (with the hybrid-time
-                   suffix) as an [N, L] uint8 matrix
+                   suffix) as an [N, L] uint8 matrix; a LAZY property on
+                   v2 keyless blocks (rebuilt through the bound
+                   key_builder on first access)
+      zmap         {col id: (min, max)} per-block zone map over non-null
+                   values of pk + fixed columns (v2 blocks only)
+      keys_proven  True when every row's key is proven byte-derivable
+                   from pk + ht/write_id (bulk-built blocks, v2 derived
+                   blocks, and row-wise through slice/concat/gather):
+                   the v2 writer then drops keys without re-verifying
     """
 
     __slots__ = ("n", "schema_version", "key_hash", "ht", "write_id",
                  "tombstone", "pk", "fixed", "varlen", "unique_keys",
-                 "keys", "_vdict_cache")
+                 "zmap", "keys_proven", "_keys", "_key_thunk",
+                 "_first_key", "_last_key", "_void_keys", "_vdicts",
+                 "_vdict_cache")
 
     def __init__(self, n: int, schema_version: int,
                  key_hash: np.ndarray, ht: np.ndarray,
@@ -69,9 +137,21 @@ class ColumnarBlock:
         self.fixed = fixed if fixed is not None else {}
         self.varlen = varlen if varlen is not None else {}
         self.unique_keys = unique_keys
-        self.keys = keys
+        self.zmap: Optional[Dict[int, Tuple[object, object]]] = None
+        self.keys_proven: bool = False
+        self._keys: Optional[np.ndarray] = None
+        self._key_thunk = None         # callable(cb) -> ndarray | None
+        self._first_key: Optional[bytes] = None
+        self._last_key: Optional[bytes] = None
+        # void view of `keys` for binary search, built on first use
+        self._void_keys: Optional[np.ndarray] = None
+        # raw stored dict parts (uniq_lens, uniq_heap, codes) of v2
+        # dict-coded varlen lanes, by column id
+        self._vdicts: Dict[int, tuple] = {}
         # dict_varlen() memo: (cid, max_card) -> (uniq, codes) | False
         self._vdict_cache: Dict[tuple, object] = {}
+        if keys is not None:
+            self.keys = keys
 
     @classmethod
     def from_arrays(cls, schema_version: int,
@@ -130,13 +210,77 @@ class ColumnarBlock:
             raise ValueError("lane lengths disagree with n")
         return blk
 
-    # --- keys ------------------------------------------------------------
-    def boundary_keys(self) -> Tuple[Optional[bytes], Optional[bytes]]:
-        """(first, last) full encoded keys of the block, or (None, None)
-        when it carries no key matrix (or no rows)."""
-        if self.keys is None or not self.n:
+    # --- keys (lazy on v2 keyless blocks) --------------------------------
+    @property
+    def keys(self) -> Optional[np.ndarray]:
+        """Full encoded SubDocKey matrix. For v2 keyless blocks the
+        first access rebuilds it through the bound key_builder; None
+        when the block has no keys and no way to derive them."""
+        if self._keys is None and self._key_thunk is not None:
+            thunk, self._key_thunk = self._key_thunk, None
+            KEY_REBUILD_STATS["rebuilds"] += 1
+            KEY_REBUILD_STATS["rows"] += self.n
+            self._keys = thunk(self)
+        return self._keys
+
+    @keys.setter
+    def keys(self, v: Optional[np.ndarray]) -> None:
+        self._keys = v
+        self._void_keys = None
+
+    @property
+    def keys_derivable(self) -> bool:
+        """True when a keys matrix is available or can be rebuilt."""
+        return self._keys is not None or self._key_thunk is not None
+
+    def bind_key_builder(self, builder) -> None:
+        """Attach the lazy rebuild callback of a v2 keyless block (set
+        by SstReader from the codec's derive_keys)."""
+        if self._keys is None and builder is not None:
+            self._key_thunk = builder
+
+    def boundary_keys(self, materialize: bool = True
+                      ) -> Tuple[Optional[bytes], Optional[bytes]]:
+        """(first, last) full encoded keys of the block, from the
+        materialized matrix or the stored v2 boundary keys; with
+        ``materialize=False`` (None, None) instead of firing the lazy
+        key_builder."""
+        if self._keys is not None:
+            if not self.n:
+                return None, None
+            return self._keys[0].tobytes(), self._keys[-1].tobytes()
+        if self._first_key is not None:
+            return self._first_key, self._last_key
+        if not materialize:
             return None, None
-        return self.keys[0].tobytes(), self.keys[-1].tobytes()
+        k = self.keys                  # may invoke the rebuild thunk
+        if k is None or not self.n:
+            return None, None
+        return k[0].tobytes(), k[-1].tobytes()
+
+    def first_full_key(self) -> Optional[bytes]:
+        """First row's full encoded key, from the stored boundary keys
+        when present (no derived matrix is materialized)."""
+        return self.boundary_keys()[0]
+
+    def last_full_key(self) -> Optional[bytes]:
+        return self.boundary_keys()[1]
+
+    def searchsorted_key(self, key: bytes) -> int:
+        """First row index with keys[i] >= key (needs the keys matrix).
+        Pads/truncates `key` to the matrix width; doc-key prefix freedom
+        makes zero padding order-correct."""
+        keys = self.keys
+        if keys is None:
+            raise ValueError("searchsorted_key needs a keys matrix")
+        if self._void_keys is None:
+            self._void_keys = np.ascontiguousarray(keys).view(
+                np.dtype((np.void, keys.shape[1]))).reshape(-1)
+        vk = self._void_keys
+        w = vk.dtype.itemsize
+        probe = key[:w].ljust(w, b"\x00")
+        t = np.frombuffer(probe, vk.dtype)[0]
+        return int(np.searchsorted(vk, t, side="left"))
 
     # --- varlen dictionaries ---------------------------------------------
     def dict_varlen(self, cid: int, max_card: int = 1 << 16):
@@ -144,16 +288,22 @@ class ColumnarBlock:
         ``(uniq, codes)`` with `uniq` a SORTED object array of str and
         `codes` int32 row codes into it (NULL rows code as "").  None
         when the column can't dictionary-encode (over-long rows, too
-        many distinct values, non-UTF8 payloads).  Built once with the
-        byte-level unique (rows are never decoded; only the uniques
-        are) and memoized per (column, max_card)."""
+        many distinct values, non-UTF8 payloads).
+        Sourced from the stored v2 dict-coded lane when present, else
+        built once with the byte-level unique (rows are never decoded;
+        only the uniques are); memoized per (column, max_card)."""
         got = self._vdict_cache.get((cid, max_card))
         if got is not None:
             return got if got is not False else None
         out = None
-        if cid in self.varlen:
-            ends, heap, null = self.varlen[cid]
-            try:
+        try:
+            stored = self._vdicts.get(cid)
+            if stored is not None:
+                ulens, uheap, codes = stored
+                out = (lane_codec.decode_dict_strings(ulens, uheap),
+                       np.asarray(codes, np.int32))
+            elif cid in self.varlen:
+                ends, heap, null = self.varlen[cid]
                 coded = lane_codec.varlen_code_rows(
                     ends, heap, null, max_card=max_card,
                     sample_guard=False)
@@ -161,11 +311,284 @@ class ColumnarBlock:
                     ulens, uheap, codes = coded
                     out = (lane_codec.decode_dict_strings(ulens, uheap),
                            codes)
-            except UnicodeDecodeError:
-                out = None
+        except UnicodeDecodeError:
+            out = None
         self._vdict_cache[(cid, max_card)] = out if out is not None \
             else False
         return out
+
+    # --- serialization ---------------------------------------------------
+    def _refuse_derived_lanes(self) -> None:
+        derived = sorted(c for c in list(self.fixed) + list(self.varlen)
+                         if c >= DERIVED_COL_BASE)
+        if derived:
+            raise NotPortedError(
+                f"serializing derived lanes {derived}", _SHRED_ITEM)
+
+    def serialize_parts(self, key_builder=None,
+                        stats: Optional[dict] = None
+                        ) -> Tuple[bytes, List[object]]:
+        """(header bytes, payload buffers): buffer-protocol objects
+        (contiguous ndarrays / bytes) a writer streams to its file.
+
+        Writes the v2 format (the reference's default): the keys matrix
+        is dropped when ``key_builder(self)`` rebuilds it byte-identically
+        (or ``keys_proven``), every lane runs through lane_codec, and
+        zone maps and the boundary keys are embedded.  `stats` (optional)
+        accumulates per-lane encode accounting.  v1 blocks are read, not
+        written."""
+        self._refuse_derived_lanes()
+        return self._serialize_v2(key_builder, stats)
+
+    def _serialize_v2(self, key_builder, stats: Optional[dict]
+                      ) -> Tuple[bytes, List[object]]:
+        bufs: List[object] = []
+
+        def lane(name: str, arr: np.ndarray) -> dict:
+            m, parts, enc = lane_codec.encode_lane(arr)
+            bufs.extend(parts)
+            lane_codec.tally(stats, name, arr.nbytes,
+                             sum(p.nbytes for p in parts), enc)
+            return m
+
+        keys = self.keys
+        keys_meta = None
+        if keys is not None:
+            drop = False
+            if key_builder is not None:
+                if self.keys_proven:
+                    drop = True
+                else:
+                    # derivation is an optimization: a builder that
+                    # cannot rebuild this block keeps the keys inline
+                    try:
+                        derived = key_builder(self)
+                    except (TypeError, ValueError):
+                        derived = None
+                    drop = (derived is not None
+                            and derived.shape == keys.shape
+                            and derived.dtype == keys.dtype
+                            and np.array_equal(derived, keys))
+            if drop:
+                keys_meta = {"drv": 1}
+                lane_codec.tally(stats, "keys", keys.nbytes, 0, "derived")
+            else:
+                keys_meta = lane("keys", keys)
+        meta = {
+            "v": 2,
+            "n": self.n, "sv": self.schema_version, "uniq": self.unique_keys,
+            "keys": keys_meta,
+            "key_hash": lane("key_hash", self.key_hash),
+            "ht": lane("ht", self.ht),
+            "wid": lane("write_id", self.write_id),
+            "tomb": lane("tombstone", self.tombstone),
+            "pk": {str(k): lane("pk", v) for k, v in self.pk.items()},
+            "fixed": {str(k): [lane("fixed_vals", v), lane("fixed_null", m)]
+                      for k, (v, m) in self.fixed.items()},
+            "varlen": {},
+        }
+        for k, (ends, heap, null) in self.varlen.items():
+            dict_meta = self._dict_varlen_parts(ends, heap, null, bufs,
+                                                stats)
+            if dict_meta is not None:
+                meta["varlen"][str(k)] = [dict_meta, {"len": 0},
+                                          lane("varlen_null", null)]
+                continue
+            # heap rides FIRST in the payload stream (the v1 order, so
+            # one deserializer walks both formats)
+            hb = (heap if isinstance(heap, (bytes, bytearray))
+                  else np.ascontiguousarray(heap))
+            bufs.append(hb)
+            lane_codec.tally(stats, "varlen_heap", len(heap), len(heap),
+                             "raw")
+            meta["varlen"][str(k)] = [lane("varlen_ends", ends),
+                                      {"len": len(heap)},
+                                      lane("varlen_null", null)]
+        if keys is not None and self.n:
+            meta["k0"] = keys[0].tobytes()
+            meta["k1"] = keys[-1].tobytes()
+        zmap = self._build_zone_map()
+        if zmap:
+            meta["zmap"] = {str(c): [lo, hi] for c, (lo, hi) in
+                            zmap.items()}
+        head = wire_pack.packb(meta)
+        lane_codec.tally(stats, "header", len(head) + 4, len(head) + 4,
+                         "raw")
+        return struct.pack("<I", len(head)) + head, bufs
+
+    def _dict_varlen_parts(self, ends, heap, null, bufs: List[object],
+                           stats: Optional[dict]):
+        """v2 dict coding of one varlen lane: uniques (lens + heap) +
+        narrow codes replace the row heap + ends lane when STRICTLY
+        smaller than their raw dump.  Only lanes whose NULL rows carry
+        zero-length payloads qualify (codes -> payloads must round-trip
+        the original bytes).  Returns the lane meta, or None for raw."""
+        n = len(ends)
+        if n < 2:
+            return None
+        ends64 = np.asarray(ends, np.int64)
+        lens = np.diff(np.concatenate([[0], ends64]))
+        if null is not None and np.asarray(null, bool).any() and \
+                lens[np.asarray(null, bool)].any():
+            return None               # lossy for non-empty NULL payloads
+        coded = lane_codec.varlen_code_rows(ends, heap, null,
+                                            max_card=0xFFFF)
+        if coded is None:
+            return None
+        ulens, uheap, codes = coded
+        k = len(ulens)
+        cdt = np.dtype(np.uint8 if k <= 0x100 else np.uint16)
+        raw_basis = len(heap) + np.asarray(ends).nbytes
+        size = ulens.nbytes + uheap.nbytes + n * cdt.itemsize
+        if size >= raw_basis:
+            return None
+        codes_n = np.ascontiguousarray(codes.astype(cdt))
+        bufs.extend([np.ascontiguousarray(ulens),
+                     np.ascontiguousarray(uheap), codes_n])
+        lane_codec.tally(stats, "varlen_dict", raw_basis, size, "dict")
+        return {"venc": "dict", "k": k, "cdt": str(cdt),
+                "parts": [ulens.nbytes, uheap.nbytes, codes_n.nbytes]}
+
+    @staticmethod
+    def _decode_dict_varlen(vmeta: dict, fetch):
+        """Inverse of _dict_varlen_parts: rebuild the exact (ends, heap)
+        pair and return the raw dict parts for dict_varlen()."""
+        ulens = np.frombuffer(fetch(vmeta["parts"][0]), np.uint8)
+        uheap = bytes(fetch(vmeta["parts"][1]))
+        codes = np.frombuffer(fetch(vmeta["parts"][2]),
+                              np.dtype(vmeta["cdt"])).astype(np.int32)
+        u_ends = np.cumsum(ulens.astype(np.int64))
+        u_starts = u_ends - ulens
+        row_lens = ulens[codes].astype(np.int64)
+        ends = np.cumsum(row_lens).astype(np.uint32)
+        total = int(row_lens.sum())
+        if total:
+            hb = np.frombuffer(uheap, np.uint8)
+            starts_out = ends.astype(np.int64) - row_lens
+            off = np.arange(total, dtype=np.int64) - \
+                np.repeat(starts_out, row_lens)
+            heap = hb[np.repeat(u_starts[codes], row_lens) + off].tobytes()
+        else:
+            heap = b""
+        return ends, heap, (ulens, uheap, codes)
+
+    def _build_zone_map(self) -> Dict[int, Tuple[object, object]]:
+        """Per-column (min, max) over non-null values of pk + fixed
+        value columns: exact Python ints for integer lanes; floats are
+        skipped when a NaN or an infinity is present."""
+        out: Dict[int, Tuple[object, object]] = {}
+        if not self.n:
+            return out
+
+        def bounds(arr: np.ndarray, null: Optional[np.ndarray]):
+            if arr.ndim != 1 or arr.dtype.kind not in "iuf":
+                return None
+            v = arr if null is None else arr[~null]
+            if not len(v):
+                return None
+            lo, hi = v.min(), v.max()
+            if arr.dtype.kind == "f":
+                if not (np.isfinite(lo) and np.isfinite(hi)):
+                    return None
+                return (float(lo), float(hi))
+            return (int(lo), int(hi))
+
+        for cid, arr in self.pk.items():
+            b = bounds(np.asarray(arr), None)
+            if b is not None:
+                out[cid] = b
+        for cid, (vals, null) in self.fixed.items():
+            b = bounds(np.asarray(vals), np.asarray(null))
+            if b is not None:
+                out[cid] = b
+        return out
+
+    def serialize(self, key_builder=None) -> bytes:
+        head, bufs = self.serialize_parts(key_builder)
+        return head + b"".join(
+            b if isinstance(b, bytes) else memoryview(b).cast("B")
+            for b in bufs)
+
+    @classmethod
+    def deserialize(cls, data, copy: bool = True,
+                    max_version: int = SUPPORTED_FORMAT_VERSION
+                    ) -> "ColumnarBlock":
+        """Rebuild a block from its serialized form. With copy=False and
+        a buffer-backed `data` (a memoryview over the SST mapping) raw
+        lanes are zero-copy READ-ONLY views; encoded v2 lanes decode
+        into small owned arrays either way.  Blocks newer than
+        ``max_version`` raise ValueError; shredded lanes raise
+        NotPortedError."""
+        hlen = struct.unpack_from("<I", data)[0]
+        meta = wire_pack.unpackb(data[4:4 + hlen])
+        version = meta.get("v", 1)
+        if version > max_version:
+            raise ValueError(
+                f"columnar block format v{version} is newer than this "
+                f"reader supports (<= v{max_version}); upgrade before "
+                "reading this SST")
+        if meta.get("shred"):
+            raise NotPortedError("reading shredded document lanes",
+                                 _SHRED_ITEM)
+        pos = 4 + hlen
+
+        def fetch(n):
+            nonlocal pos
+            raw = data[pos:pos + n]
+            pos += n
+            return raw
+
+        if version == 1:
+            def take(ref) -> np.ndarray:
+                raw = fetch(ref["len"])
+                arr = np.frombuffer(raw, dtype=np.dtype(ref["dtype"])
+                                    ).reshape(ref["shape"])
+                return arr.copy() if copy else arr
+        else:
+            def take(ref) -> np.ndarray:
+                arr = lane_codec.decode_lane(ref, fetch)
+                if ref.get("enc") is None and copy:
+                    return arr.copy()
+                return arr
+
+        keys_meta = meta.get("keys")
+        keys = None
+        derived = False
+        if keys_meta is not None:
+            if keys_meta.get("drv"):
+                derived = True
+            else:
+                keys = take(keys_meta)
+        blk = cls(
+            n=meta["n"], schema_version=meta["sv"],
+            key_hash=take(meta["key_hash"]), ht=take(meta["ht"]),
+            write_id=take(meta["wid"]), tombstone=take(meta["tomb"]),
+            unique_keys=meta["uniq"], keys=keys)
+        for k, ref_ in meta["pk"].items():
+            blk.pk[int(k)] = take(ref_)
+        for k, (vref, mref) in meta["fixed"].items():
+            v = take(vref)
+            m = take(mref)
+            blk.fixed[int(k)] = (v, m)
+        for k, (eref, heapinfo, nref) in meta["varlen"].items():
+            heap = fetch(heapinfo["len"])
+            if eref.get("venc") == "dict":
+                ends, heap, parts = cls._decode_dict_varlen(eref, fetch)
+                blk._vdicts[int(k)] = parts
+            else:
+                ends = take(eref)
+            null = take(nref)
+            blk.varlen[int(k)] = (ends, heap, null)
+        if version >= 2:
+            if derived:
+                blk.keys_proven = True     # write-time verify passed
+            if meta.get("k0") is not None:
+                blk._first_key = meta["k0"]
+                blk._last_key = meta["k1"]
+            z = meta.get("zmap")
+            if z:
+                blk.zmap = {int(c): (b[0], b[1]) for c, b in z.items()}
+        return blk
 
     # --- row views -------------------------------------------------------
     def visible_mask(self, read_ht: int) -> np.ndarray:
@@ -180,6 +603,7 @@ class ColumnarBlock:
             write_id=self.write_id[lo:hi], tombstone=self.tombstone[lo:hi],
             unique_keys=self.unique_keys,
             keys=self.keys[lo:hi] if self.keys is not None else None)
+        out.keys_proven = self.keys_proven   # row-wise property
         for cid, arr in self.pk.items():
             out.pk[cid] = arr[lo:hi]
         for cid, (v, m) in self.fixed.items():
@@ -212,6 +636,7 @@ class ColumnarBlock:
             unique_keys=False,
             keys=(np.concatenate([b.keys for b in blocks])
                   if first.keys is not None else None))
+        out.keys_proven = all(b.keys_proven for b in blocks)
         for cid in first.pk:
             out.pk[cid] = np.concatenate([b.pk[cid] for b in blocks])
         for cid in first.fixed:

@@ -1,10 +1,17 @@
-"""Varlen (string) dictionary coding and remap tables.
+"""Per-lane encodings of the v2 columnar block format, and varlen
+(string) dictionary coding with remap tables.
 
-Counterpart of the dictionary half of ``yugabyte_db_tpu/storage/
-lane_codec.py`` (``varlen_code_rows`` .. ``dict_identity``); the
-on-disk lane encodings stay with the SST copy (ROADMAP.md queue 1 item
-9).  Dictionary GROUP BY and string predicates (ops/grouped_scan.py)
-run over dictionary CODES.  Everything stays at the byte level: uniques
+Counterpart of ``yugabyte_db_tpu/storage/lane_codec.py``.
+
+Lane encodings (``encode_lane``/``decode_lane``): each block lane is
+encoded on its own with the cheapest scheme that strictly shrinks it,
+raw otherwise — const, dconst (arithmetic progression), delta (zigzag
+deltas in the narrowest unsigned dtype), rle and dict — over an
+unsigned-integer VIEW of the lane, so float and bool lanes round-trip
+bit for bit.  The writer's bytes equal the reference's.
+
+Dictionary GROUP BY and string predicates (ops/grouped_scan.py) run
+over dictionary CODES.  Everything stays at the byte level: uniques
 come from a padded-matrix void view (UTF-8 byte order is code-point
 order, and an explicit length column keeps "a" distinct from, and
 ordered before, "a\\x00"), so chunk-local codes translate into a
@@ -13,9 +20,148 @@ row strings."""
 from __future__ import annotations
 
 import hashlib
-from typing import Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+
+#: unsigned view dtype per itemsize — encodings reinterpret, never
+#: convert, so float/bool lanes round-trip bit-exactly
+_UVIEW = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+_NARROW = (np.uint8, np.uint16, np.uint32)
+
+#: dict encoding is only attempted when a small prefix sample stays
+#: under this many distinct values
+_DICT_SAMPLE = 2048
+_DICT_SAMPLE_MAX = 384
+
+
+def _uview(arr: np.ndarray) -> Optional[np.ndarray]:
+    """1-D same-width unsigned reinterpret of a lane (None when the
+    dtype has no unsigned twin — such lanes stay raw)."""
+    if arr.ndim != 1:
+        return None
+    u = _UVIEW.get(arr.dtype.itemsize)
+    if u is None or arr.dtype.kind not in "iufb":
+        return None
+    return np.ascontiguousarray(arr).view(u)
+
+
+def _narrowest(maxval: int) -> Optional[np.dtype]:
+    for dt in _NARROW:
+        if maxval <= np.iinfo(dt).max:
+            return np.dtype(dt)
+    return None
+
+
+def encode_lane(arr: np.ndarray) -> Tuple[dict, List[np.ndarray], str]:
+    """(meta, buffers, encoding_name) for one lane. The meta carries
+    everything decode_lane needs; buffers are contiguous ndarrays the
+    caller streams to the file in order."""
+    raw = np.ascontiguousarray(arr)
+    raw_meta = {"dtype": str(arr.dtype), "shape": list(arr.shape),
+                "len": raw.nbytes}
+    u = _uview(raw)
+    n = 0 if u is None else len(u)
+    if u is None or n < 2:
+        return raw_meta, [raw], "raw"
+    cands: List[Tuple[int, str, list, List[np.ndarray]]] = []
+
+    diffs = u[1:] - u[:-1]            # wraparound delta in lane width
+    if not diffs.any():
+        cands.append((raw.dtype.itemsize, "const", [], [u[:1]]))
+    elif n > 2 and not (diffs[1:] != diffs[0]).any():
+        cands.append((2 * raw.dtype.itemsize, "dconst", [], [u[:2]]))
+    else:
+        # delta: zigzag the signed wraparound deltas into the narrowest
+        # dtype that fits
+        signed = diffs.view(np.dtype(f"i{raw.dtype.itemsize}"))
+        neg = np.where(signed < 0, np.iinfo(u.dtype).max,
+                       0).astype(u.dtype)       # all-ones for negatives
+        zz = (diffs << np.uint8(1)) ^ neg
+        ndt = _narrowest(int(zz.max()))
+        if ndt is not None and ndt.itemsize < raw.dtype.itemsize:
+            zzn = zz.astype(ndt)
+            cands.append((raw.dtype.itemsize + zzn.nbytes, "delta",
+                          [str(ndt)], [u[:1], zzn]))
+        bnd = np.nonzero(diffs)[0]
+        runs = len(bnd) + 1
+        rle_bytes = runs * (raw.dtype.itemsize + 4)
+        if rle_bytes < raw.nbytes:
+            starts = np.concatenate([[0], bnd + 1])
+            lens = np.diff(np.concatenate([starts, [n]])).astype(np.uint32)
+            cands.append((rle_bytes, "rle", [], [u[starts], lens]))
+        if len(np.unique(u[:_DICT_SAMPLE])) <= _DICT_SAMPLE_MAX:
+            uniq, codes = np.unique(u, return_inverse=True)
+            cdt = _narrowest(len(uniq) - 1)
+            if cdt is not None and cdt.itemsize < raw.dtype.itemsize:
+                size = uniq.nbytes + n * cdt.itemsize
+                if size < raw.nbytes:
+                    cands.append((size, "dict", [len(uniq), str(cdt)],
+                                  [uniq, codes.reshape(-1).astype(cdt)]))
+    if not cands:
+        return raw_meta, [raw], "raw"
+    size, enc, extra, bufs = min(cands, key=lambda c: c[0])
+    if size >= raw.nbytes:            # encode ONLY if strictly smaller
+        return raw_meta, [raw], "raw"
+    bufs = [np.ascontiguousarray(b) for b in bufs]
+    meta = {"dtype": str(arr.dtype), "shape": list(arr.shape),
+            "enc": enc, "x": extra,
+            "parts": [b.nbytes for b in bufs]}
+    return meta, bufs, enc
+
+
+def decode_lane(meta: dict, fetch: Callable[[int], object]) -> np.ndarray:
+    """Rebuild a lane from its meta + the file stream. ``fetch(nbytes)``
+    returns the next raw byte region (bytes/memoryview; may be a
+    zero-copy view of the SST mapping for raw lanes)."""
+    dt = np.dtype(meta["dtype"])
+    shape = tuple(meta["shape"])
+    enc = meta.get("enc")
+    if enc is None:
+        raw = fetch(meta["len"])
+        return np.frombuffer(raw, dtype=dt).reshape(shape)
+    n = shape[0]
+    udt = np.dtype(_UVIEW[dt.itemsize])
+    parts = [np.frombuffer(fetch(nb), np.uint8) for nb in meta["parts"]]
+    if enc == "const":
+        u = np.broadcast_to(parts[0].view(udt), (n,))
+    elif enc == "dconst":
+        fs = parts[0].view(udt)
+        step = (fs[1:] - fs[:1])[0]              # wraparound-exact
+        u = fs[0] + step * np.arange(n, dtype=udt)
+    elif enc == "delta":
+        zz = parts[1].view(np.dtype(meta["x"][0])).astype(udt)
+        signed = ((zz >> np.uint8(1))
+                  ^ (-(zz & np.uint8(1)).astype(
+                      np.dtype(f"i{dt.itemsize}"))).view(udt))
+        u = np.cumsum(np.concatenate([parts[0].view(udt), signed]),
+                      dtype=udt)
+    elif enc == "rle":
+        vals = parts[0].view(udt)
+        lens = parts[1].view(np.uint32)
+        u = np.repeat(vals, lens.astype(np.int64))
+    elif enc == "dict":
+        _k, cdt = meta["x"]
+        uniq = parts[0].view(udt)
+        codes = parts[1].view(np.dtype(cdt))
+        u = uniq[codes]
+    else:
+        raise ValueError(f"unknown lane encoding {enc!r}")
+    return np.ascontiguousarray(u).view(dt).reshape(shape)
+
+
+def tally(stats: Optional[dict], lane: str, pre: int, post: int,
+          enc: str) -> None:
+    """Accumulate per-lane encode accounting; no-op when the caller
+    passed no stats dict."""
+    if stats is None:
+        return
+    lanes = stats.setdefault("lanes", {})
+    ent = lanes.setdefault(lane, {"pre_bytes": 0, "post_bytes": 0,
+                                  "encodings": {}})
+    ent["pre_bytes"] += pre
+    ent["post_bytes"] += post
+    ent["encodings"][enc] = ent["encodings"].get(enc, 0) + 1
 
 #: rows longer than this never dictionary-code (the padded unique
 #: matrix is O(n * max_len); long payloads are unlikely to repeat)

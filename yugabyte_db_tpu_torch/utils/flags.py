@@ -1,8 +1,9 @@
-"""Runtime flags read by the ported scan path.
+"""Runtime flags read by the ported paths.
 
 Counterpart of ``yugabyte_db_tpu/utils/flags.py``, cut to the flags the
-ported scan path reads, with the reference's defaults.  The registry keeps the reference's get/set_flag surface
-so call sites read the same; unknown names raise KeyError."""
+ported scan and compaction paths read, with the reference's defaults.
+The registry keeps the reference's get/set_flag surface so call sites
+read the same; unknown names raise KeyError."""
 from __future__ import annotations
 
 import contextlib
@@ -91,3 +92,8 @@ REGISTRY.define(
     "Serve GROUP BY over dictionary-encoded (string) columns on the "
     "device (ops/grouped_scan.py); off, streamed dict-grouped scans "
     "decline (streaming_scan_aggregate returns None).")
+REGISTRY.define(
+    "compaction_chunk_rows", 524288,
+    "Frontier capacity (rows) of the pipelined chunked compaction "
+    "engine; rounded up to a power of two so every chunk of a bucket "
+    "shares one merge shape.")
