@@ -42,10 +42,11 @@ Phases (any failed check raises and the script exits non-zero):
      dict and the streamed routes): wall time per query on the host
      clock (profiler off), device-busy time per query from
      torch.profiler, the device's idle share and the activities that
-     take most device time — one JSON line per route; a window that
-     lost device activity (none at all, fewer hand-kernel activities
-     than launches, a count that is not a whole multiple of the
-     queries) fails the run;
+     take most device time — one JSON line per route, counted between
+     two marker kernels with an uncounted query on each side; a span
+     that lost device activity (none at all, fewer hand-kernel
+     activities than launches, a count that is not a whole multiple of
+     the queries) fails the run;
   5. compact a 100-SST TPC-H SF1 lineitem tablet (SSTs of
      60,000 rows, each rewriting a quarter of its predecessor's rows,
      plus a tombstone SST; history cutoff at SST 50's hybrid time; the
@@ -58,7 +59,22 @@ Phases (any failed check raises and the script exits non-zero):
      per backend (MB/s, stage split), a `compaction_profile` line from
      torch.profiler over a third compaction, and a `compaction_program`
      line for chunk_merge_kernel (ms per call against its bound);
-  6. print the kernels line, then the device line last.
+  6. the tablet read seam at SF1, SSTs under build/tablet_smoke/
+     (removed at the end): LineitemTable(num_tablets=8) (hash,
+     262,144-row blocks) and a one-tablet LineitemTable loaded through
+     Tablet.bulk_load; Q6 and Q1 through Tablet.read on every tablet
+     (combined by combine_agg_partials) and on the one tablet (streamed,
+     at least 3 chunks), on the exact and the hand route (K3 in MVCC
+     mode visible; its launches must rise); a BypassSession over the
+     eight tablets at the reads' read point, prefilter on and off, bit
+     for bit equal to the reads with no key rebuilds; a range-sharded
+     tablet's Q6 AND rowid < n/8 with zone_map_pruning on (blocks
+     pruned) and off, equal answers; every answer against numpy; one
+     `tablet_load` line, one `tablet` line (rows/s, wall, path, chunks,
+     blocks pruned, prefilter rows in/kept) and one `profile` line per
+     route;
+  7. print the kernels line (launches per path: phase 3's scan and
+     phase 6's tablet reads), then the device line last.
 
 It imports nothing of JAX: the port stands alone.
 """
@@ -81,6 +97,8 @@ STREAM_ITERS = 2                 # streamed queries per timed window (each
                                  # forms every chunk's batch on the host)
 PROFILE_MARGIN_S = 0.05          # host time between a profiling window's
                                  # edges and the route's first/last launch
+MARKER_KERNEL = "spin_kernel"    # torch.cuda._sleep's kernel: bounds the
+MARKER_CYCLES = 1000             # counted span of a profiling window
 #: the device names of each hand kernel's launches (hs.LAUNCHES keys)
 HAND_KERNEL_NAMES = {"q6_scan": ("q6_scan_kernel",),
                      "grouped_sum": ("grouped_sum_onehot",
@@ -189,14 +207,18 @@ def profile_route(torch, hs, name, card, rows, run, iters) -> list:
     every thread), the idle share and the top device activities.
 
     The profiler keeps only device activities whose timestamps fall
-    inside its capture window, so the window opens and closes
-    PROFILE_MARGIN_S of host time away from the route's first and last
-    launch: a short window (hand Q6 is about 3.5 ms) is never cut at an
-    edge.  Returns what the window failed to record, for the caller to
-    fail on: no device activity at all, a hand kernel recorded fewer or
-    more times than its launch count rose, or a device activity recorded
-    a number of times that is not a whole multiple of the queries run
-    (each query launches the same work, so a lost edge shows there)."""
+    inside its capture window, and on the card's torch 2.11 it also
+    dropped the first device activities of a window opened late in a
+    long process (the same ones on every try, so a second window does
+    not help).  So the window holds one uncounted query on each side of
+    the counted ones, PROFILE_MARGIN_S of host time from each edge, and
+    only device activities between two marker kernels (MARKER_KERNEL,
+    launched after the leading query and before the trailing one) are
+    counted.  Returns what the counted span failed to record, for the
+    caller to fail on: a marker missing, no device activity, a hand
+    kernel recorded fewer or more times than its launch count rose, or
+    a device activity recorded a number of times that is not a whole
+    multiple of the queries run (each query launches the same work)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     run()                                   # warm (built above)
@@ -206,36 +228,50 @@ def profile_route(torch, hs, name, card, rows, run, iters) -> list:
         run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t) / iters
-    before = dict(hs.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_MARGIN_S)
+        run()                               # leading query: not counted
+        torch.cuda.synchronize()
+        torch.cuda._sleep(MARKER_CYCLES)
+        before = dict(hs.LAUNCHES)
         for _ in range(iters):
             run()
-            # one query at a time: with the next streamed query's worker
-            # copying while this one drains, the card's profiler (torch
-            # 2.11) dropped one host-to-device copy record per window
+            # one query at a time: a streamed query's worker copies while
+            # the previous one drains otherwise
             torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in hs.LAUNCHES.items()}
+        torch.cuda._sleep(MARKER_CYCLES)
+        run()                               # trailing query: not counted
+        torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
-    launched = {k: v - before[k] for k, v in hs.LAUNCHES.items()}
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = sorted((e for e in device if MARKER_KERNEL in e.name),
+                   key=lambda e: e.time_range.start)
+    problems = []
+    if len(marks) != 2:
+        problems.append(f"{len(marks)} marker kernels recorded, not 2")
+        lo, hi = float("-inf"), float("inf")
+    else:
+        lo, hi = marks[0].time_range.end, marks[1].time_range.start
+    per_name: dict = {}
+    for e in device:
+        if MARKER_KERNEL in e.name or not lo <= e.time_range.start < hi:
+            continue
+        us_count = per_name.setdefault(e.name, [0.0, 0])
+        us_count[0] += e.time_range.elapsed_us()
+        us_count[1] += 1
     recorded = {k: 0 for k in launched}
-    top, busy_us, problems = [], 0.0, []
-    for e in prof.key_averages():
-        # an aten op's row repeats its kernels' time: device rows only
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us <= 0:
-            continue
+    top, busy_us = [], 0.0
+    for key, (us, count) in per_name.items():
         busy_us += us
-        top.append((us / iters, e.key, e.count / iters))
-        if e.count % iters:
-            problems.append(f"{e.key[:60]} recorded {e.count} times "
+        top.append((us / iters, key, count / iters))
+        if count % iters:
+            problems.append(f"{key[:60]} recorded {count} times "
                             f"over {iters} queries")
         for k, device_names in HAND_KERNEL_NAMES.items():
-            if e.key in device_names:
-                recorded[k] += e.count
+            if key in device_names:
+                recorded[k] += count
     if busy_us <= 0:
         problems.append("no device activity recorded")
     if recorded != launched:
@@ -807,6 +843,266 @@ def compaction_phase(torch, np, data, card, root) -> None:
     shutil.rmtree(root)
 
 
+TABLET_BLOCK_ROWS = 262_144     # LineitemTable.load's default (bench.py)
+TABLET_ITERS = 5                # warm monolithic reads per timed window
+TABLET_STREAM_ITERS = 2         # warm streamed reads per timed window
+
+
+def k3_launches_by_query(kern) -> dict:
+    """K3 launches of a ScanKernel's hand entries, by query signature
+    (one entry per signature and bucket; Q1's is the grouped one)."""
+    out: dict = {}
+    for key, e in kern._cache.items():
+        if key[0] == "hand":
+            name = f"generic_scan[{'q6' if e.G is None else 'q1'}]"
+            out[name] = out.get(name, 0) + e.launches
+    return out
+
+
+def tablet_seam_phase(torch, np, hs, data, card, root,
+                      device="cuda", block_rows=TABLET_BLOCK_ROWS,
+                      profile=True) -> dict:
+    """Phase 6: the tablet read seam — Tablet.bulk_load into SSTs, then
+    Tablet.read on eight hash tablets (combined by combine_agg_partials)
+    and on one streamed tablet, exact and hand routes; a BypassSession
+    over the eight tablets with the prefilter on and off against the
+    tablet reads at one read point; a range-sharded tablet's zone-pruned
+    Q6 with pruning on and off.  Every answer against numpy.  Returns
+    the K3 launches of the phase's reads by query signature."""
+    import shutil
+    from yugabyte_db_tpu_torch.bypass import BypassSession
+    from yugabyte_db_tpu_torch.docdb import operations as ops
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops import stream_scan as ss
+    from yugabyte_db_tpu_torch.ops.expr import Expr
+    from yugabyte_db_tpu_torch.ops.scan import (_expand_avg,
+                                                combine_agg_partials)
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import flags
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    n = len(data["rowid"])
+    Q6, Q1 = tpch.TPCH_Q6, tpch.TPCH_Q1
+    ref_q6 = tpch.numpy_reference(Q6, data)
+    ref_q1 = tpch.numpy_reference(Q1, data)
+    zone_hi = n // 8
+    zone_where = ("and", Q6.where, (Expr.col(tpch.ROWID) < zone_hi).node)
+    m = ((data["l_shipdate"] >= 8766) & (data["l_shipdate"] < 9131)
+         & (data["l_discount"] >= 0.05) & (data["l_discount"] <= 0.07)
+         & (data["l_quantity"] < 24.0) & (data["rowid"] < zone_hi))
+    ref_zone = (data["l_extendedprice"][m] * data["l_discount"][m]).sum()
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-300)
+
+    def check_answer(q, vals, counts, what, ref=None):
+        if q is Q1:
+            for g in range(6):
+                qsum, psum, cnt = ref_q1[g]
+                check(int(counts[g]) == cnt, f"{what}: Q1 count g{g}")
+                check(float(vals[0][g]) == qsum,
+                      f"{what}: Q1 qty sum g{g} not exact")
+                check(rel(vals[1][g], psum) < 1e-5,
+                      f"{what}: Q1 price sum g{g}")
+            return
+        r = rel(vals[0], ref_q6 if ref is None else ref)
+        check(r < 1e-5, f"{what}: Q6 relative error {r}")
+
+    def fanout(tablets, q, table_id="lineitem", where=None, read_ht=None):
+        resps = [t.read(ops.ReadRequest(
+            table_id, where=q.where if where is None else where,
+            aggregates=q.aggs, group_by=q.group, read_ht=read_ht))
+            for t in tablets]
+        check(all(r.backend == "tpu" for r in resps), "a read left the card")
+        return combine_agg_partials(
+            tuple(_expand_avg(q.aggs)), [r.agg_values for r in resps],
+            [r.group_counts for r in resps])
+
+    def timed(fn, iters):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        cold = time.perf_counter() - t
+        t = time.perf_counter()
+        for _ in range(iters):
+            out = fn()
+        sync()
+        return out, cold, (time.perf_counter() - t) / iters
+
+    routes = {}                  # profile name -> (hand, run, iters)
+
+    def report(name, n_tablets, cold, wall, hand=False, run=None, iters=0,
+               **extra):
+        """One `tablet` line (extra keys override the stream stats'),
+        and the route registered for profiling when `run` is given."""
+        st = dict(ss.LAST_STREAM_STATS)
+        print(json.dumps({
+            "tablet": name, "card": card, "tablets": n_tablets, "rows": n,
+            "path": "streamed" if st else "monolithic",
+            "chunks": st.get("chunks", 0), "cold_ms": cold * 1e3,
+            "wall_ms": wall * 1e3, "rows_per_s": n / wall,
+            "blocks_pruned": st.get("zone_blocks_pruned",
+                                    ops.LAST_SCAN_PRUNE_STATS.get(
+                                        "blocks_pruned", 0)),
+            "blocks_total": st.get("zone_blocks_total",
+                                   ops.LAST_SCAN_PRUNE_STATS.get(
+                                       "blocks_total", 0)),
+            "prefilter_rows_in": st.get("prefilter_rows_in", 0),
+            "prefilter_rows_kept": st.get("prefilter_rows_kept", 0),
+            **extra}))
+        if run is not None:
+            routes[name] = (hand, run, iters)
+        return st
+
+    if os.path.exists(root):
+        shutil.rmtree(root)
+    kern = ops.shared_kernel(device)
+    before = k3_launches_by_query(kern)
+    try:
+        # --- load: eight hash tablets, one hash tablet, one range tablet
+        t0 = time.perf_counter()
+        table8 = tpch.LineitemTable(f"{root}/hash8", num_tablets=8,
+                                    device=device)
+        check(table8.load(data, block_rows=block_rows) == n,
+              "8-tablet load lost rows")
+        t1 = time.perf_counter()
+        table1 = tpch.LineitemTable(f"{root}/hash1", num_tablets=1,
+                                    device=device)
+        check(table1.load(data, block_rows=block_rows) == n,
+              "1-tablet load lost rows")
+        t2 = time.perf_counter()
+        rtab = Tablet("lineitem-range", tpch.lineitem_range_info(),
+                      f"{root}/range", device=device)
+        check(rtab.bulk_load(data) == n, "range load lost rows")
+        t3 = time.perf_counter()
+        print(json.dumps({"tablet_load": {
+            "rows": n, "hash8_s": t1 - t0, "hash1_s": t2 - t1,
+            "range_s": t3 - t2, "block_rows": block_rows,
+            "hash8_blocks": sum(r.num_blocks() for t in table8.tablets
+                                for r in t.regular.ssts),
+            "hash1_blocks": sum(r.num_blocks()
+                                for r in table1.tablets[0].regular.ssts),
+            "range_blocks": sum(r.num_blocks() for r in rtab.regular.ssts),
+            "sst_bytes": sum(t.approximate_size() for t in
+                             table8.tablets + table1.tablets + [rtab])}}))
+
+        # --- Tablet.read: 8 tablets (monolithic), 1 tablet (streamed) ---
+        for route in ("exact", "hand"):
+            hand = route == "hand"
+            with flags.overridden("hand_scan_enabled", hand):
+                for q in (Q6, Q1):
+                    ss.LAST_STREAM_STATS.clear()
+                    run = lambda q=q: fanout(table8.tablets, q)
+                    out, cold, wall = timed(run, TABLET_ITERS)
+                    check_answer(q, out[0], out[1], f"8-tablet {route} "
+                                 f"{q.name}")
+                    st = report(f"tablet8_{route}_{q.name}", 8, cold, wall,
+                                hand, run, PROFILE_ITERS)
+                    check(not st, "8 tablets of 3 blocks streamed")
+                    ss.LAST_STREAM_STATS.clear()
+                    run = lambda q=q: fanout(table1.tablets, q)
+                    out, cold, wall = timed(run, TABLET_STREAM_ITERS)
+                    check_answer(q, out[0], out[1], f"1-tablet {route} "
+                                 f"{q.name}")
+                    st = report(f"tablet1_stream_{route}_{q.name}", 1, cold,
+                                wall, hand, run, STREAM_ITERS)
+                    check(st.get("chunks", 0) >= 3,
+                          f"1-tablet {q.name} streamed {st.get('chunks')} "
+                          "chunks")
+        check(not kern.hand_scan_refusals,
+              f"hand route refused: {kern.hand_scan_refusals}")
+
+        # --- bypass over the eight tablets at the tablet reads' point ----
+        read_ht = max(t.clock.now().value for t in table8.tablets)
+        for q in (Q6, Q1):
+            rpc = fanout(table8.tablets, q, read_ht=read_ht)
+            for pf in (True, False):
+                sess = BypassSession(table8.tablets, read_ht=read_ht,
+                                     prefilter=pf, device=device)
+                try:
+                    ss.LAST_STREAM_STATS.clear()
+                    run = lambda q=q, s=sess: s.scan_aggregate(
+                        q.where, q.aggs, q.group)
+                    (vals, counts, st), cold, wall = timed(
+                        run, TABLET_ITERS)
+                finally:
+                    sess.close()
+                check(st["key_rebuilds"] == 0, "bypass rebuilt keys")
+                check(np.array_equal(np.asarray(counts),
+                                     np.asarray(rpc[1])),
+                      f"bypass {q.name} counts differ from the reads")
+                for a, b in zip(vals, rpc[0]):
+                    check(np.asarray(a).tobytes() == np.asarray(b).tobytes(),
+                          f"bypass {q.name} (prefilter {pf}) is not "
+                          "bit-identical to the tablet reads")
+                check_answer(q, vals, counts, f"bypass {q.name}")
+                if pf and q is Q6:
+                    check(0 < st["prefilter_rows_kept"]
+                          < st["prefilter_rows_in"],
+                          "the prefilter dropped no rows")
+                report(f"bypass_{q.name}{'' if pf else '_noprefilter'}",
+                       8, cold, wall, path=sorted(set(st["paths"])),
+                       prefilter_rows_in=st["prefilter_rows_in"],
+                       prefilter_rows_kept=st["prefilter_rows_kept"],
+                       key_rebuilds=st["key_rebuilds"])
+
+        # --- the range tablet: Q6 AND rowid < n/8, pruning on and off ----
+        answers = {}
+        for prune in (True, False):
+            with flags.overridden("zone_map_pruning", prune):
+                ss.LAST_STREAM_STATS.clear()
+                ops.LAST_SCAN_PRUNE_STATS.clear()
+                run = lambda: fanout([rtab], Q6, "lineitem_r", zone_where)
+                out, cold, wall = timed(run, TABLET_STREAM_ITERS)
+                check_answer(Q6, out[0], out[1],
+                             f"range Q6 pruning {prune}", ref_zone)
+                st = report(f"range_q6_{'pruned' if prune else 'unpruned'}",
+                            1, cold, wall, False, run, STREAM_ITERS)
+                pruned = st.get("zone_blocks_pruned",
+                                ops.LAST_SCAN_PRUNE_STATS.get(
+                                    "blocks_pruned", 0))
+                check((pruned > 0) == prune,
+                      f"range Q6 pruning {prune}: {pruned} blocks pruned")
+                answers[prune] = float(out[0][0])
+        check(answers[True] == answers[False],
+              f"range Q6 pruned {answers[True]} != unpruned "
+              f"{answers[False]}")
+        after = k3_launches_by_query(kern)
+        launches = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+        check(all(launches.get(k, 0) > 0 for k in
+                  ("generic_scan[q6]", "generic_scan[q1]")) or not cuda,
+              f"K3 did not run on the tablet path: {launches}")
+        print(f"[phase 6] tablet read seam OK; K3 launches {launches}")
+
+        # --- where the time goes, per route --------------------------------
+        problems = []
+        if profile:
+            for name, (hand, run, iters) in routes.items():
+                prune = not name.endswith("_unpruned")
+                with flags.overridden("hand_scan_enabled", hand), \
+                        flags.overridden("zone_map_pruning", prune):
+                    problems += profile_route(torch, hs, name, card, n,
+                                               run, iters)
+            for pf in (True, False):
+                with BypassSession(table8.tablets, read_ht=read_ht,
+                                   prefilter=pf, device=device) as sess:
+                    for q in (Q6, Q1):
+                        problems += profile_route(
+                            torch, hs,
+                            f"bypass_{q.name}{'' if pf else '_noprefilter'}",
+                            card, n, lambda q=q, s=sess: s.scan_aggregate(
+                                q.where, q.aggs, q.group), PROFILE_ITERS)
+        check(not problems, "; ".join(problems))
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1101,7 +1397,7 @@ def main(argv=None) -> int:
     for name, (hand, run, iters) in routes.items():
         with flags.overridden("hand_scan_enabled", hand):
             problems += profile_route(torch, hs, name, card, n, run,
-                                      iters)
+                                       iters)
     check(not problems, "; ".join(problems))
     check(not kern.hand_scan_refusals,
           f"hand route refused: {kern.hand_scan_refusals}")
@@ -1114,13 +1410,22 @@ def main(argv=None) -> int:
         shutil.rmtree(root)
     compaction_phase(torch, np, data, card, root)
 
-    # --- phase 6: report -------------------------------------------------
+    # --- phase 6: the tablet read seam -----------------------------------
+    seam = tablet_seam_phase(
+        torch, np, hs, data, card,
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "tablet_smoke"))
+
+    # --- phase 7: report -------------------------------------------------
     for k in kernels:
-        k["launches"] = launches.get(k["name"], per_query.get(k["name"], 0))
+        scan_path = launches.get(k["name"], per_query.get(k["name"], 0))
+        k["launches_by_path"] = {"scan": scan_path,
+                                 "tablet_seam": seam.get(k["name"], 0)}
+        k["launches"] = scan_path + seam.get(k["name"], 0)
         check(k["launches"] > 0, f"{k['name']} launched 0 times")
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 hand_scan.py): K1 and K2 (CUDA C++) and K3 (Triton), each against its
 plain PyTorch version on the same CUDA tensors — counts, MIN and MAX
 exact, f32 SUMs rtol 2e-4; the exact route's shapes and the compaction
-merge program on the card against the CPU, bit for bit, and a small
-device-backend compaction against the baseline backend, byte for byte.
+merge program on the card against the CPU, bit for bit, a small
+device-backend compaction against the baseline backend, byte for byte,
+and a card tablet's reads and bypass session against the same tablet
+read on the CPU.
 Every test here needs a GPU and skips without one; the file imports
 nothing of JAX, so it runs where JAX is not installed:
 
@@ -254,3 +256,57 @@ def test_cuda_compaction_equals_baseline(cuda_device, tmp_path):
             assert comp.LAST_COMPACTION_STATS["device"].startswith("cuda")
     assert open(outs["device"], "rb").read() == \
         open(outs["baseline"], "rb").read()
+
+
+# --- the tablet read seam on the card ------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("streamed", [True, False])
+def test_cuda_tablet_read_matches_cpu(cuda_device, tmp_path, streamed):
+    """One lineitem tablet on the card and its twin on the CPU over the
+    same rows: the exact route equals bit for bit under one float dtype;
+    the hand route (K3, MVCC mode visible) agrees within the hand
+    route's tolerance and launches K3; the bypass session on the card
+    equals the card's tablet read."""
+    from yugabyte_db_tpu_torch.bypass import BypassSession
+    from yugabyte_db_tpu_torch.docdb.operations import ReadRequest
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import flags
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    data = tpch.generate_lineitem(0.02, seed=5)
+    tablets = {}
+    for dev in (cuda_device, "cpu"):
+        t = Tablet("t", tpch.lineitem_info(), str(tmp_path / str(dev)),
+                   device=dev)
+        t.bulk_load(data, ht=HybridTime(1 << 40), block_rows=8192)
+        tablets[str(dev)] = t
+    read_ht = 1 << 41
+
+    def read(t, q):
+        return t.read(ReadRequest("lineitem", where=q.where,
+                                  aggregates=q.aggs, group_by=q.group,
+                                  read_ht=read_ht))
+
+    with flags.overridden("device_float_dtype", "float32"), \
+            flags.overridden("streaming_chunk_rows", 32768), \
+            flags.overridden("streaming_scan_enabled", streamed):
+        for q in (tpch.TPCH_Q6, tpch.TPCH_Q1):
+            got, want = read(tablets[str(cuda_device)], q), \
+                read(tablets["cpu"], q)
+            assert np.array_equal(got.group_counts, want.group_counts)
+            for g, w in zip(got.agg_values, want.agg_values):
+                assert np.asarray(g).tobytes() == np.asarray(w).tobytes()
+            with flags.overridden("hand_scan_enabled", True):
+                before = hs.LAUNCHES["generic_scan"]
+                hand = read(tablets[str(cuda_device)], q)
+                assert hs.LAUNCHES["generic_scan"] > before
+            assert np.array_equal(hand.group_counts, want.group_counts)
+            for a, g, w in zip(q.aggs, hand.agg_values, want.agg_values):
+                assert_partials(g, w, a.op)
+            with BypassSession([tablets[str(cuda_device)]], read_ht=read_ht,
+                               device=cuda_device) as s:
+                bv, bc, st = s.scan_aggregate(q.where, q.aggs, q.group)
+            assert st["key_rebuilds"] == 0
+            assert np.array_equal(bc, got.group_counts)
+            for b, g in zip(bv, got.agg_values):
+                assert np.asarray(b).tobytes() == np.asarray(g).tobytes()

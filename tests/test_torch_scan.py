@@ -161,9 +161,11 @@ def test_signature_cache_and_compiles(blocks):
 
 
 def test_unported_shapes_raise_naming_the_roadmap(blocks):
-    # dedup mode and HashGroupSpec are served now (tests/test_torch_mvcc.py,
-    # tests/test_torch_grouped.py); the native prefilter of the streamed
-    # scan is what still raises, naming its ROADMAP.md item
+    # dedup mode, HashGroupSpec and the streamed scan's prefilter are
+    # served now (tests/test_torch_mvcc.py, tests/test_torch_grouped.py,
+    # tests/test_torch_bypass.py); the bypass reader's fused join plan is
+    # what still raises, naming its ROADMAP.md item
+    from yugabyte_db_tpu_torch.bypass.scan import bypass_plan_aggregate
     from yugabyte_db_tpu_torch.ops.stream_scan import \
         streaming_scan_aggregate
     _, _, pb = blocks
@@ -175,10 +177,13 @@ def test_unported_shapes_raise_naming_the_roadmap(blocks):
     pbat.unique_keys = False
     out = k.run(pbat, None, (AggSpec("count"),), read_ht=1000)
     assert int(out[0][0]) == pbat.n_rows      # one version per key
+    got = streaming_scan_aggregate(pb, [S], None, (AggSpec("count"),),
+                                   kernel=k, chunk_rows=4096,
+                                   prefilter=lambda b: b)
+    assert int(got[0][0]) == pbat.n_rows
     with pytest.raises(NotPortedError, match="ROADMAP.md"):
-        streaming_scan_aggregate(pb, [S], None, (AggSpec("count"),),
-                                 kernel=k, chunk_rows=4096,
-                                 prefilter=lambda b: b)
+        bypass_plan_aggregate(pb, None, (AggSpec("count"),), None, 1000,
+                              object())
     # no read point: mode none, served
     out = k.run(pbat, None, (AggSpec("count"),))
     assert int(out[0][0]) == pbat.n_rows

@@ -196,6 +196,15 @@ def _imports(path):
                 assert PORT in (base / "x").parents or base == PORT, path
 
 
+def test_import_check_covers_the_tablet_seam():
+    names = {str(p.relative_to(PORT)) for p in _port_sources()
+             if PORT in p.parents}
+    assert {"tablet/tablet.py", "tablet/__init__.py", "bypass/__init__.py",
+            "bypass/errors.py", "bypass/pinner.py", "bypass/prefilter.py",
+            "bypass/scan.py", "bypass/session.py",
+            "docdb/operations.py"} <= names
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):

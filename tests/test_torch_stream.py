@@ -22,7 +22,7 @@ from yugabyte_db_tpu_torch.ops.expr import Expr
 from yugabyte_db_tpu_torch.ops.grouped_scan import (LAST_GROUPED_STATS,
                                                     DictGroupSpec)
 from yugabyte_db_tpu_torch.ops.scan import (AggSpec, HashGroupSpec,
-                                            NotPortedError, ScanKernel)
+                                            ScanKernel)
 from yugabyte_db_tpu_torch.storage.pipeline import StreamPipeline
 from yugabyte_db_tpu_torch.utils import flags
 from tests.torch_parity import (assert_bitwise, assert_partials, block_pair,
@@ -330,12 +330,27 @@ def test_chunk_safe_mvcc_matches_reference(li, case):
 
 
 def test_prefilter_is_not_ported(li):
+    # the prefilter is ported now (the name is kept): a prefilter that
+    # drops rows no predicate can match: the batch pads
+    # to the unfiltered bucket with the unfiltered scales, so the answer
+    # keeps its bits; the stats count the rows in and kept
+    from yugabyte_db_tpu_torch.bypass.prefilter import make_prefilter
     _, _, pb = li
     q = tpch.TPCH_Q6
-    with pytest.raises(NotPortedError, match="ROADMAP.md"):
-        pss.streaming_scan_aggregate(pb, q.columns, q.where, q.aggs,
-                                     kernel=ScanKernel(device="cpu"),
-                                     prefilter=lambda blocks: blocks)
+    cols = sorted(q.columns)
+    k = ScanKernel(device="cpu")
+    with float_dtype("float64"):
+        plain = pss.streaming_scan_aggregate(pb, cols, q.where, q.aggs,
+                                             kernel=k, chunk_rows=CHUNK)
+        got = pss.streaming_scan_aggregate(
+            pb, cols, q.where, q.aggs, kernel=k, chunk_rows=CHUNK,
+            prefilter=make_prefilter(q.where, cols))
+    for a, b in zip(got[0], plain[0]):
+        assert_bitwise(a, b)
+    assert_bitwise(got[1], plain[1])
+    st = pss.LAST_STREAM_STATS
+    assert st["prefilter_rows_in"] == sum(b.n for b in pb)
+    assert 0 < st["prefilter_rows_kept"] < st["prefilter_rows_in"]
 
 
 def test_group_domain_guard_matches_reference():

@@ -567,3 +567,107 @@ def port_compaction_store(root, table_info, data, n_ssts: int = 8,
     store.ingest_sst(lambda w: [w.add_columnar_block(b) for b in blocks],
                      stream=True)
     return store, codec, sorted(hts)
+
+
+# --- the tablet read seam: paired tablets and responses -------------------------
+TABLET_BASE_US = 1_700_000_000_000_000       # mock clocks start here
+
+
+def tablet_infos(kind: str):
+    """(reference TableInfo, port TableInfo) of a lineitem layout:
+    'hash' (rowid hashed), 'range' (rowid the range key) or 'str'
+    (range-keyed, string flag columns)."""
+    from yugabyte_db_tpu.models import tpch as jtpch
+    from yugabyte_db_tpu_torch.models import tpch
+    fn = {"hash": "lineitem_info", "range": "lineitem_range_info",
+          "str": "lineitem_str_info"}[kind]
+    return getattr(jtpch, fn)(), getattr(tpch, fn)()
+
+
+def tablet_pair(root, kind: str, data, n_tablets: int = 1,
+                block_rows: int = 8192, loads=((0, None),)):
+    """Reference and port tablets (the port's on the CPU) over the same
+    rows, each package's tablets sharing one mock clock at
+    TABLET_BASE_US.  `loads`: (ht offset in µs from the clock's start,
+    row mask or None) per bulk load, each one SST per tablet.  Returns
+    (reference tablets, port tablets)."""
+    import os
+
+    from yugabyte_db_tpu.tablet import Tablet as JTablet
+    from yugabyte_db_tpu.utils import hybrid_time as jht
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import hybrid_time as pht
+    jinfo, pinfo = tablet_infos(kind)
+    if kind == "str":
+        data = tpch.lineitem_str_data(data)
+    jclock = jht.HybridClock(jht.MockPhysicalClock(TABLET_BASE_US))
+    pclock = pht.HybridClock(pht.MockPhysicalClock(TABLET_BASE_US))
+    jparts = jinfo.partition_schema.create_partitions(n_tablets)
+    pparts = pinfo.partition_schema.create_partitions(n_tablets)
+    jt, pt = [], []
+    for i, (jp, pp) in enumerate(zip(jparts, pparts)):
+        jt.append(JTablet(f"t{i}", jinfo, os.path.join(root, f"j{i}"),
+                          clock=jclock, partition=jp))
+        pt.append(Tablet(f"t{i}", pinfo, os.path.join(root, f"p{i}"),
+                         clock=pclock, partition=pp, device="cpu"))
+    for off, mask in loads:
+        rows = data if mask is None else {k: v[mask]
+                                          for k, v in data.items()}
+        for j, p in zip(jt, pt):
+            j.bulk_load(rows, ht=jht.HybridTime.from_micros(
+                TABLET_BASE_US + off), block_rows=block_rows)
+            p.bulk_load(rows, ht=pht.HybridTime.from_micros(
+                TABLET_BASE_US + off), block_rows=block_rows)
+    return jt, pt
+
+
+def requests(table_id, where, aggs, group, read_ht=None):
+    """The same ReadRequest in both packages."""
+    from yugabyte_db_tpu.docdb.operations import ReadRequest as JReq
+    from yugabyte_db_tpu_torch.docdb.operations import ReadRequest
+    return (JReq(table_id, where=where, aggregates=to_jax_aggs(aggs),
+                 group_by=to_jax_group(group), read_ht=read_ht),
+            ReadRequest(table_id, where=where, aggregates=tuple(aggs),
+                        group_by=group, read_ht=read_ht))
+
+
+def _canon(x):
+    if isinstance(x, np.generic):
+        x = x.item()
+    if isinstance(x, float):
+        return ("f", x.hex())
+    return (type(x).__name__, x)
+
+
+def assert_same_value(a, b, what=""):
+    """Bitwise for numeric arrays; element by element (None, strings,
+    floats by their bits) for object arrays."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype == object or b.dtype == object:
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, a, b)
+        assert [_canon(x) for x in a.ravel()] == \
+            [_canon(x) for x in b.ravel()], (what, a, b)
+    else:
+        assert_bitwise(a, b, what)
+
+
+def assert_same_answer(pvals, pcounts, jvals, jcounts, pgv=None, jgv=None,
+                       what=""):
+    assert len(pvals) == len(jvals), what
+    for i, (a, b) in enumerate(zip(pvals, jvals)):
+        assert_same_value(a, b, f"{what} agg {i}")
+    assert (pcounts is None) == (jcounts is None), what
+    if jcounts is not None:
+        assert_same_value(pcounts, jcounts, f"{what} counts")
+    assert (pgv is None) == (jgv is None), what
+    for i, (a, b) in enumerate(zip(pgv or (), jgv or ())):
+        assert_same_value(a, b, f"{what} group values {i}")
+
+
+def assert_same_response(presp, jresp, what=""):
+    assert jresp.backend == "tpu" and presp.backend == "tpu", \
+        (what, jresp.backend)
+    assert_same_answer(presp.agg_values, presp.group_counts,
+                       jresp.agg_values, jresp.group_counts,
+                       presp.group_values, jresp.group_values, what)

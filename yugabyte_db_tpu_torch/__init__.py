@@ -11,10 +11,15 @@ columns included) -> one padded device batch, or pow2 chunks through
 ``ops.stream_scan`` -> ``ops.scan.ScanKernel.run`` (exact int64
 fixed-point route, MVCC modes ``none``, ``visible`` and ``dedup``;
 dense, hash and dictionary GROUP BY) or the hand-written Hopper kernels
-of ``ops.hand_scan`` -> host-combined partials; and the LSM compaction
-merge over columnar SSTs (``docdb.compaction.tpu_compact``: the
-pipelined chunked engine with the merge + MVCC GC on the card, or the
-monolithic host baseline) with the SST tier it runs on.
+of ``ops.hand_scan`` -> host-combined partials; the tablet read seam
+(``tablet.Tablet``: ``bulk_load`` into columnar SSTs, ``read`` of
+aggregate requests through ``docdb.operations.DocReadOperation`` with
+zone-map pruning and read restarts; ``models.tpch.LineitemTable``
+over several tablets; the analytics bypass reader ``bypass.
+BypassSession`` over pinned SSTs); and the LSM compaction merge over
+columnar SSTs (``docdb.compaction.tpu_compact``: the pipelined chunked
+engine with the merge + MVCC GC on the card, or the monolithic host
+baseline) with the SST tier it runs on.
 
 Device rule: every entry point takes ``device=`` and defaults to
 ``"cuda"``; asking for CUDA where there is none raises
@@ -32,15 +37,20 @@ Package layout:
               serialization, zone maps), lane and dictionary coding
               (lane_codec), the MessagePack header codec (wire_pack),
               columnar SST files (sst), the LSM store's manifest and
-              SST set (lsm), the host library (native_lib, csrc/
-              host_native.cpp), the stage pipeline
+              SST set and reader leases (lsm), the host library
+              (native_lib, csrc/host_native.cpp), the stage pipeline
   docdb/      TableInfo + TableCodec (bulk blocks and ingest, key
-              derivation), the string predicate rewrite (operations),
-              compaction engines (compaction)
+              derivation), read requests and DocReadOperation with the
+              string predicate rewrite (operations), compaction
+              engines (compaction)
+  tablet/     Tablet: one shard's store, codec, reads and compaction
+  bypass/     snapshot pinner, SST-direct scan with the near-data
+              prefilter, BypassSession
   models/     TPC-H lineitem generator, Q6/Q1 and their numpy answers
   ops/        expression compiler, device batches and cache, scan
-              kernel, dictionary GROUP BY (grouped_scan), streaming scan
-              (stream_scan), compaction merge programs (compaction),
+              kernel with the shard combine and zone pruning, dictionary
+              GROUP BY (grouped_scan), streaming scan (stream_scan),
+              compaction merge programs (compaction),
               hand kernels (hand_scan.py; CUDA sources under csrc/)
 """
 

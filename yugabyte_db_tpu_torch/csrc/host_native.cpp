@@ -1,10 +1,12 @@
-// Host-side library of the compaction path (CPU code, not a kernel).
+// Host-side library of the compaction and bypass paths (CPU code, not a
+// kernel).
 //
 // The port's own copy of the host functions of native/ybtpu_native.cpp
-// that the SST writer and the compaction engine call: bloom filter build,
-// the k-way merge of sorted runs (the baseline backend's whole-input
-// merge), and the row / multi-column / heap gathers that move emitted
-// rows from their source blocks into output blocks.  Each function keeps
+// that the SST writer, the compaction engine and the bypass reader call:
+// bloom filter build, the k-way merge of sorted runs (the baseline
+// backend's whole-input merge), the row / multi-column / heap gathers
+// that move emitted rows from their source blocks into output blocks,
+// and the near-data prefilter's range pass over encoded lanes.  Each function keeps
 // the reference's semantics and C ABI, so the bytes it produces match.
 // Bound with ctypes (storage/native_lib.py), which releases the GIL for
 // the duration of every call, so the pipeline's host stages overlap.
@@ -222,6 +224,47 @@ void gather_heap(const uint8_t* heap, const int64_t* src_start,
         if (lens[i])
             memcpy(out + dst_start[i], heap + src_start[i],
                    (size_t)lens[i]);
+    }
+}
+
+// --------------------------------------------------------------------------
+// Near-data prefilter (bypass/prefilter.py): AND of inclusive range
+// predicates over fixed-width lanes into a keep mask; a NULL row fails
+// its predicate.  dtypes: 1 int32, 2 int64, 3 float32, 4 float64,
+// 5 uint32 (integer bounds in lo_i/hi_i, float bounds in lo_f/hi_f).
+// Lanes may be unaligned views over an SST mapping: values load through
+// memcpy.
+// --------------------------------------------------------------------------
+#define YB_PF_LOOP(T, LO, HI)                                           \
+    {                                                                   \
+        const uint8_t* base = (const uint8_t*)cols[p];                  \
+        for (int64_t i = 0; i < n; ++i) {                               \
+            T v;                                                        \
+            memcpy(&v, base + i * (int64_t)sizeof(T), sizeof(T));       \
+            keep[i] &= (uint8_t)((!nu || !nu[i]) &&                     \
+                                 v >= (LO) && v <= (HI));               \
+        }                                                               \
+    }                                                                   \
+    break;
+
+void prefilter_ranges(const void* const* cols, const int64_t* dtypes,
+                      const uint8_t* const* nulls,
+                      const double* lo_f, const double* hi_f,
+                      const int64_t* lo_i, const int64_t* hi_i,
+                      int64_t npreds, int64_t n, uint8_t* keep) {
+    for (int64_t i = 0; i < n; ++i) keep[i] = 1;
+    for (int64_t p = 0; p < npreds; ++p) {
+        const uint8_t* nu = nulls[p];
+        switch (dtypes[p]) {
+            case 1: YB_PF_LOOP(int32_t, lo_i[p], hi_i[p])
+            case 2: YB_PF_LOOP(int64_t, lo_i[p], hi_i[p])
+            case 3: YB_PF_LOOP(float, lo_f[p], hi_f[p])
+            case 4: YB_PF_LOOP(double, lo_f[p], hi_f[p])
+            case 5: YB_PF_LOOP(uint32_t, lo_i[p], hi_i[p])
+            default:
+                // the binding sends no other code; keep every row
+                break;
+        }
     }
 }
 

@@ -1,10 +1,11 @@
 """TPC-H lineitem, Q6 and Q1 — the scan path's two query shapes.
 
-Counterpart of ``yugabyte_db_tpu/models/tpch.py`` (lineitem schema and
-its string-keyed variant, generator, Q6/Q1 specs, Q1 grouped by the
-flag strings, and their direct numpy answers).  The generator
-draws the same numbers from the same seed as the reference, so both
-packages load identical tables."""
+Counterpart of ``yugabyte_db_tpu/models/tpch.py`` (lineitem schema, its
+range-sharded and string-keyed variants, generator, Q6/Q1 specs, Q1
+grouped by the flag strings, their direct numpy answers, and
+``LineitemTable``, the set of tablets covering lineitem).  The
+generator draws the same numbers from the same seed as the reference,
+so both packages load identical tables."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -12,6 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from ..device import DeviceLike
 from ..docdb.table_codec import TableInfo
 from ..dockv.packed_row import ColumnSchema, ColumnType, TableSchema
 from ..dockv.partition import PartitionSchema
@@ -43,6 +45,18 @@ def lineitem_schema() -> TableSchema:
 def lineitem_info() -> TableInfo:
     return TableInfo("lineitem", "lineitem", lineitem_schema(),
                      PartitionSchema("hash", 1))
+
+
+def lineitem_range_info() -> TableInfo:
+    """Range-sharded lineitem: rowid is the range PK, so bulk loads land
+    key-clustered by rowid and per-block zone maps prune rowid ranges
+    (the hash-sharded layout scrambles rowid across blocks)."""
+    cols = lineitem_schema().columns
+    range_cols = (ColumnSchema(cols[0].id, cols[0].name, cols[0].type,
+                               is_range_key=True),) + cols[1:]
+    return TableInfo("lineitem_r", "lineitem_r",
+                     TableSchema(columns=range_cols, version=1),
+                     PartitionSchema("range", 0))
 
 
 #: TPC-H's flag domains — the string-keyed lineitem maps the synthetic
@@ -177,3 +191,54 @@ def numpy_reference(query: QuerySpec, data: Dict[str, np.ndarray]):
                                  int(mg.sum()))
         return out
     raise ValueError(query.name)
+
+
+class LineitemTable:
+    """The tablets covering the lineitem table, each on `device`."""
+
+    def __init__(self, base_dir: str, num_tablets: int = 1, clock=None,
+                 device: DeviceLike = "cuda"):
+        from ..tablet import Tablet
+        self.info = lineitem_info()
+        parts = self.info.partition_schema.create_partitions(num_tablets)
+        self.tablets = [
+            Tablet(f"lineitem-{i}", self.info, f"{base_dir}/tablet-{i}",
+                   clock=clock, partition=p, device=device)
+            for i, p in enumerate(parts)]
+
+    def load(self, data: Dict[str, np.ndarray], block_rows: int = 262144
+             ) -> int:
+        return sum(t.bulk_load(data, block_rows=block_rows)
+                   for t in self.tablets)
+
+    def read_request(self, query: QuerySpec, read_ht=None):
+        from ..docdb.operations import ReadRequest
+        return ReadRequest(
+            "lineitem", where=query.where, aggregates=query.aggs,
+            group_by=query.group, read_ht=read_ht)
+
+    def run(self, query: QuerySpec, read_ht=None):
+        """Execute on every tablet and combine the partials on the host
+        in tablet order (the single-process analog of the client's
+        combine)."""
+        from ..ops.scan import _expand_avg
+        total = None
+        counts = None
+        for t in self.tablets:
+            resp = t.read(self.read_request(query, read_ht))
+            vals = [np.asarray(v) for v in resp.agg_values]
+            if total is None:
+                total = vals
+                counts = np.asarray(resp.group_counts) \
+                    if resp.group_counts is not None else None
+            else:
+                for i, a in enumerate(_expand_avg(query.aggs)):
+                    if a.op in ("sum", "count"):
+                        total[i] = total[i] + vals[i]
+                    elif a.op == "min":
+                        total[i] = np.minimum(total[i], vals[i])
+                    else:
+                        total[i] = np.maximum(total[i], vals[i])
+                if counts is not None:
+                    counts = counts + np.asarray(resp.group_counts)
+        return total, counts

@@ -508,3 +508,35 @@ def referenced_columns(node: ExprNode, out: set | None = None) -> set:
             if isinstance(c, (tuple, list)) and c and isinstance(c[0], str):
                 referenced_columns(c, out)
     return out
+
+
+_DEVICE_NODE_KINDS = {"col", "const", "cmp", "arith", "and", "or", "not",
+                      "between", "in", "isnull", "like", "ilike",
+                      "dictlut"}
+
+
+def device_compatible(node: ExprNode) -> bool:
+    """True when every node kind MAY compile to the device kernel (json
+    extraction and string concatenation stay on the interpreted row
+    path).  "like" and string comparisons qualify: the dictionary
+    rewrite (docdb/operations.py) turns them into code-space compares
+    and LUT lookups, and refuses later where it cannot."""
+    if node[0] not in _DEVICE_NODE_KINDS:
+        return False
+    if node[0] == "in":
+        # node[2] is a VALUES list: the kernel unrolls one compare per
+        # value (large lists and IN (..., NULL)'s three-valued logic
+        # stay on the row path)
+        if len(node[2]) > 64 or any(v is None for v in node[2]):
+            return False
+        return device_compatible(node[1])
+    if node[0] in ("like", "ilike"):
+        return isinstance(node[1], (tuple, list)) and \
+            device_compatible(node[1])
+    if node[0] == "arith" and node[1] not in _ARITH_OPS:
+        return False
+    for c in node[1:]:
+        if isinstance(c, (tuple, list)) and c and isinstance(c[0], str):
+            if not device_compatible(c):
+                return False
+    return True

@@ -16,6 +16,12 @@ and typed hand-route gate; two routes serve it:
   the host.  Ineligible shapes are refused BY TYPE
   (HandScanIneligible), tallied in ``hand_scan_refusals`` and served by
   the exact route.  A build or launch failure raises: no fallback.
+  Beyond the reference's gate, MVCC mode ``visible`` is served too (its
+  row mask enters K3 as the valid lane), so tablet reads run K3.
+
+Below the kernel: the cross-shard combine of per-tablet partials
+(``combine_agg_partials``, ``combine_grouped_partials``) and zone-map
+block pruning (``zone_maybe_match``, ``zone_prune_blocks``).
 
 MVCC modes: ``none`` (no read point), ``visible`` (unique keys: ht
 filter and tombstones) and ``dedup`` (several versions per key: the
@@ -543,8 +549,12 @@ class ScanKernel:
     def _hand_eligible(self, batch, where, aggs, group, mvcc_mode, consts):
         """Typed eligibility gate for the hand route: returns the
         referenced-column set, or raises HandScanIneligible with the
-        refusal reason (the reference's `_pallas_eligible`)."""
-        if mvcc_mode != "none" or not aggs:
+        refusal reason (the reference's `_pallas_eligible`).  Unlike
+        the reference's gate it takes MVCC mode ``visible`` too: that
+        mode's row mask (valid, ht <= read_ht, not a tombstone) goes in
+        as K3's valid lane, so a tablet read at a read point over
+        unique keys runs K3; ``dedup`` stays refused."""
+        if mvcc_mode == "dedup" or not aggs:
             raise HandScanIneligible("mvcc_or_no_aggs")
         if group is not None and (not isinstance(group, GroupSpec)
                                   or group.num_groups > 64):
@@ -585,7 +595,7 @@ class ScanKernel:
         return needed
 
     def _hand_plan(self, sig, batch, where, aggs, group, mvcc_mode,
-                   consts):
+                   consts, read_ht=None):
         """(K3 entry, its call arguments) for an eligible query; raises
         HandScanIneligible with the refusal reason otherwise."""
         needed = self._hand_eligible(batch, where, aggs, group, mvcc_mode,
@@ -604,29 +614,35 @@ class ScanKernel:
             self.compiles += 1
         carr = torch.tensor([float(c) for c in consts] or [0.0],
                             dtype=torch.float32, device=batch.device)
+        valid = batch.valid
+        if mvcc_mode == "visible" and batch.ht is not None:
+            valid = visibility_mask(
+                "visible", valid, None, batch.ht, None, batch.tombstone,
+                torch.tensor(flipped_i64_scalar(read_ht), dtype=torch.int64,
+                             device=batch.device))
         # K3 loads every lane in its own dtype: the batch's tensors go
         # in as they are, with no per-query cast or copy
         return entry, (carr, [batch.cols[cid] for cid in col_order],
-                       [batch.nulls[cid] for cid in null_order],
-                       batch.valid)
+                       [batch.nulls[cid] for cid in null_order], valid)
 
     def hand_scan_plan(self, batch: DeviceBatch, where=None, aggs=(),
-                       group=None):
+                       group=None, read_ht=None):
         """The K3 entry and arguments ``run`` would launch for this query
-        with ``hand_scan_enabled`` on (read_ht None) — for checking the
-        kernel against its plain version on the very same lanes."""
-        p = self._prepare(batch, where, aggs, group, None)
+        with ``hand_scan_enabled`` on — for checking the kernel against
+        its plain version on the very same lanes."""
+        p = self._prepare(batch, where, aggs, group, read_ht)
         return self._hand_plan(p["sig"], batch, where, p["aggs"], group,
-                               "none", p["consts"])
+                               p["mvcc_mode"], p["consts"], read_ht)
 
-    def _try_hand(self, sig, batch, where, aggs, group, mvcc_mode, consts):
+    def _try_hand(self, sig, batch, where, aggs, group, mvcc_mode, consts,
+                  read_ht=None):
         """Route eligible aggregate scans through K3.  Returns the
         exact-route-shaped result, or None on a typed HandScanIneligible
         refusal (tallied in ``hand_scan_refusals``; the caller serves
         the exact route).  Any other failure propagates."""
         try:
             entry, args = self._hand_plan(sig, batch, where, aggs, group,
-                                          mvcc_mode, consts)
+                                          mvcc_mode, consts, read_ht)
         except HandScanIneligible as e:
             r = str(e)
             self.hand_scan_refusals[r] = self.hand_scan_refusals.get(r, 0) + 1
@@ -712,7 +728,7 @@ class ScanKernel:
         from ..utils import flags as _flags
         if _flags.get("hand_scan_enabled"):
             got = self._try_hand(p["sig"], batch, where, p["aggs"], group,
-                                 p["mvcc_mode"], p["consts"])
+                                 p["mvcc_mode"], p["consts"], read_ht)
             if got is not None:
                 return got
         fn = self._get(p["sig"], where, p["aggs"], group, p["mvcc_mode"],
@@ -795,3 +811,245 @@ def scan_aggregate(batch: DeviceBatch, where=None, aggs=(), group=None,
     return default_kernel(batch.device).run(batch, where, aggs, group,
                                             read_ht)
 
+
+
+# --- cross-shard partial combine ---------------------------------------------
+# The one implementation of "sum/count add, min/max take None-aware
+# elementwise extremes", shared by the multi-tablet fan-out
+# (models/tpch.LineitemTable.run) and the bypass session's host combine.
+
+def _scalar_of(x):
+    """Python scalar from a 0-d array / numpy scalar / plain value."""
+    if isinstance(x, (np.ndarray, np.generic)):
+        return x.item()
+    return x
+
+
+def _mm2(x, y, op):
+    """None-aware scalar min/max (SQL: NULL is the identity)."""
+    if x is None:
+        return y
+    if y is None:
+        return x
+    return min(x, y) if op == "min" else max(x, y)
+
+
+def merge_minmax(a, b, op):
+    """None-aware elementwise min/max over scalars or per-group arrays."""
+    av, bv = np.asarray(a), np.asarray(b)
+    if av.ndim == 0:
+        return np.asarray(_mm2(av.item(), bv.item(), op))
+    if av.dtype != object and bv.dtype != object:
+        return np.minimum(av, bv) if op == "min" else np.maximum(av, bv)
+    out = np.empty(av.shape, object)
+    for i in range(av.shape[0]):
+        out[i] = _mm2(_scalar_of(av[i]), _scalar_of(bv[i]), op)
+    return out
+
+
+def agg_is_none(x) -> bool:
+    """A whole-shard NULL aggregate (an empty tablet's min/max)."""
+    return x is None or (isinstance(x, np.ndarray) and x.dtype == object
+                         and x.shape == () and x.item() is None)
+
+
+def combine_agg_partials(expanded_aggs: Sequence[AggSpec],
+                         parts: Sequence[Sequence],
+                         counts_parts: Sequence):
+    """Combine per-shard (agg_values, group_counts) partials in shard
+    order: sum/count add, min/max merge via :func:`merge_minmax` with
+    None as the identity.  `expanded_aggs` are avg-expanded.  Returns
+    (tuple of combined values, combined counts or None)."""
+    total = None
+    counts = None
+    for vals, cnts in zip(parts, counts_parts):
+        vals = [np.asarray(v) for v in vals]
+        if total is None:
+            total = vals
+            counts = np.asarray(cnts) if cnts is not None else None
+            continue
+        for i, a in enumerate(expanded_aggs):
+            if a.op in ("sum", "count"):
+                total[i] = total[i] + vals[i]
+            elif agg_is_none(vals[i]):
+                pass
+            elif agg_is_none(total[i]):
+                total[i] = vals[i]
+            else:
+                total[i] = merge_minmax(total[i], vals[i], a.op)
+        if counts is not None:
+            counts = counts + np.asarray(cnts)
+    return (tuple(total) if total is not None else ()), counts
+
+
+def _keyed_partials(part):
+    """Keyed dict view of one (agg_values, counts, group_values)
+    partial: group key tuple -> [agg scalars, count]."""
+    vals, cnts, gvals = part
+    out: Dict[tuple, list] = {}
+    if cnts is None:
+        return out
+    counts = np.asarray(cnts)
+    gv = [np.asarray(g) for g in (gvals or ())]
+    vv = [np.asarray(v) for v in vals]
+    for g in range(len(counts)):
+        if counts[g] == 0:
+            continue
+        key = tuple(x[g].item() if isinstance(x[g], np.generic)
+                    else x[g] for x in gv)
+        out[key] = [[_scalar_of(v[g]) for v in vv], int(counts[g])]
+    return out
+
+
+def combine_grouped_partials(expanded_aggs: Sequence[AggSpec],
+                             parts: Sequence[tuple]):
+    """Group-KEYED partial merge for shards whose group slots do not
+    align (each shard merges its own dictionary).  ``parts``: per-shard
+    ``(agg_values, counts, group_values)`` over compacted present
+    groups.  Returns ``(agg_values, counts, group_values)`` merged by
+    key in first-seen shard order: sum/count add, min/max None-aware."""
+    merged: Dict[tuple, list] = {}
+    for vals, cnts, gvals in parts:
+        if cnts is None:
+            continue
+        counts = np.asarray(cnts)
+        gv = [np.asarray(g) for g in (gvals or ())]
+        vv = [np.asarray(v) for v in vals]
+        for g in range(len(counts)):
+            if counts[g] == 0:
+                continue
+            # object (string) arrays index to plain str; numpy scalars
+            # unwrap into hashable Python values
+            key = tuple(x[g].item() if isinstance(x[g], np.generic)
+                        else x[g] for x in gv)
+            st = merged.get(key)
+            if st is None:
+                merged[key] = [[v[g] for v in vv], int(counts[g])]
+                continue
+            for i, a in enumerate(expanded_aggs):
+                if a.op in ("sum", "count"):
+                    st[0][i] = st[0][i] + vv[i][g]
+                else:
+                    st[0][i] = _mm2(_scalar_of(st[0][i]),
+                                    _scalar_of(vv[i][g]), a.op)
+            st[1] += int(counts[g])
+    keys = list(merged)
+    outs = tuple(np.asarray([merged[k][0][i] for k in keys])
+                 for i in range(len(expanded_aggs)))
+    counts = np.asarray([merged[k][1] for k in keys], np.int64)
+    gvals = tuple(np.asarray([k[j] for k in keys])
+                  for j in range(len(keys[0]) if keys else 0))
+    return outs, counts, gvals
+
+
+# --- zone-map block pruning (v2 blocks carry per-block min/max maps) ---------
+
+def _f32_widen(lo, hi):
+    """Widen a float interval one f32 ulp outward on each end: the
+    device may evaluate the column and the constants in float32, where
+    a value just below a boundary can round ONTO it (f64 0.0499999999
+    becomes f32 0.05 and satisfies >= 0.05)."""
+    lo_w = float(np.nextafter(np.float32(lo), np.float32(-np.inf)))
+    hi_w = float(np.nextafter(np.float32(hi), np.float32(np.inf)))
+    return (min(lo, lo_w), max(hi, hi_w))
+
+
+def _zone_interval(node, zmap):
+    """Conservative (lo, hi) of an expression over a block described by
+    its zone map, or None when unboundable.  Integer bounds stay exact
+    Python ints; float bounds widen to the f32 envelope."""
+    kind = node[0]
+    if kind == "col":
+        b = zmap.get(node[1])
+        if b is not None and (isinstance(b[0], float)
+                              or isinstance(b[1], float)):
+            return _f32_widen(b[0], b[1])
+        return b
+    if kind == "const":
+        v = node[1]
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            return None
+        if isinstance(v, float):
+            # the kernel may round the constant itself to f32
+            return _f32_widen(v, v)
+        return (v, v)
+    if kind == "arith":
+        lb = _zone_interval(node[2], zmap)
+        rb = _zone_interval(node[3], zmap)
+        if lb is None or rb is None:
+            return None
+        op = node[1]
+        if op == "add":
+            out = (lb[0] + rb[0], lb[1] + rb[1])
+        elif op == "sub":
+            out = (lb[0] - rb[1], lb[1] - rb[0])
+        elif op == "mul":
+            prods = (lb[0] * rb[0], lb[0] * rb[1],
+                     lb[1] * rb[0], lb[1] * rb[1])
+            out = (min(prods), max(prods))
+        else:
+            return None
+        if isinstance(out[0], float) or isinstance(out[1], float):
+            out = _f32_widen(out[0], out[1])   # per-op device rounding
+        return out
+    return None
+
+
+def zone_maybe_match(where, zmap) -> bool:
+    """False ONLY when the block's zone map proves no row can satisfy
+    `where`; True on anything unprovable (missing entries, strings,
+    NOT, other shapes).  Zone maps cover non-null values and a NULL
+    comparison never matches, so a pruned block hides no NULL match."""
+    if not zmap:
+        return True
+    kind = where[0]
+    if kind == "and":
+        return all(zone_maybe_match(c, zmap) for c in where[1:])
+    if kind == "or":
+        return any(zone_maybe_match(c, zmap) for c in where[1:])
+    if kind == "between":
+        return (zone_maybe_match(("cmp", "ge", where[1], where[2]), zmap)
+                and zone_maybe_match(("cmp", "le", where[1], where[3]),
+                                     zmap))
+    if kind == "in":
+        x, vals = where[1], where[2]
+        b = _zone_interval(x, zmap)
+        if b is None:
+            return True
+        return any(isinstance(v, (int, float)) and not isinstance(v, bool)
+                   and b[0] <= v <= b[1] for v in vals) or not vals
+    if kind == "cmp":
+        op = where[1]
+        lb = _zone_interval(where[2], zmap)
+        rb = _zone_interval(where[3], zmap)
+        if lb is None or rb is None:
+            return True
+        if op == "lt":
+            return lb[0] < rb[1]
+        if op == "le":
+            return lb[0] <= rb[1]
+        if op == "gt":
+            return lb[1] > rb[0]
+        if op == "ge":
+            return lb[1] >= rb[0]
+        if op == "eq":
+            return lb[0] <= rb[1] and lb[1] >= rb[0]
+        if op == "ne":
+            return not (lb[0] == lb[1] == rb[0] == rb[1])
+        return True
+    return True
+
+
+def zone_prune_blocks(blocks, where):
+    """(kept_blocks, kept_indices) by the blocks' zone maps; the indices
+    are positions in `blocks`, the prune identity device-cache keys
+    carry.  Never empty: when every block proves unmatchable, the
+    smallest survives so result shapes and NULL semantics hold."""
+    if where is None:
+        return list(blocks), tuple(range(len(blocks)))
+    kept_idx = [i for i, b in enumerate(blocks)
+                if getattr(b, "zmap", None) is None
+                or zone_maybe_match(where, b.zmap)]
+    if not kept_idx and blocks:
+        kept_idx = [min(range(len(blocks)), key=lambda i: blocks[i].n)]
+    return [blocks[i] for i in kept_idx], tuple(kept_idx)

@@ -14,8 +14,16 @@ MVCC bounds what may stream: with a read point, a doc key's versions
 must not span a chunk boundary.  ``chunk_safe_mvcc`` proves the
 sufficient condition (every block unique-keyed with a key matrix, block
 boundary doc keys strictly ascending) that holds for a bulk load or a
-compacted run.  Zone-map pruning and the native near-data prefilter are
-not ported (ROADMAP.md queue 1 items 3 and 9).
+compacted run.
+
+Zone-map pruning skips whole blocks whose v2 min/max maps prove the
+WHERE cannot match, before any batch formation — sound exactly when
+each doc key lives in one block (chunk-safe over the FULL list) or when
+there is no read point.  A ``prefilter`` (the bypass reader's near-data
+pass, bypass/prefilter.py) compacts each chunk's rows before its batch
+forms; the batch still pads to the unfiltered bucket and takes its
+static-scale bounds from the unfiltered chunk, so results keep their
+bits.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import numpy as np
 
 from ..device import DeviceLike
 from ..docdb.operations import Unrewritable, rewrite_where_and_aggs
-from ..storage.columnar import ColumnarBlock
+from ..storage.columnar import KEY_REBUILD_STATS, ColumnarBlock
 from ..storage.pipeline import StreamPipeline
 from ..utils import flags
 from ..utils.hybrid_time import ENCODED_SIZE
@@ -34,15 +42,13 @@ from .device_batch import bucket_rows, build_batch
 from .grouped_scan import (LAST_GROUPED_STATS, DictGroupSpec,
                            dict_cols_needed, domain_product, make_dict_plan,
                            resolve_group)
-from .scan import (AggSpec, HashGroupSpec, NotPortedError, ScanKernel,
-                   _expand_avg, default_kernel)
+from .scan import (AggSpec, HashGroupSpec, ScanKernel, _expand_avg,
+                   default_kernel, zone_prune_blocks)
 
 _HT_SUFFIX = ENCODED_SIZE + 1   # DocHybridTime suffix + kHybridTime marker
 
 #: stats of the most recent streaming scan (informational)
 LAST_STREAM_STATS: dict = {}
-
-_PREFILTER_ITEM = "queue 1 item 9, storage copy (native prefilter)"
 
 
 def plan_chunks(blocks: Sequence[ColumnarBlock],
@@ -141,22 +147,45 @@ def _plan_dict_columns(blocks, columns, where, aggs, group):
 
 
 def _chunk_builder(chunks, cols_sorted, bucket, plan, device, cache,
-                   cache_key, chunk_rows):
+                   cache_key, chunk_rows, prune_sig=(), prefilter=None,
+                   pf_stats=None):
     dict_sig = (("dict",) + plan.identity) if plan is not None else ()
 
     def build(ci):
         chunk = chunks[ci]
+        if prefilter is not None:
+            kept = prefilter(chunk)
+            pf_stats["rows_in"] += sum(b.n for b in chunk)
+            pf_stats["rows_kept"] += sum(b.n for b in kept)
+            return build_batch(kept, cols_sorted, device=device,
+                               pad_to=bucket, bounds_blocks=chunk)
         if cache is not None and cache_key is not None:
-            # the chunk plan (target rows + bucket) and the dictionary
-            # identity are part of the key: batches cached under another
-            # plan or dictionary must never serve this one
+            # the chunk plan (target rows + bucket), the kept-block set
+            # of a zone prune and the dictionary identity are part of
+            # the key: batches cached under another plan, predicate or
+            # dictionary must never serve this one
             return cache.get_or_build(
-                cache_key + ("chunk", chunk_rows, bucket, ci) + dict_sig,
+                cache_key + ("chunk", chunk_rows, bucket, ci) + prune_sig
+                + dict_sig,
                 lambda: build_batch(chunk, cols_sorted, device=device,
                                     pad_to=bucket, dict_plan=plan))
         return build_batch(chunk, cols_sorted, device=device,
                            pad_to=bucket, dict_plan=plan)
     return build
+
+
+def _zone_prune(blocks, where, read_ht, chunk_safe):
+    """(blocks, pruned count, prune signature) after zone-map pruning,
+    when the flag is on and pruning is sound: no read point, or every
+    doc key inside one block (chunk-safe over the full list)."""
+    if where is None or not flags.get("zone_map_pruning") \
+            or (read_ht is not None and not chunk_safe):
+        return blocks, 0, ()
+    kept, kept_idx = zone_prune_blocks(blocks, where)
+    pruned = len(blocks) - len(kept)
+    if not pruned:
+        return blocks, 0, ()
+    return kept, pruned, ("zp", kept_idx)
 
 
 def streaming_scan_aggregate(
@@ -191,13 +220,15 @@ def streaming_scan_aggregate(
     budget overflowed and the result must be discarded.  ``dict_out``
     receives the dictionaries dict-code MIN/MAX results are coded in.
 
+    Zone-map pruning (flag ``zone_map_pruning``) drops blocks first;
+    ``min_chunks`` then guards only an unpruned scan.
+
     `cache`/`cache_key`: an optional DeviceBlockCache; chunk batches
-    land under ``cache_key + ("chunk", ...)``.  A non-None `prefilter`
-    (the reference's native near-data prefilter) raises NotPortedError.
+    land under ``cache_key + ("chunk", ...)``.  `prefilter`: optional
+    callable(chunk blocks) -> compacted blocks (bypass/prefilter.py);
+    dropped when a dictionary plan exists (compacted blocks carry no
+    remap entries), and exclusive with the cache.
     """
-    if prefilter is not None:
-        raise NotPortedError("streaming_scan_aggregate prefilter",
-                             _PREFILTER_ITEM)
     if isinstance(group, HashGroupSpec):
         return None
     dict_group = isinstance(group, DictGroupSpec)
@@ -205,21 +236,31 @@ def streaming_scan_aggregate(
                                                aggs, group)
     if not ok or (dict_group and plan is None):
         return None
-    if plan is not None and dict_out is not None:
-        dict_out["dicts"] = plan.dicts
-    if read_ht is not None and not chunk_safe_mvcc(blocks):
+    if plan is not None:
+        prefilter = None    # compacted blocks have no remap entries
+        if dict_out is not None:
+            dict_out["dicts"] = plan.dicts
+    chunk_safe = chunk_safe_mvcc(blocks)
+    if read_ht is not None and not chunk_safe:
         return None
+    blocks, pruned, prune_sig = _zone_prune(blocks, where, read_ht,
+                                            chunk_safe)
     chunk_rows = chunk_rows or int(flags.get("streaming_chunk_rows"))
     chunks = plan_chunks(blocks, chunk_rows)
-    if len(chunks) < min_chunks:
+    if len(chunks) < min_chunks and not pruned:
+        # once zone maps dropped blocks, streaming the remainder beats
+        # the monolithic batch, which would rebuild it anyway
         return None
     kernel = kernel or default_kernel(device)
     aggs = tuple(_expand_avg(aggs))
     # one shared pow2 bucket: every chunk reuses one kernel signature
     bucket = bucket_rows(max(max(sum(b.n for b in c) for c in chunks), 1))
+    pf_stats = {"rows_in": 0, "rows_kept": 0}
     build = _chunk_builder(chunks, sorted(columns), bucket, plan,
-                           kernel.device, cache, cache_key, chunk_rows)
+                           kernel.device, cache, cache_key, chunk_rows,
+                           prune_sig, prefilter, pf_stats)
     pipe = StreamPipeline([build], depth=2, name="stream-scan")
+    rebuilds0 = KEY_REBUILD_STATS["rebuilds"]
     acc = None
     counts_acc = None
     spill_acc = 0
@@ -244,6 +285,13 @@ def streaming_scan_aggregate(
     LAST_STREAM_STATS.clear()
     LAST_STREAM_STATS.update({
         "chunks": len(chunks), "bucket_rows": bucket,
+        "zone_blocks_pruned": pruned,
+        "zone_blocks_total": len(blocks) + pruned,
+        # lazy key-matrix rebuilds paid during this scan: the keyless
+        # v2 contract keeps this at 0
+        "key_rebuilds": KEY_REBUILD_STATS["rebuilds"] - rebuilds0,
+        "prefilter_rows_in": pf_stats["rows_in"],
+        "prefilter_rows_kept": pf_stats["rows_kept"],
         "build_s": round(pipe.stage_s[0], 4),
         "kernel_s": round(kernel_s, 4),
         "combine_s": round(combine_s, 4),
@@ -288,21 +336,26 @@ def streaming_scan_filter(
                                             None)
     if not ok:
         return None
-    if read_ht is not None and not chunk_safe_mvcc(blocks):
+    chunk_safe = chunk_safe_mvcc(blocks)
+    if read_ht is not None and not chunk_safe:
         return None
+    blocks, pruned, prune_sig = _zone_prune(blocks, where, read_ht,
+                                            chunk_safe)
     chunk_rows = chunk_rows or int(flags.get("streaming_chunk_rows"))
     chunks = plan_chunks(blocks, chunk_rows)
-    if len(chunks) < min_chunks:
+    if len(chunks) < min_chunks and not pruned:
         return None
     kernel = kernel or default_kernel(device)
     bucket = bucket_rows(max(max(sum(b.n for b in c) for c in chunks), 1))
     build = _chunk_builder(chunks, sorted(columns), bucket, plan,
-                           kernel.device, cache, cache_key, chunk_rows)
+                           kernel.device, cache, cache_key, chunk_rows,
+                           prune_sig)
     pipe = StreamPipeline([lambda ci: (build(ci), chunks[ci])], depth=2,
                           name="stream-rows")
     rows: list = []
     kernel_s = 0.0
     chunks_run = 0
+    rebuilds0 = KEY_REBUILD_STATS["rebuilds"]
     run = pipe.run(range(len(chunks)))
     try:
         for batch, chunk in run:
@@ -322,6 +375,10 @@ def streaming_scan_filter(
     LAST_STREAM_STATS.update({
         "chunks": len(chunks), "chunks_run": chunks_run,
         "bucket_rows": bucket, "rows_out": len(rows),
+        "zone_blocks_pruned": pruned,
+        "zone_blocks_total": len(blocks) + pruned,
+        "key_rebuilds": KEY_REBUILD_STATS["rebuilds"] - rebuilds0,
+        "prefilter_rows_in": 0, "prefilter_rows_kept": 0,
         "build_s": round(pipe.stage_s[0], 4),
         "kernel_s": round(kernel_s, 4),
         "consumer_wait_s": round(pipe.wait_s, 4)})

@@ -6,20 +6,56 @@ Counterpart of ``yugabyte_db_tpu/storage/lsm.py`` (reference analog:
 the forked RocksDB DB instance per tablet, src/yb/rocksdb/db/db_impl.cc)
 cut to ``__init__``, the manifest (load, write, the open-time sweep of
 unmanifested files), ``ingest_sst``, ``_new_sst_path``, ``ssts``,
-``approximate_size`` and ``replace_ssts``.  The manifest is the
+``approximate_size``, ``replace_ssts`` and the out-of-band reader
+leases (``SstLease``, ``pin_ssts``) that let the bypass reader scan a
+tablet's files while a compaction replaces them.  The manifest is the
 reference's JSON, so either package opens a directory the other wrote.
-The memtable, flush, reader leases, checkpoints and the row-feed
-``compact`` come with the row paths (ROADMAP.md queue 1 item 9)."""
+The memtable, flush, checkpoints and the row-feed ``compact`` come with
+the row paths (ROADMAP.md queue 1 item 9): the port's store has no
+memtable, so it is always empty."""
 from __future__ import annotations
 
 import json
 import os
 import re
 import threading
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 from ..errors import NotPortedError
 from .sst import SstReader, SstWriter
+
+
+class SstLease:
+    """Refcount lease over an LsmStore's live SST FILES: while held, a
+    compaction may drop the files from the store, but their physical
+    deletion waits for the last lease (rocksdb's version refcounting,
+    which keeps obsolete files alive for open iterators).  Out-of-band
+    readers (the bypass reader) open the leased paths directly.
+    Release once via :meth:`release` or the context manager; a lease
+    lost with its process leaves unmanifested files that the store's
+    open-time sweep reclaims."""
+
+    def __init__(self, store: "LsmStore", paths: List[str],
+                 frontier: dict):
+        self.store = store
+        self.paths = paths
+        self.frontier = frontier
+        self._released = False
+
+    def release(self) -> None:
+        if not self._released:
+            self._released = True
+            self.store._release_pins(self.paths)
+
+    @property
+    def released(self) -> bool:
+        return self._released
+
+    def __enter__(self) -> "SstLease":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
 
 
 class LsmStore:
@@ -38,6 +74,10 @@ class LsmStore:
         self._ssts: List[SstReader] = []       # newest first
         self._next_file = 0
         self._flushed_frontier: dict = {}
+        # reader leases: path -> refcount; paths dropped while pinned
+        # wait in _deferred until the last lease goes
+        self._pins: Dict[str, int] = {}
+        self._deferred: set = set()
         self._load_manifest()
         self._sweep_unmanifested()
 
@@ -85,6 +125,63 @@ class LsmStore:
                     os.unlink(os.path.join(self.dir, fn))
                 except FileNotFoundError:
                     pass
+
+    # --- out-of-band reader leases ----------------------------------------
+    def pin_ssts(self, require_empty_memtable: bool = False
+                 ) -> Optional[SstLease]:
+        """Lease the current live SST set against file GC.  With
+        ``require_empty_memtable`` the pin succeeds only while no
+        memtable holds rows (None otherwise, for the caller to retry
+        after a flush); the port's store has none, so it always does."""
+        with self._lock:
+            if require_empty_memtable and not self.memtable_empty():
+                return None
+            paths = [r.path for r in self._ssts]
+            for p in paths:
+                self._pins[p] = self._pins.get(p, 0) + 1
+            frontier = dict(self._flushed_frontier)
+        return SstLease(self, paths, frontier)
+
+    def _release_pins(self, paths: Sequence[str]) -> None:
+        drop: List[str] = []
+        with self._lock:
+            for p in paths:
+                c = self._pins.get(p, 0) - 1
+                if c > 0:
+                    self._pins[p] = c
+                else:
+                    self._pins.pop(p, None)
+                    if p in self._deferred:
+                        self._deferred.discard(p)
+                        drop.append(p)
+        for p in drop:
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+
+    def _gc_file(self, path: str) -> None:
+        """Remove a file the store no longer owns, or defer it while a
+        lease pins it (the last release unlinks it)."""
+        with self._lock:
+            if self._pins.get(path, 0) > 0:
+                self._deferred.add(path)
+                return
+        try:
+            os.remove(path)
+        except OSError:
+            pass
+
+    def pin_stats(self) -> dict:
+        with self._lock:
+            return {"pinned_files": sum(1 for c in self._pins.values()
+                                        if c > 0),
+                    "deferred_deletes": len(self._deferred)}
+
+    def memtable_empty(self) -> bool:
+        """True: the port's store has no memtable (ROADMAP.md queue 1
+        item 9)."""
+        return True
 
     # --- writes -----------------------------------------------------------
     def ingest_sst(self, build: Callable[[SstWriter], None],
@@ -139,8 +236,9 @@ class LsmStore:
         """Install a compaction's output in place of its inputs: the
         output is older than anything not among the inputs, so it goes
         last; the manifest swaps atomically, then the inputs' files are
-        removed.  If an input left the store while the merge ran, the
-        output is discarded instead."""
+        removed (or, while a lease pins one, left for its last release).
+        If an input left the store while the merge ran, the output is
+        discarded instead."""
         with self._lock:
             old_set = {id(r) for r in old}
             live = {id(r) for r in self._ssts}
@@ -155,7 +253,4 @@ class LsmStore:
             self._ssts = kept + [new_reader]
             self._write_manifest()
         for r in old:
-            try:
-                os.remove(r.path)
-            except FileNotFoundError:
-                pass
+            self._gc_file(r.path)

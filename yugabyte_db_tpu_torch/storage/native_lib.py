@@ -1,15 +1,18 @@
 """ctypes bindings of the port's host library (csrc/host_native.cpp).
 
-Counterpart of the compaction half of ``yugabyte_db_tpu/storage/
-native_lib.py``: bloom build, the k-way merge over a fixed-width key
-matrix, and the row, multi-column and heap gathers.  The library is
+Counterpart of the compaction and bypass half of ``yugabyte_db_tpu/
+storage/native_lib.py``: bloom build, the k-way merge over a fixed-width
+key matrix, the row, multi-column and heap gathers, and the bypass
+reader's prefilter range pass (``prefilter_ranges``).  The library is
 built with ``g++`` at first use into ``build/host_native/`` (keyed by
 the source's hash) and a build failure raises ``NativeBuildError``:
 nothing here quietly runs a Python loop instead.  A function returns
 False only for an input it does not take (non-contiguous, mismatched
 row widths, non-int64 indexes), as the reference's does; the numpy
 twins (``gather_multi_fallback`` and friends) stay beside them as their
-plain versions for the tests and for such inputs."""
+plain versions for the tests and for such inputs.  The prefilter pass
+has a numpy twin for the tests only: ``prefilter_mask`` always runs the
+library."""
 from __future__ import annotations
 
 import ctypes
@@ -91,6 +94,11 @@ def _load() -> ctypes.CDLL:
         lib.gather_heap.argtypes = [_u8p, _i64p, _i64p, _i64p,
                                     ctypes.c_int64, _u8p]
         lib.gather_heap.restype = None
+        lib.prefilter_ranges.argtypes = [
+            _vpp, _i64p, _vpp, ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_double), _i64p, _i64p, ctypes.c_int64,
+            ctypes.c_int64, _u8p]
+        lib.prefilter_ranges.restype = None
         _LIB = lib
         return lib
 
@@ -300,3 +308,81 @@ def gather_heap_fallback(heap: np.ndarray, src_start: np.ndarray,
         np.cumsum(lens) - lens, lens)
     out[np.repeat(dst_start, lens) + ramp] = \
         heap[np.repeat(src_start, lens) + ramp]
+
+
+#: lane dtype -> prefilter_ranges code (the C switch)
+PREFILTER_DTYPES = {
+    np.dtype(np.int32): 1, np.dtype(np.int64): 2,
+    np.dtype(np.float32): 3, np.dtype(np.float64): 4,
+    np.dtype(np.uint32): 5,
+}
+
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def prefilter_ranges(preds: Sequence[tuple], n: int) -> np.ndarray:
+    """Near-data predicate pre-filter: one native call (GIL released)
+    evaluates every (values, nulls, lo, hi) inclusive range predicate
+    over the encoded lanes and ANDs them into a keep mask (uint8[n]; a
+    NULL row fails its predicate).  Non-contiguous lanes are copied
+    first; a lane dtype outside ``PREFILTER_DTYPES``, a length that is
+    not `n` or integer bounds outside int64 raise ValueError."""
+    np_ = len(preds)
+    col_p = (ctypes.c_void_p * max(np_, 1))()
+    null_p = (ctypes.c_void_p * max(np_, 1))()
+    dt = np.empty(max(np_, 1), np.int64)
+    lo_f = np.zeros(max(np_, 1), np.float64)
+    hi_f = np.zeros(max(np_, 1), np.float64)
+    lo_i = np.zeros(max(np_, 1), np.int64)
+    hi_i = np.zeros(max(np_, 1), np.int64)
+    held = []           # the lanes the call reads stay referenced here
+    for j, (vals, nulls, lo, hi) in enumerate(preds):
+        code = PREFILTER_DTYPES.get(vals.dtype)
+        if code is None or vals.ndim != 1 or len(vals) != n:
+            raise ValueError(f"prefilter lane {j}: dtype {vals.dtype}, "
+                             f"shape {vals.shape}, rows {n}")
+        vals = np.ascontiguousarray(vals)
+        held.append(vals)
+        if nulls is not None:
+            nulls = np.ascontiguousarray(nulls, np.bool_)
+            if len(nulls) != n:
+                raise ValueError(f"prefilter lane {j}: null mask length")
+            held.append(nulls)
+            null_p[j] = nulls.ctypes.data
+        if code in (1, 2, 5):
+            if not (_I64_MIN <= lo <= _I64_MAX
+                    and _I64_MIN <= hi <= _I64_MAX):
+                raise ValueError(f"prefilter lane {j}: integer bounds "
+                                 f"({lo}, {hi}) outside int64")
+            lo_i[j], hi_i[j] = int(lo), int(hi)
+        else:
+            lo_f[j], hi_f[j] = float(lo), float(hi)
+        col_p[j] = vals.ctypes.data
+        dt[j] = code
+    keep = np.empty(n, np.uint8)
+    _load().prefilter_ranges(
+        col_p, _ptr(dt, _i64p), null_p,
+        lo_f.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        hi_f.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        _ptr(lo_i, _i64p), _ptr(hi_i, _i64p), np_, n, _ptr(keep, _u8p))
+    return keep
+
+
+def prefilter_ranges_plain(preds: Sequence[tuple], n: int) -> np.ndarray:
+    """Numpy twin of prefilter_ranges (the tests' plain version)."""
+    keep = np.ones(n, bool)
+    for vals, nulls, lo, hi in preds:
+        if vals.dtype.kind == "f":
+            m = (vals >= np.float64(lo)) & (vals <= np.float64(hi))
+        else:
+            m = (vals >= lo) & (vals <= hi)
+        if nulls is not None:
+            m = m & ~nulls
+        keep &= m
+    return keep.astype(np.uint8)
+
+
+def prefilter_mask(preds: Sequence[tuple], n: int) -> np.ndarray:
+    """The bypass reader's entry point: the native range pass, with no
+    numpy fallback."""
+    return prefilter_ranges(preds, n)

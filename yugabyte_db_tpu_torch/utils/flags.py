@@ -1,7 +1,8 @@
 """Runtime flags read by the ported paths.
 
 Counterpart of ``yugabyte_db_tpu/utils/flags.py``, cut to the flags the
-ported scan and compaction paths read, with the reference's defaults.
+ported scan, tablet read, bypass and compaction paths read, with the
+reference's defaults.
 The registry keeps the reference's get/set_flag surface so call sites
 read the same; unknown names raise KeyError."""
 from __future__ import annotations
@@ -97,3 +98,47 @@ REGISTRY.define(
     "Frontier capacity (rows) of the pipelined chunked compaction "
     "engine; rounded up to a power of two so every chunk of a bucket "
     "shares one merge shape.")
+REGISTRY.define(
+    "tpu_pushdown_enabled", True,
+    "Route scan/filter/aggregate pushdown to the device execution "
+    "backend (the yb_enable_tpu_pushdown analog).  Off, a tablet read "
+    "would take the interpreted row path, which the port refuses "
+    "(NotPortedError, ROADMAP.md queue 1 item 9).")
+REGISTRY.define(
+    "tpu_min_rows_for_pushdown", 4096,
+    "Scans smaller than this stay on the interpreted row path (refused "
+    "by the port, as above): point reads must never pay a device "
+    "round-trip.")
+REGISTRY.define(
+    "streaming_scan_enabled", True,
+    "Stream cold aggregate scans as pow2-bucket chunks through the "
+    "overlapped batch-formation pipeline (ops/stream_scan.py) instead "
+    "of one monolithic padded batch.  Off = the monolithic batch path.")
+REGISTRY.define(
+    "zone_map_pruning", True,
+    "Consult v2 per-block min/max zone maps in the scan pushdown paths "
+    "to skip whole blocks whose value ranges cannot satisfy the WHERE "
+    "predicate (gated on MVCC chunk-safety so a pruned block can never "
+    "hide a newer row version).  Off = every block reaches batch "
+    "formation.")
+REGISTRY.define(
+    "bypass_prefilter_enabled", True,
+    "Near-data predicate pre-filter inside the bypass reader: "
+    "fixed-width comparison conjuncts evaluate against the encoded "
+    "lanes in one native pass (csrc/host_native.cpp prefilter_ranges) "
+    "and provably-unmatched rows are dropped before batch formation.  "
+    "Result bits are unchanged (the batch keeps the unfiltered bucket "
+    "and static-scale bounds).")
+REGISTRY.define(
+    "max_clock_skew_ms", 500,
+    "Clock uncertainty window: reads at a server-assigned read point "
+    "restart when they meet records within (read_ht, read_ht + skew].")
+REGISTRY.define(
+    "history_retention_interval_sec", 900,
+    "MVCC history retention before compaction GC "
+    "(timestamp_history_retention_interval_sec analog).")
+REGISTRY.define(
+    "tpu_compaction_enabled", True,
+    "Tablet.compact runs the pipelined chunked engine with the merge + "
+    "MVCC GC on the card (docdb/compaction.py backend 'device'); off = "
+    "the monolithic host baseline.")
