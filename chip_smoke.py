@@ -6,9 +6,9 @@ path on the card.
     python3 chip_smoke.py [--seed 0]
 
 Phases (any failed check raises and the script exits non-zero):
-  1. build the hand kernels from the sources in this checkout (K1, K2:
-     nvcc for sm_90a, all sources at once; K3: Triton at first launch)
-     and print the card's name and power limit;
+  1. build the hand kernels from the sources in this checkout (K1, K2
+     and the join probe: nvcc for sm_90a, all sources at once; K3:
+     Triton at first launch) and print the card's name and power limit;
   2. hold every kernel against its plain PyTorch version on the card, on
      the main path's own inputs: K1/K2 on the SF1 columns padded to the
      4096-row grid, K3 on the Q6 and Q1 lanes of the 8,388,608-row
@@ -18,7 +18,12 @@ Phases (any failed check raises and the script exits non-zero):
      events; print K3's form, registers and spills per signature (K1's
      and K2's come from ptxas in phase 1), and time the grouped K3 on
      Q1's lanes in each of its (form, SUB, warps) choices, rounds
-     interleaved (one k3_config line each);
+     interleaved (one k3_config line each); the join probe kernel
+     against the plain probe at Q3's SF1 shapes (stage 0: l_orderkey of
+     the 8,388,608-row bucket against the 685,446 orders Q3 ships, 2^21
+     slots; stage 1: the gathered o_custkey lane against Q3's customers,
+     2^16 slots), midx equal on every live row (one join_probe line per
+     stage: walk lengths, kernel and plain ms, bound);
   3. drive the main path at TPC-H SF1 (6,000,000 lineitem rows, one
      tablet): generate_lineitem -> TableCodec.bulk_blocks(262144-row
      blocks) -> build_batch(device="cuda") -> ScanKernel.run for Q6 and
@@ -36,8 +41,10 @@ Phases (any failed check raises and the script exits non-zero):
                route with no read point (K3 per chunk; its launch count
                must rise) and on the exact route at a read point;
      every answer is held against its numpy reference (and each streamed
-     answer against the monolithic one), and every kernel's launch count
-     must rise;
+     answer against the monolithic one), and every scan kernel's launch
+     count must rise; a `baseline` line per query times the host
+     baseline (ops/cpu_scan.py cpu_scan_aggregate over the SF1 blocks)
+     beside the exact device route, paired round by round;
   4. profile each route (exact and hand, Q6 and Q1, then dedup, hash,
      dict and the streamed routes): wall time per query on the host
      clock (profiler off), device-busy time per query from
@@ -73,8 +80,22 @@ Phases (any failed check raises and the script exits non-zero):
      `tablet_load` line, one `tablet` line (rows/s, wall, path, chunks,
      blocks pruned, prefilter rows in/kept) and one `profile` line per
      route;
-  7. print the kernels line (launches per path: phase 3's scan and
-     phase 6's tablet reads), then the device line last.
+  7. FK-equijoins and fused plans at SF1, SSTs under build/join_smoke/
+     (removed at the end): a Tablet over lineitem_join_info() bulk-loads
+     lineitem with l_orderkey (92 blocks of 65,536 rows) beside the
+     orders (1,500,000) and customer (150,000) tables; the default build
+     cap's typed refusal is printed once, then with join_max_build_slots
+     2^24 q3ish, q3, q5 and q10 run through Tablet.read on the streamed
+     route (6 chunks) and the monolithic route (one 8,388,608-row
+     bucket) and through a BypassSession: counts exact and revenue
+     within 1e-5 against numpy, streamed = monolithic within 1e-9, the
+     bypass bit for bit equal to the tablet read, the probe kernel
+     launched once per stage and chunk; the TPC-H registry walked (scan
+     entries served on the exact and hand routes, inexpressible ones
+     printed with their reasons); one `join` and one `profile` line per
+     query and route;
+  8. print the kernels line (launches per path: phase 3's scan, phase
+     6's tablet reads and phase 7's joins), then the device line last.
 
 It imports nothing of JAX: the port stands alone.
 """
@@ -89,10 +110,10 @@ import sys
 import time
 
 SF = 1.0                         # TPC-H scale: 6,000,000 lineitem rows
-PROFILE_ITERS = 10               # queries per timed and profiled window
+PROFILE_ITERS = 5                # queries per timed and profiled window
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
-SWEEP_ROUNDS = 5                 # interleaved timing rounds per K3 config
+SWEEP_ROUNDS = 3                 # interleaved timing rounds per K3 config
 STREAM_ITERS = 2                 # streamed queries per timed window (each
                                  # forms every chunk's batch on the host)
 PROFILE_MARGIN_S = 0.05          # host time between a profiling window's
@@ -103,7 +124,8 @@ MARKER_CYCLES = 1000             # counted span of a profiling window
 HAND_KERNEL_NAMES = {"q6_scan": ("q6_scan_kernel",),
                      "grouped_sum": ("grouped_sum_onehot",
                                      "grouped_sum_histogram"),
-                     "generic_scan": ("generic_scan",)}
+                     "generic_scan": ("generic_scan",),
+                     "join_probe": ("join_probe_kernel",)}
 #: phase 5: profile_compact.py's 100-SST tablet at SF1's full volume
 COMPACT_SSTS = 100
 COMPACT_ROWS_PER = 60_000        # rows per SST: 100 x 60,000 = SF1
@@ -200,11 +222,16 @@ def expr_nodes(node) -> int:
                    and isinstance(c[0], str))
 
 
-def profile_route(torch, hs, name, card, rows, run, iters) -> list:
+def profile_route(torch, hs, name, card, rows, run, iters,
+                  wall=None) -> list:
     """One `profile` JSON line for a route: wall ms per query on the
     host clock (profiler off), device-busy ms per query from
     torch.profiler (device activities only: kernels and copies, from
-    every thread), the idle share and the top device activities.
+    every thread; host ops are not recorded, which keeps the profiler's
+    own host cost out of the window), the idle share and the top device
+    activities.  `wall` (s per query) is the caller's own timing of the
+    same warm route, taken just before; without it the route is warmed
+    and timed here over `iters` queries.
 
     The profiler keeps only device activities whose timestamps fall
     inside its capture window, and on the card's torch 2.11 it also
@@ -221,15 +248,16 @@ def profile_route(torch, hs, name, card, rows, run, iters) -> list:
     multiple of the queries run (each query launches the same work)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    run()                                   # warm (built above)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(iters):
-        run()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t) / iters
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_call = time.perf_counter()
+    if wall is None:
+        run()                               # warm (built above)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_MARGIN_S)
         run()                               # leading query: not counted
         torch.cuda.synchronize()
@@ -270,7 +298,9 @@ def profile_route(torch, hs, name, card, rows, run, iters) -> list:
             problems.append(f"{key[:60]} recorded {count} times "
                             f"over {iters} queries")
         for k, device_names in HAND_KERNEL_NAMES.items():
-            if key in device_names:
+            # CUDA C++ kernels show as (de)mangled signatures, e.g.
+            # "void (anonymous namespace)::join_probe_kernel<long>(...)"
+            if any(d in key for d in device_names):
                 recorded[k] += count
     if busy_us <= 0:
         problems.append("no device activity recorded")
@@ -287,15 +317,17 @@ def profile_route(torch, hs, name, card, rows, run, iters) -> list:
                           {"name": k[:80], "us_per_query": us,
                            "launches_per_query": c}
                           for us, k, c in top[:6]],
-                      "window_problems": problems}))
+                      "window_problems": problems,
+                      "profile_s": time.perf_counter() - t_call}))
     return [f"profile {name}: {p}" for p in problems]
 
 
 def tablet_read_shapes(torch, np, seed, data, blocks, batch, kern, timed,
-                       host, rel, check_q6, check_q1) -> dict:
+                       host, rel, check_q6, check_q1) -> tuple:
     """Phase 3's second half: dedup, hash group, dictionary group and
     the streamed scan at SF1, each held against numpy.  Returns the
-    routes phase 4 profiles: name -> (hand flag, run(), iterations)."""
+    routes phase 4 profiles, name -> (hand flag, run(), iterations), and
+    the server of the TPC-H registry's q1 entry."""
     from yugabyte_db_tpu_torch.docdb.table_codec import TableCodec
     from yugabyte_db_tpu_torch.models import tpch
     from yugabyte_db_tpu_torch.ops import hand_scan as hs
@@ -445,6 +477,20 @@ def tablet_read_shapes(torch, np, seed, data, blocks, batch, kern, timed,
               f"streamed dict Q1 differs from monolithic at {key}")
     routes["dict_q1_str"] = (False, lambda: kern.run(
         sbatch, sq.where, sq.aggs, sq.group), PROFILE_ITERS)
+
+    def serve_q1_str(tablet, read_ht, hand):
+        """The registry's q1 (tpch_q1_str) on this batch; the hand route
+        refuses dictionary groups by type and the exact route serves."""
+        refused = dict(kern.hand_scan_refusals)
+        outs, counts, mask, spill = kern.run(sbatch, sq.where, sq.aggs,
+                                             sq.group)
+        check_dict(outs, counts, spill, sbatch.dicts, "registry q1")
+        if hand:
+            check(kern.hand_scan_refusals.get("group_shape", 0)
+                  == refused.get("group_shape", 0) + 1,
+                  "registry q1: the hand route did not refuse by type")
+            return "hand flag: refused (group_shape), served exact"
+        return "exact, string batch"
     routes["stream_dict_q1_str"] = (False, lambda: ss.streaming_scan_aggregate(
         sblocks, sq.columns, sq.where, sq.aggs, sq.group, kernel=kern),
         STREAM_ITERS)
@@ -488,7 +534,7 @@ def tablet_read_shapes(torch, np, seed, data, blocks, batch, kern, timed,
                                            q.group, r, kernel=kern),
                                        STREAM_ITERS)
                 print(json.dumps({"stream": what, **ss.LAST_STREAM_STATS}))
-    return routes
+    return routes, {"q1": serve_q1_str}
 
 
 def tombstone_block(cb):
@@ -956,7 +1002,7 @@ def tablet_seam_phase(torch, np, hs, data, card, root,
             "prefilter_rows_kept": st.get("prefilter_rows_kept", 0),
             **extra}))
         if run is not None:
-            routes[name] = (hand, run, iters)
+            routes[name] = (hand, run, iters, wall)
         return st
 
     if os.path.exists(root):
@@ -1029,7 +1075,7 @@ def tablet_seam_phase(torch, np, hs, data, card, root,
                     run = lambda q=q, s=sess: s.scan_aggregate(
                         q.where, q.aggs, q.group)
                     (vals, counts, st), cold, wall = timed(
-                        run, TABLET_ITERS)
+                        run, TABLET_STREAM_ITERS)
                 finally:
                     sess.close()
                 check(st["key_rebuilds"] == 0, "bypass rebuilt keys")
@@ -1082,12 +1128,12 @@ def tablet_seam_phase(torch, np, hs, data, card, root,
         # --- where the time goes, per route --------------------------------
         problems = []
         if profile:
-            for name, (hand, run, iters) in routes.items():
+            for name, (hand, run, iters, wall) in routes.items():
                 prune = not name.endswith("_unpruned")
                 with flags.overridden("hand_scan_enabled", hand), \
                         flags.overridden("zone_map_pruning", prune):
                     problems += profile_route(torch, hs, name, card, n,
-                                               run, iters)
+                                               run, iters, wall)
             for pf in (True, False):
                 with BypassSession(table8.tablets, read_ht=read_ht,
                                    prefilter=pf, device=device) as sess:
@@ -1096,7 +1142,366 @@ def tablet_seam_phase(torch, np, hs, data, card, root,
                             torch, hs,
                             f"bypass_{q.name}{'' if pf else '_noprefilter'}",
                             card, n, lambda q=q, s=sess: s.scan_aggregate(
-                                q.where, q.aggs, q.group), PROFILE_ITERS)
+                                q.where, q.aggs, q.group), STREAM_ITERS)
+        check(not problems, "; ".join(problems))
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+JOIN_BLOCK_ROWS = 65_536        # Tablet.bulk_load's default (bench.py:1897)
+JOIN_ITERS = 2                  # warm join reads per timed window
+JOIN_BUILD_CAP = 1 << 24        # join_max_build_slots, as bench.py:1924
+
+
+def probe_walks(torch, js, pk, live, used, table_key, num_slots):
+    """Slots each live probe row visits before its hit or its empty slot
+    (the walk the probe kernel takes), counted by a plain torch loop."""
+    slot = js.home_slots(pk, num_slots)
+    k = pk.to(torch.int64)
+    steps = torch.zeros(pk.shape, dtype=torch.int32, device=pk.device)
+    done = torch.logical_not(live)
+    while not bool(done.all()):
+        steps += torch.logical_not(done).to(torch.int32)
+        tu = used[slot]
+        done = done | torch.logical_not(tu) | (tu & (table_key[slot] == k))
+        slot = torch.where(done, slot, (slot + 1) & (num_slots - 1))
+    return steps[live]
+
+
+def join_probe_check(torch, np, hs, ldata, odata, cdata, card, reps):
+    """Phase 2's probe check at Q3's shapes: stage 0 probes l_orderkey of
+    the 8,388,608-row SF1 bucket against the 685,446 orders Q3 ships;
+    stage 1 probes the gathered o_custkey lane against Q3's customers.
+    The kernel's midx must equal the plain probe's on every row whose
+    incoming mask is set, and the outgoing masks must be equal.  Prints
+    one `join_probe` line per stage (walk lengths, times, bound) and
+    returns the kernels-line entry (stage 0)."""
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops import join_scan as js
+    from yugabyte_db_tpu_torch.ops.device_batch import bucket_rows
+    from yugabyte_db_tpu_torch.utils import flags
+    dev = torch.device("cuda", 0)
+    q = tpch.tpch_q3_chain()
+    wires = tpch.chain_build_wires(q, odata, cdata)
+    with flags.overridden("join_max_build_slots", JOIN_BUILD_CAP):
+        rts = js.make_join_runtimes(wires, {}, device=dev)
+    n = len(ldata["rowid"])
+    padded = bucket_rows(n)
+    pk = np.zeros(padded, np.int64)
+    pk[:n] = ldata["l_orderkey"]
+    mask = np.zeros(padded, bool)
+    mask[:n] = ldata["l_shipdate"] > tpch._Q3_CUT
+    pk, mask = torch.from_numpy(pk).to(dev), torch.from_numpy(mask).to(dev)
+    nulls = None
+    entry = None
+    for stage, rt in enumerate(rts):
+        used, tk, tv, pvals, pnulls = rt.to_device(dev)
+        S = rt.num_slots
+        midx, out = js.probe_kernel(pk, nulls, mask, used, tk, tv, S)
+        plain = js.probe_table(pk, used, tk, tv, S)
+        torch.cuda.synchronize()
+        live = mask if nulls is None else mask & ~nulls
+        want = live & (plain >= 0)
+        check(bool(torch.equal(out, want)),
+              f"join_probe stage {stage}: masks differ from the plain probe")
+        check(bool(torch.equal(midx[live], plain[live])),
+              f"join_probe stage {stage}: midx differs from the plain probe")
+        err = float((midx[live].to(torch.int64)
+                     - plain[live].to(torch.int64)).abs().max()) \
+            if bool(live.any()) else 0.0
+        walks = probe_walks(torch, js, pk, live, used, tk, S).double()
+        # bytes the function must move: every padded row's mask in, midx
+        # and mask out; the null byte only of rows whose mask is set, the
+        # key only of live rows (the kernel reads no more); the table once
+        n_in, n_live = int(mask.sum()), int(live.sum())
+        bms, bby = bound(padded * (1 + 4 + 1)
+                         + n_in * (nulls is not None)
+                         + n_live * pk.element_size()
+                         + S * (1 + 8 + 4), 0)
+        ms = cuda_ms(torch, lambda: js.probe_kernel(pk, nulls, mask, used,
+                                                    tk, tv, S), reps)
+        plain_ms = cuda_ms(torch, lambda: js.probe_table(pk, used, tk, tv,
+                                                         S),
+                           2, warmup=1, rounds=3)
+        print(json.dumps({"join_probe": f"q3 stage {stage}", "card": card,
+                          "rows": padded, "mask_rows": n_in,
+                          "live_rows": n_live,
+                          "build_keys": rt.n_build, "slots": S,
+                          "key_dtype": str(pk.dtype),
+                          "matched": int(out.sum()),
+                          "walk_mean": float(walks.mean()),
+                          "walk_max": int(walks.max()),
+                          "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bms, "bound_by": bby,
+                          "max_abs_err": err}))
+        if stage == 0:
+            entry = dict(
+                name="join_probe", route="cuda",
+                source="yugabyte_db_tpu_torch/csrc/join_probe.cu",
+                replaces="yugabyte_db_tpu/ops/join_scan.py:406",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=bby, library_ms=None)
+        if stage + 1 == len(rts):
+            break
+        # stage 1 probes stage 0's gathered o_custkey lane
+        gidx = torch.clamp(midx, 0, rt.build_rows_pad - 1).to(torch.int64)
+        col = rt.build_cols.index(tpch.chain_bids()["o_custkey"])
+        pk = pvals[col][gidx]
+        nulls = pnulls[col][gidx] | (midx < 0)
+        mask = out
+    return entry
+
+
+def baseline_line(torch, np, tpch, blocks, batch, kern, card, rounds=3):
+    """The host baseline beside the device route, as bench.py's paired
+    cpu_run (bench.py:2488-2510): cpu_scan_aggregate over the SF1 blocks
+    and ScanKernel.run over their batch on the card, back to back in each
+    round; one `baseline` line per query (best of the rounds and the
+    per-round ratios).  The baseline's answers are checked too."""
+    from yugabyte_db_tpu_torch.ops.cpu_scan import cpu_scan_aggregate
+    n = batch.n_rows
+    for q in (tpch.TPCH_Q6, tpch.TPCH_Q1):
+        def cpu_run(q=q):
+            return cpu_scan_aggregate(blocks, q.columns, q.where, q.aggs,
+                                      q.group)
+
+        def dev_run(q=q):
+            out = kern.run(batch, q.where, q.aggs, q.group)
+            torch.cuda.synchronize()
+            return out
+        dev_run()
+        cpu_out = cpu_run()
+        pairs = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            dev_out = dev_run()
+            t1 = time.perf_counter()
+            cpu_run()
+            pairs.append((t1 - t0, time.perf_counter() - t1))
+        cnt_cpu = np.asarray(cpu_out[1])
+        cnt_dev = dev_out[1].cpu().numpy() if hasattr(dev_out[1], "cpu") \
+            else np.asarray(dev_out[1])
+        check(np.array_equal(cnt_cpu, cnt_dev),
+              f"baseline {q.name}: counts differ from the device route")
+        for a, b in zip(cpu_out[0], dev_out[0]):
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            check(bool(np.all(np.abs(a - b) <= 1e-6 * np.abs(b) + 1e-6)),
+                  f"baseline {q.name}: sums differ from the device route")
+        print(json.dumps({"baseline": q.name, "card": card, "rows": n,
+                          "device_s": min(t for t, _ in pairs),
+                          "cpu_s": min(c for _, c in pairs),
+                          "ratios": [c / t for t, c in pairs],
+                          "device_rows_per_s": n / min(t for t, _ in pairs),
+                          "cpu_rows_per_s": n / min(c for _, c in pairs)}))
+
+
+def join_phase(torch, np, hs, ldata, odata, cdata, card, root,
+               scan_registry, device="cuda", block_rows=JOIN_BLOCK_ROWS,
+               profile=True) -> dict:
+    """Phase 7: FK-equijoins and fused plans at SF1 — a Tablet over
+    lineitem_join_info() bulk-loads lineitem with its l_orderkey FK (92
+    blocks of 65,536 rows); q3ish, q3, q5 and q10 through Tablet.read on
+    the streamed route (6 chunks of 1,048,576 rows) and the monolithic
+    route (one 8,388,608-row bucket) and through a BypassSession; every
+    answer against numpy (counts exact, revenue within 1e-5), streamed
+    against monolithic (1e-9), the bypass against the tablet read (bit
+    for bit); the TPC-H registry walked; one `join` and one `profile`
+    line per query and route.  Returns the launches of the phase's reads
+    by kernel name."""
+    import shutil
+    from yugabyte_db_tpu_torch.bypass import BypassSession
+    from yugabyte_db_tpu_torch.docdb.operations import ReadRequest
+    from yugabyte_db_tpu_torch.errors import NotPortedError
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops import join_scan as js
+    from yugabyte_db_tpu_torch.ops import plan_fusion as pf
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import flags
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-300)
+
+    def timed(fn, iters):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        cold = time.perf_counter() - t
+        t = time.perf_counter()
+        for _ in range(iters):
+            out = fn()
+        sync()
+        return out, cold, (time.perf_counter() - t) / iters
+
+    def by_key(vals, counts, gvals):
+        counts = np.asarray(counts)
+        return {str(gvals[0][g]): (int(counts[g]),
+                                   float(np.asarray(vals[0])[g]))
+                for g in np.nonzero(counts)[0]}
+
+    n = len(ldata["rowid"])
+    if os.path.exists(root):
+        shutil.rmtree(root)
+    try:
+        t0 = time.perf_counter()
+        tablet = Tablet("lineitem-join", tpch.lineitem_join_info(),
+                        f"{root}/join", device=device)
+        check(tablet.bulk_load(ldata, block_rows=block_rows) == n,
+              "join tablet load lost rows")
+        blocks = sum(r.num_blocks() for r in tablet.regular.ssts)
+        print(json.dumps({"join_load": {
+            "rows": n, "blocks": blocks, "block_rows": block_rows,
+            "orders": len(odata["o_orderkey"]),
+            "customers": len(cdata["c_custkey"]),
+            "load_s": time.perf_counter() - t0,
+            "sst_bytes": tablet.approximate_size()}}))
+        read_ht = tablet.clock.now().value
+        queries = {}
+        q3ish = tpch.tpch_q3ish()
+        queries["q3ish"] = (q3ish.probe_where, q3ish.aggs, q3ish.group,
+                            tpch.orders_build_wire(q3ish, odata),
+                            tpch.numpy_reference_join(q3ish, ldata, odata))
+        for q in (tpch.tpch_q3_chain(), tpch.tpch_q5_chain(),
+                  tpch.tpch_q10_chain()):
+            queries[q.name] = (q.probe_where, q.aggs,
+                               tpch._chain_group(q.group_col),
+                               tpch.chain_build_wires(q, odata, cdata),
+                               tpch.numpy_reference_chain(q, ldata, odata,
+                                                          cdata))
+
+        def request(name):
+            where, aggs, group, wires, _ = queries[name]
+            return ReadRequest("lineitem_j", where=where, aggregates=aggs,
+                               group_by=group, join=wires, read_ht=read_ht)
+
+        # the reference's default build cap refuses even q3ish at SF1
+        # (53,404 keys need 131,072 slots)
+        cap = flags.get("join_max_build_slots")
+        if 2 * len(queries["q3ish"][3].keys) > cap:
+            try:
+                tablet.read(request("q3ish"))
+                check(False, "q3ish served under the default build cap")
+            except NotPortedError as e:
+                check(js.REASON_BUILD_OVERFLOW in str(e),
+                      f"q3ish refused for another reason: {e}")
+                print(f"[phase 7] at join_max_build_slots={cap}: {e}")
+
+        hs.reset_launches()
+        routes = {}
+        with flags.overridden("join_max_build_slots", JOIN_BUILD_CAP):
+            for name, (where, aggs, group, wires, ref) in queries.items():
+                stages = len(js.normalize_join(wires))
+                answers = {}
+                for route in ("streamed", "monolithic"):
+                    with flags.overridden("streaming_scan_enabled",
+                                          route == "streamed"):
+                        before = hs.LAUNCHES["join_probe"]
+                        run = lambda name=name: tablet.read(request(name))
+                        resp, cold, wall = timed(run, JOIN_ITERS)
+                        probes = hs.LAUNCHES["join_probe"] - before
+                        st = dict(pf.LAST_PLAN_STATS)
+                    check(resp.backend == "tpu", f"{name} left the card")
+                    want_path = ("streaming" if route == "streamed"
+                                 else "monolithic")
+                    check(st["path"] == want_path,
+                          f"{name} {route}: path {st['path']}")
+                    check(probes == (1 + JOIN_ITERS) * stages * st["chunks"]
+                          or not cuda,
+                          f"{name} {route}: {probes} probe launches for "
+                          f"{stages} stages x {st['chunks']} chunks")
+                    got = by_key(resp.agg_values, resp.group_counts,
+                                 resp.group_values)
+                    for g, (cnt, rev) in ref.items():
+                        have = got.get(str(g), (0, 0.0))
+                        check(have[0] == cnt,
+                              f"{name} {route}: count of {g} {have[0]} "
+                              f"!= {cnt}")
+                        if cnt:
+                            check(rel(have[1], rev) < 1e-5,
+                                  f"{name} {route}: revenue of {g} "
+                                  f"relative error {rel(have[1], rev)}")
+                    answers[route] = (resp, got)
+                    print(json.dumps({
+                        "join": name, "route": route, "card": card,
+                        "rows": n, "stages": stages,
+                        "build_keys": ([len(w.keys) for w in
+                                        js.normalize_join(wires)]),
+                        "slots": st["num_slots"], "chunks": st["chunks"],
+                        "bucket_rows": st["bucket_rows"],
+                        "build_table_s": st["build_table_s"],
+                        "batch_build_s": st.get("batch_build_s"),
+                        "kernel_s": st["kernel_s"],
+                        "combine_s": st.get("combine_s"),
+                        "cold_ms": cold * 1e3, "wall_ms": wall * 1e3,
+                        "rows_per_s": n / wall,
+                        "probe_launches_per_query": probes
+                        / (1 + JOIN_ITERS),
+                        "groups": len(got)}))
+                    routes[f"join_{name}_{route}"] = (route, run, wall)
+                s_got, m_got = answers["streamed"][1], answers["monolithic"][1]
+                check(set(s_got) == set(m_got),
+                      f"{name}: streamed groups differ from monolithic")
+                for g, (cnt, rev) in s_got.items():
+                    check(cnt == m_got[g][0] and rel(rev, m_got[g][1]) < 1e-9,
+                          f"{name}: streamed differs from monolithic at {g}")
+                with BypassSession([tablet], read_ht=read_ht,
+                                   device=device) as sess:
+                    gout = {}
+                    bv, bc, bst = sess.scan_aggregate(
+                        where, aggs, group, grouped_out=gout, join=wires)
+                check(bst["key_rebuilds"] == 0, f"bypass {name} rebuilt keys")
+                resp = answers["streamed"][0]
+                check(np.array_equal(np.asarray(bc),
+                                     np.asarray(resp.group_counts)),
+                      f"bypass {name}: counts differ from the tablet read")
+                check([str(x) for x in gout["group_values"][0]]
+                      == [str(x) for x in resp.group_values[0]],
+                      f"bypass {name}: groups differ from the tablet read")
+                for a, b in zip(bv, resp.agg_values):
+                    check(np.asarray(a).tobytes() == np.asarray(b).tobytes(),
+                          f"bypass {name} is not bit-identical to the "
+                          "tablet read")
+                print(f"[phase 7] {name} OK on both routes and the bypass "
+                      f"({bst['paths']})")
+
+            # --- the TPC-H registry: serve every runnable entry ----------
+            registry = {}
+            for qname, e in tpch.tpch_queries().items():
+                if e.kind == "inexpressible":
+                    registry[qname] = {"kind": e.kind, "reason": e.reason}
+                    continue
+                if e.kind == "chain":
+                    registry[qname] = {"kind": e.kind,
+                                       "served": ["streamed", "monolithic",
+                                                  "bypass"]}
+                    continue
+                served = []
+                for hand in (False, True):
+                    with flags.overridden("hand_scan_enabled", hand):
+                        served.append(scan_registry[qname](
+                            tablet, read_ht, hand))
+                registry[qname] = {"kind": e.kind, "served": served}
+            print(json.dumps({"registry": registry}))
+        launches = dict(hs.LAUNCHES)
+        check(launches["join_probe"] > 0 or not cuda,
+              "the probe kernel did not run on the join path")
+        print(f"[phase 7] joins OK; launches {launches}")
+
+        # --- where the time goes, per join query and route ---------------
+        problems = []
+        if profile:
+            with flags.overridden("join_max_build_slots", JOIN_BUILD_CAP):
+                for pname, (route, run, wall) in routes.items():
+                    with flags.overridden("streaming_scan_enabled",
+                                          route == "streamed"):
+                        problems += profile_route(torch, hs, pname, card, n,
+                                                  run, JOIN_ITERS, wall)
         check(not problems, "; ".join(problems))
         return launches
     finally:
@@ -1130,13 +1535,24 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     reps = 20                 # launches per timing window
+    t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def phase_time(label):
+        """One `phase_s` line: this phase's and the run's seconds so far
+        on the host clock (the run is held to a time budget)."""
+        now = time.perf_counter()
+        print(json.dumps({"phase_s": label, "s": now - t_phase[0],
+                          "total_s": now - t_start}))
+        t_phase[0] = now
 
     # --- phase 1: build --------------------------------------------------
     t0 = time.perf_counter()
     hs.build_cuda_kernels(verbose=True)
-    print(f"[build] nvcc K1+K2 {time.perf_counter() - t0:.3f} s")
+    print(f"[build] nvcc K1+K2+join_probe {time.perf_counter() - t0:.3f} s")
     card = card_line()
     print(card)
+    phase_time("1 build")
 
     # --- main-path data (made before phase 2: its inputs are the path's)
     t0 = time.perf_counter()
@@ -1153,6 +1569,13 @@ def main(argv=None) -> int:
         "rows": n, "blocks": len(blocks), "bucket": batch.padded_rows,
         "generate_s": t1 - t0, "bulk_blocks_s": t2 - t1,
         "build_batch_s": t3 - t2}}))
+    # the join tables of TPC-H SF1: lineitem's l_orderkey, orders (with
+    # o_custkey) and customer
+    n_orders = int(tpch.ORDERS_PER_SF * SF)
+    ldata = tpch.lineitem_join_data(data, n_orders)
+    odata = tpch.generate_orders_cust(n_orders,
+                                      int(tpch.CUSTOMERS_PER_SF * SF))
+    cdata = tpch.generate_customer(int(tpch.CUSTOMERS_PER_SF * SF))
 
     padded = ((n + hs.BLOCK_ROWS - 1) // hs.BLOCK_ROWS) * hs.BLOCK_ROWS
     grid = padded // hs.BLOCK_ROWS
@@ -1286,7 +1709,10 @@ def main(argv=None) -> int:
             bound_ms=bms, bound_by=bby, library_ms=None))
         if q.group is not None:
             k3_config_sweep(entry, call)
+    kernels.append(join_probe_check(torch, np, hs, ldata, odata, cdata,
+                                    card, reps))
     print("[phase 2] every kernel agrees with its plain version")
+    phase_time("2 kernels (with the main-path data)")
 
     # --- phase 3: the main path -----------------------------------------
     ref_q6 = tpch.numpy_reference(tpch.TPCH_Q6, data)
@@ -1367,9 +1793,10 @@ def main(argv=None) -> int:
         for g in range(6):
             check(rel(sums[g], ref_q1[g][0]) < 1e-5, f"grouped_sum g{g}")
         rates["grouped_sum_host_wrapper"] = n / t
-    routes = tablet_read_shapes(torch, np, args.seed, data, blocks, batch,
-                                kern, timed, host, rel, check_q6, check_q1)
-    launches = dict(hs.LAUNCHES)
+    routes, scan_registry = tablet_read_shapes(
+        torch, np, args.seed, data, blocks, batch, kern, timed, host, rel,
+        check_q6, check_q1)
+    launches = {k: v for k, v in hs.LAUNCHES.items() if k != "join_probe"}
     per_query = {}
     for key, e in kern._cache.items():
         if key[0] == "hand":
@@ -1384,6 +1811,9 @@ def main(argv=None) -> int:
     print(f"[phase 3] main path OK; launches {launches}")
     for r, v in rates.items():
         print(f"[rate] {r}: {v:.1f} rows/s ({card})")
+    phase_time("3 main path")
+    baseline_line(torch, np, tpch, blocks, batch, kern, card)
+    phase_time("3 baseline")
 
     # --- phase 4: where the time goes, per route --------------------------
     problems = []
@@ -1402,6 +1832,8 @@ def main(argv=None) -> int:
     check(not kern.hand_scan_refusals,
           f"hand route refused: {kern.hand_scan_refusals}")
 
+    phase_time("4 profiles")
+
     # --- phase 5: LSM compaction on the card ------------------------------
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "compaction_smoke")
@@ -1409,6 +1841,7 @@ def main(argv=None) -> int:
         import shutil
         shutil.rmtree(root)
     compaction_phase(torch, np, data, card, root)
+    phase_time("5 compaction")
 
     # --- phase 6: the tablet read seam -----------------------------------
     seam = tablet_seam_phase(
@@ -1416,12 +1849,42 @@ def main(argv=None) -> int:
         os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                      "tablet_smoke"))
 
-    # --- phase 7: report -------------------------------------------------
+    phase_time("6 tablet seam")
+
+    # --- phase 7: joins and fused plans -----------------------------------
+    from yugabyte_db_tpu_torch.docdb.operations import (ReadRequest,
+                                                        shared_kernel)
+    ref_q6 = tpch.numpy_reference(tpch.TPCH_Q6, data)
+
+    def serve_q6(tablet, read_ht, hand):
+        """The registry's q6 through Tablet.read on the join tablet."""
+        before = hs.LAUNCHES["generic_scan"]
+        resp = tablet.read(ReadRequest(
+            "lineitem_j", where=tpch.TPCH_Q6.where,
+            aggregates=tpch.TPCH_Q6.aggs, read_ht=read_ht))
+        check(rel(resp.agg_values[0], ref_q6) < 1e-5,
+              f"registry q6 (hand {hand}): {resp.agg_values[0]}")
+        k3 = hs.LAUNCHES["generic_scan"] - before
+        check((k3 > 0) == hand, f"registry q6 (hand {hand}): K3 ran {k3}")
+        return f"{'hand (K3)' if hand else 'exact'}, Tablet.read"
+    scan_registry["q6"] = serve_q6
+    k3_before = k3_launches_by_query(shared_kernel("cuda"))
+    joined = join_phase(
+        torch, np, hs, ldata, odata, cdata, card,
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "join_smoke"), scan_registry)
+    k3_after = k3_launches_by_query(shared_kernel("cuda"))
+    joined.update({k: v - k3_before.get(k, 0) for k, v in k3_after.items()})
+
+    phase_time("7 joins")
+
+    # --- phase 8: report -------------------------------------------------
     for k in kernels:
         scan_path = launches.get(k["name"], per_query.get(k["name"], 0))
         k["launches_by_path"] = {"scan": scan_path,
-                                 "tablet_seam": seam.get(k["name"], 0)}
-        k["launches"] = scan_path + seam.get(k["name"], 0)
+                                 "tablet_seam": seam.get(k["name"], 0),
+                                 "join": joined.get(k["name"], 0)}
+        k["launches"] = sum(k["launches_by_path"].values())
         check(k["launches"] > 0, f"{k['name']} launched 0 times")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",

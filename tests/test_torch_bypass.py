@@ -20,6 +20,7 @@ from yugabyte_db_tpu_torch.bypass import prefilter as ppf
 from yugabyte_db_tpu_torch.device import DeviceUnavailable
 from yugabyte_db_tpu_torch.errors import NotPortedError
 from yugabyte_db_tpu_torch.models import tpch
+from yugabyte_db_tpu_torch.ops import join_scan as pjs
 from yugabyte_db_tpu_torch.ops import scan as pscan
 from yugabyte_db_tpu_torch.ops.expr import Expr
 from yugabyte_db_tpu_torch.ops.scan import AggSpec, HashGroupSpec
@@ -397,8 +398,12 @@ def test_refusals_of_what_is_not_ported(shards):
     with pbp.BypassSession(pts, read_ht=READ_HT, device="cpu") as s:
         with pytest.raises(NotPortedError, match="item 8"):
             s.scan_aggregate(q.where, q.aggs, combine="mesh")
-        with pytest.raises(NotPortedError, match="item 5"):
-            s.scan_aggregate(q.where, q.aggs, join=object())
+        # joins run through the fused plan now; over the mesh combine
+        # they stay refused with it
+        join = pjs.JoinWire(probe_col=tpch.ROWID,
+                            keys=np.arange(4, dtype=np.int64))
+        with pytest.raises(NotPortedError, match="item 8"):
+            s.scan_aggregate(q.where, q.aggs, combine="mesh", join=join)
         with pytest.raises(NotPortedError, match="item 9"):
             s.scan_aggregate(("cmp", "gt", ("json", "->", ("col", 1), "a"),
                               ("const", 1)), q.aggs)

@@ -4,8 +4,10 @@ plain PyTorch version on the same CUDA tensors — counts, MIN and MAX
 exact, f32 SUMs rtol 2e-4; the exact route's shapes and the compaction
 merge program on the card against the CPU, bit for bit, a small
 device-backend compaction against the baseline backend, byte for byte,
-and a card tablet's reads and bypass session against the same tablet
-read on the CPU.
+a card tablet's reads and bypass session against the same tablet read
+on the CPU; the join probe kernel (CUDA C++, csrc/join_probe.cu)
+against its plain version, and fused join reads on the card against
+the CPU, bit for bit.
 Every test here needs a GPU and skips without one; the file imports
 nothing of JAX, so it runs where JAX is not installed:
 
@@ -307,6 +309,102 @@ def test_cuda_tablet_read_matches_cpu(cuda_device, tmp_path, streamed):
                                device=cuda_device) as s:
                 bv, bc, st = s.scan_aggregate(q.where, q.aggs, q.group)
             assert st["key_rebuilds"] == 0
+            assert np.array_equal(bc, got.group_counts)
+            for b, g in zip(bv, got.agg_values):
+                assert np.asarray(b).tobytes() == np.asarray(g).tobytes()
+
+
+# --- the join probe kernel and fused joins on the card ----------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_nulls", [False, True])
+@pytest.mark.parametrize("load", [0.05, 0.25, 0.5])
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+def test_cuda_join_probe_matches_plain(cuda_device, key_dtype, load,
+                                       with_nulls):
+    """csrc/join_probe.cu against the plain probe on random tables up to
+    the table builder's 0.5 load factor: midx equal on every row whose
+    incoming mask is set (masked rows may skip the walk), the outgoing
+    mask equal everywhere (exact: both are integers)."""
+    from yugabyte_db_tpu_torch.ops import join_scan as js
+    rng = np.random.default_rng(3)
+    S = 1 << 16
+    lim = 2**31 - 1 if key_dtype == torch.int32 else 1 << 40
+    keys = np.unique(rng.integers(-lim, lim, int(S * load)))
+    keys = keys.astype(np.int64)
+    used, tkey, tval = (torch.from_numpy(a).to(cuda_device) for a in
+                        js.build_hash_table(keys, S))
+    n = 3 * B + 77
+    probe = np.where(rng.random(n) < 0.6, rng.choice(keys, n),
+                     rng.integers(-lim, lim, n))
+    pk = torch.from_numpy(probe).to(key_dtype).to(cuda_device)
+    mask = torch.from_numpy(rng.random(n) < 0.8).to(cuda_device)
+    nulls = (torch.from_numpy(rng.random(n) < 0.1).to(cuda_device)
+             if with_nulls else None)
+    before = hs.LAUNCHES["join_probe"]
+    midx, out = js.probe_rows(pk, nulls, mask, used, tkey, tval, S)
+    torch.cuda.synchronize()
+    assert hs.LAUNCHES["join_probe"] == before + 1
+    plain = js.probe_table(pk, used, tkey, tval, S)
+    want = mask & (plain >= 0)
+    if nulls is not None:
+        want &= ~nulls
+    assert torch.equal(out, want)
+    live = mask if nulls is None else mask & ~nulls
+    assert torch.equal(midx[live], plain[live])
+    assert bool((midx[~live] == -1).all())
+    assert int(want.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streamed", [True, False])
+def test_cuda_join_read_matches_cpu(cuda_device, tmp_path, streamed):
+    """A TPC-H Q5 chain (two probe stages) on a card tablet and on its CPU
+    twin over the same rows, bit for bit under one float dtype; the
+    card's fused plan launches the probe kernel once per stage and
+    chunk, and the card's bypass session equals its tablet read."""
+    from yugabyte_db_tpu_torch.bypass import BypassSession
+    from yugabyte_db_tpu_torch.docdb.operations import ReadRequest
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops import plan_fusion as pf
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import flags
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    data = tpch.generate_lineitem(0.02, seed=5)
+    od = tpch.generate_orders_cust(30_000, 3000)
+    cd = tpch.generate_customer(3000)
+    ld = tpch.lineitem_join_data(data, 30_000)
+    tablets = {}
+    for dev in (cuda_device, "cpu"):
+        t = Tablet("t", tpch.lineitem_join_info(), str(tmp_path / str(dev)),
+                   device=dev)
+        t.bulk_load(ld, ht=HybridTime(1 << 40), block_rows=8192)
+        tablets[str(dev)] = t
+    read_ht = 1 << 41
+    with flags.overridden("device_float_dtype", "float32"), \
+            flags.overridden("streaming_chunk_rows", 32768), \
+            flags.overridden("streaming_scan_enabled", streamed):
+        for q in (tpch.tpch_q5_chain(), tpch.tpch_q3_chain()):
+            req = dict(where=q.probe_where, aggregates=q.aggs,
+                       group_by=tpch._chain_group(q.group_col),
+                       join=tpch.chain_build_wires(q, od, cd),
+                       read_ht=read_ht)
+            before = hs.LAUNCHES["join_probe"]
+            got = tablets[str(cuda_device)].read(
+                ReadRequest("lineitem_j", **req))
+            chunks = pf.LAST_PLAN_STATS["chunks"]
+            assert hs.LAUNCHES["join_probe"] - before == 2 * chunks
+            want = tablets["cpu"].read(ReadRequest("lineitem_j", **req))
+            assert got.backend == want.backend == "tpu"
+            assert np.array_equal(got.group_counts, want.group_counts)
+            assert list(got.group_values[0]) == list(want.group_values[0])
+            for g, w in zip(got.agg_values, want.agg_values):
+                assert np.asarray(g).tobytes() == np.asarray(w).tobytes()
+            with BypassSession([tablets[str(cuda_device)]], read_ht=read_ht,
+                               device=cuda_device) as s:
+                gout = {}
+                bv, bc, _ = s.scan_aggregate(
+                    q.probe_where, q.aggs, tpch._chain_group(q.group_col),
+                    grouped_out=gout, join=req["join"])
             assert np.array_equal(bc, got.group_counts)
             for b, g in zip(bv, got.agg_values):
                 assert np.asarray(b).tobytes() == np.asarray(g).tobytes()

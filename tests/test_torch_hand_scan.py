@@ -340,7 +340,7 @@ def test_plain_versions_never_count_launches():
     hs.grouped_sum(np.zeros(B), np.ones(B), np.ones(B, bool), 2,
                    device="cpu")
     assert hs.LAUNCHES == {"q6_scan": 0, "grouped_sum": 0,
-                           "generic_scan": 0}
+                           "generic_scan": 0, "join_probe": 0}
 
 
 def test_wrappers_reject_badk3_lanes():

@@ -161,11 +161,15 @@ def test_signature_cache_and_compiles(blocks):
 
 
 def test_unported_shapes_raise_naming_the_roadmap(blocks):
-    # dedup mode, HashGroupSpec and the streamed scan's prefilter are
-    # served now (tests/test_torch_mvcc.py, tests/test_torch_grouped.py,
-    # tests/test_torch_bypass.py); the bypass reader's fused join plan is
-    # what still raises, naming its ROADMAP.md item
-    from yugabyte_db_tpu_torch.bypass.scan import bypass_plan_aggregate
+    # dedup mode, HashGroupSpec, the streamed scan's prefilter and the
+    # bypass reader's fused join plan are served now
+    # (tests/test_torch_mvcc.py, tests/test_torch_grouped.py,
+    # tests/test_torch_bypass.py, tests/test_torch_plan.py); the bypass
+    # reader's document-path scans are what still raise, naming their
+    # ROADMAP.md item
+    from yugabyte_db_tpu_torch.bypass.scan import (bypass_plan_aggregate,
+                                                   bypass_scan_aggregate)
+    from yugabyte_db_tpu_torch.ops.join_scan import JoinWire
     from yugabyte_db_tpu_torch.ops.stream_scan import \
         streaming_scan_aggregate
     _, _, pb = blocks
@@ -181,9 +185,15 @@ def test_unported_shapes_raise_naming_the_roadmap(blocks):
                                    kernel=k, chunk_rows=4096,
                                    prefilter=lambda b: b)
     assert int(got[0][0]) == pbat.n_rows
+    rowids = np.concatenate([b.pk[tpch.ROWID] for b in pb])
+    join = JoinWire(probe_col=tpch.ROWID, keys=rowids[::2])
+    _, counts, _ = bypass_plan_aggregate(pb, None, (AggSpec("count"),),
+                                         None, 1000, join, device="cpu")
+    assert int(counts) == len(rowids[::2])
+    doc = ("cmp", "gt", ("json", "->", ("col", Q), "a"), ("const", 1))
     with pytest.raises(NotPortedError, match="ROADMAP.md"):
-        bypass_plan_aggregate(pb, None, (AggSpec("count"),), None, 1000,
-                              object())
+        bypass_scan_aggregate(pb, doc, (AggSpec("count"),), None, 1000,
+                              device="cpu")
     # no read point: mode none, served
     out = k.run(pbat, None, (AggSpec("count"),))
     assert int(out[0][0]) == pbat.n_rows

@@ -205,6 +205,14 @@ def test_import_check_covers_the_tablet_seam():
             "docdb/operations.py"} <= names
 
 
+def test_import_check_covers_the_join_slice():
+    names = {str(p.relative_to(PORT)) for p in _port_sources()
+             if PORT in p.parents}
+    assert {"ops/cpu_scan.py", "ops/join_scan.py",
+            "ops/plan_fusion.py"} <= names
+    assert (PORT / "csrc" / "join_probe.cu").is_file()
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
@@ -260,6 +268,45 @@ def test_compaction_runs_without_jax_and_msgpack(tmp_path):
     # cutoff at the second load: the newest version <= the cutoff and
     # the one above it survive, the oldest goes
     assert int(out.stdout.strip()) == 2 * 3000
+
+
+def test_join_read_runs_without_jax_and_msgpack(tmp_path):
+    """A TPC-H Q5 chain through Tablet.read (CPU tablet, fused plan, plain
+    probe) and the host baseline scan, in an interpreter where jax and
+    msgpack cannot be imported."""
+    code = (_BLOCKED +
+            "import numpy as np\n"
+            "from yugabyte_db_tpu_torch.docdb.operations import ReadRequest\n"
+            "from yugabyte_db_tpu_torch.models import tpch\n"
+            "from yugabyte_db_tpu_torch.ops.cpu_scan import "
+            "cpu_scan_aggregate\n"
+            "from yugabyte_db_tpu_torch.tablet import Tablet\n"
+            "data = tpch.generate_lineitem(0.002, seed=1)\n"
+            "od = tpch.generate_orders_cust(3000, 300)\n"
+            "cd = tpch.generate_customer(300)\n"
+            "ld = tpch.lineitem_join_data(data, 3000)\n"
+            f"t = Tablet('li', tpch.lineitem_join_info(), {str(tmp_path)!r},"
+            " device='cpu')\n"
+            "t.bulk_load(ld, block_rows=4096)\n"
+            "q = tpch.tpch_q5_chain()\n"
+            "r = t.read(ReadRequest('lineitem_j', where=q.probe_where,"
+            " aggregates=q.aggs, group_by=tpch._chain_group(q.group_col),"
+            " join=tpch.chain_build_wires(q, od, cd)))\n"
+            "ref = tpch.numpy_reference_chain(q, ld, od, cd)\n"
+            "got = dict(zip(r.group_values[0], r.group_counts))\n"
+            "assert all(got.get(g, 0) == c for g, (c, _) in ref.items())\n"
+            "blocks = [s.columnar_block(i) for s in t.regular.ssts"
+            " for i in range(s.num_blocks())]\n"
+            "(rev,), _ = cpu_scan_aggregate(blocks, tpch.TPCH_Q6.columns,"
+            " tpch.TPCH_Q6.where, tpch.TPCH_Q6.aggs)\n"
+            "assert abs(rev - tpch.numpy_reference(tpch.TPCH_Q6, ld))"
+            " <= 1e-9 * abs(rev)\n"
+            "print(r.backend, sum(r.group_counts))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    backend, n = out.stdout.split()
+    assert backend == "tpu" and int(n) > 0
 
 
 def test_flag_override_restores_on_exit():

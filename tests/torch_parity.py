@@ -569,7 +569,7 @@ def port_compaction_store(root, table_info, data, n_ssts: int = 8,
     return store, codec, sorted(hts)
 
 
-# --- the tablet read seam: paired tablets and responses -------------------------
+# --- the tablet read seam: paired tablets and responses ----------------------
 TABLET_BASE_US = 1_700_000_000_000_000       # mock clocks start here
 
 
@@ -591,16 +591,23 @@ def tablet_pair(root, kind: str, data, n_tablets: int = 1,
     TABLET_BASE_US.  `loads`: (ht offset in µs from the clock's start,
     row mask or None) per bulk load, each one SST per tablet.  Returns
     (reference tablets, port tablets)."""
+    from yugabyte_db_tpu_torch.models import tpch
+    jinfo, pinfo = tablet_infos(kind)
+    if kind == "str":
+        data = tpch.lineitem_str_data(data)
+    return tablets_of(root, jinfo, pinfo, data, n_tablets, block_rows,
+                      loads)
+
+
+def tablets_of(root, jinfo, pinfo, data, n_tablets: int = 1,
+               block_rows: int = 8192, loads=((0, None),)):
+    """:func:`tablet_pair` for any (reference, port) TableInfo pair."""
     import os
 
     from yugabyte_db_tpu.tablet import Tablet as JTablet
     from yugabyte_db_tpu.utils import hybrid_time as jht
-    from yugabyte_db_tpu_torch.models import tpch
     from yugabyte_db_tpu_torch.tablet import Tablet
     from yugabyte_db_tpu_torch.utils import hybrid_time as pht
-    jinfo, pinfo = tablet_infos(kind)
-    if kind == "str":
-        data = tpch.lineitem_str_data(data)
     jclock = jht.HybridClock(jht.MockPhysicalClock(TABLET_BASE_US))
     pclock = pht.HybridClock(pht.MockPhysicalClock(TABLET_BASE_US))
     jparts = jinfo.partition_schema.create_partitions(n_tablets)
@@ -671,3 +678,115 @@ def assert_same_response(presp, jresp, what=""):
     assert_same_answer(presp.agg_values, presp.group_counts,
                        jresp.agg_values, jresp.group_counts,
                        presp.group_values, jresp.group_values, what)
+
+
+# --- joins: probe tables, build sides and requests in both packages ----------
+BID = 1 << 20                  # BUILD_COL_BASE: the first payload lane id
+JOIN_READ_HT = (TABLET_BASE_US + 1000) << 12    # above every load
+
+
+def probe_infos(str_fk: bool = False):
+    """(reference, port) TableInfo of the join tests' probe (fact) table:
+    k int64 (hash key), fk int64 or STRING (the FK), val f64, ship
+    int32."""
+    from yugabyte_db_tpu.docdb import table_codec as jtc
+    from yugabyte_db_tpu.dockv import packed_row as jpr
+    from yugabyte_db_tpu.dockv.partition import PartitionSchema as JPS
+    from yugabyte_db_tpu_torch.docdb import table_codec as ptc
+    from yugabyte_db_tpu_torch.dockv import packed_row as ppr
+    from yugabyte_db_tpu_torch.dockv.partition import PartitionSchema
+
+    def info(pr, tc, ps):
+        T = pr.ColumnType
+        schema = pr.TableSchema((
+            pr.ColumnSchema(0, "k", T.INT64, is_hash_key=True),
+            pr.ColumnSchema(1, "fk", T.STRING if str_fk else T.INT64),
+            pr.ColumnSchema(2, "val", T.FLOAT64),
+            pr.ColumnSchema(3, "ship", T.INT32),
+        ), 1)
+        return tc.TableInfo("probe", "probe", schema, ps("hash", 1))
+    return info(jpr, jtc, JPS), info(ppr, ptc, PartitionSchema)
+
+
+def probe_data(n: int, n_keys: int = 600, seed: int = 3,
+               frac: bool = False):
+    """Probe rows: fk uniform over [0, n_keys) (keys past the build side
+    dangle), val integer-valued (exact sums) or fractional, ship
+    0..99."""
+    rng = np.random.default_rng(seed)
+    return {
+        "k": np.arange(n, dtype=np.int64),
+        "fk": rng.integers(0, n_keys, n).astype(np.int64),
+        "val": (rng.uniform(1.0, 100.0, n) if frac
+                else rng.integers(1, 100, n).astype(np.float64)),
+        "ship": rng.integers(0, 100, n).astype(np.int32),
+    }
+
+
+def probe_pair(root, data, block_rows: int = 4096, str_fk: bool = False):
+    """One reference and one port (CPU) probe tablet over `data`."""
+    jinfo, pinfo = probe_infos(str_fk)
+    (jt,), (pt,) = tablets_of(root, jinfo, pinfo, data,
+                              block_rows=block_rows)
+    return jt, pt
+
+
+def tablet_blocks(t):
+    """Every columnar block of a tablet's SSTs, in either package."""
+    return [r.columnar_block(i) for r in t.regular.ssts
+            for i in range(r.num_blocks())]
+
+
+def wire_pair(probe_col, keys, payload=None):
+    """The same JoinWire in both packages (numpy arrays shared)."""
+    from yugabyte_db_tpu.ops.join_scan import JoinWire as JWire
+    from yugabyte_db_tpu_torch.ops.join_scan import JoinWire
+    payload = payload or {}
+    return (JWire(probe_col=probe_col, keys=keys, payload=dict(payload)),
+            JoinWire(probe_col=probe_col, keys=keys, payload=dict(payload)))
+
+
+def build_side(n_build: int = 500, probe_col: int = 1,
+               null_payload: bool = False, seed: int = 7):
+    """The join tests' build side as a wire pair: keys 0..n_build-1, a
+    string priority payload at BID and an int64 weight payload at BID + 1
+    (every 7th weight NULL on request)."""
+    rng = np.random.default_rng(seed)
+    prio = np.array([f"P{i % 5}" for i in range(n_build)], object)
+    w = rng.integers(1, 10, n_build).astype(np.int64)
+    wn = (np.arange(n_build) % 7 == 0) if null_payload else None
+    return wire_pair(probe_col, np.arange(n_build, dtype=np.int64),
+                     {BID: (prio, None), BID + 1: (w, wn)})
+
+
+def stages(pairs):
+    """A chain's stage pairs as (reference stages, port stages)."""
+    return tuple(j for j, _ in pairs), tuple(p for _, p in pairs)
+
+
+def isolate_reference_plan_kernel(monkeypatch):
+    """Put a fresh reference FusedPlanKernel behind its
+    default_plan_kernel() for one test.  The reference's own tests count
+    compiles on that process-wide kernel; a plan a parity test compiled
+    there first would read as theirs when both run in one process."""
+    from yugabyte_db_tpu.ops import plan_fusion as jpf
+    monkeypatch.setattr(jpf, "_DEFAULT_PLAN_KERNEL", jpf.FusedPlanKernel())
+
+
+def join_requests(table_id, where, aggs, group, joins, read_ht=JOIN_READ_HT):
+    """The same join ReadRequest in both packages; `joins` is a wire pair
+    or a (reference stages, port stages) pair."""
+    jreq, preq = requests(table_id, where, aggs, group, read_ht)
+    jreq.join, preq.join = joins
+    return jreq, preq
+
+
+def by_key(vals, counts, gvals):
+    """{group key strings: (count, value bits...)} of a grouped answer."""
+    counts = np.asarray(counts)
+    out = {}
+    for g in np.nonzero(counts)[0]:
+        key = tuple(str(v[g]) for v in gvals)
+        out[key] = (int(counts[g]),) + tuple(
+            _canon(np.asarray(v)[g]) for v in vals)
+    return out

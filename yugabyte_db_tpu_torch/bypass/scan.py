@@ -8,13 +8,19 @@ pipeline (ops/stream_scan.py).  Eligibility, zone-map pruning and
 chunk-safety read only the stored boundary keys, so an all-v2 tablet
 scans with zero key-matrix rebuilds.
 
+``bypass_plan_aggregate`` serves FK-equijoin aggregates the same way,
+through the fused plan (ops/plan_fusion.py) with the build side probed
+inside it.
+
 Anything the engine cannot serve exactly (hash groups, columns with no
 columnar form, block sequences that are not chunk-safe, expressions
-the device cannot compile) raises BypassIneligible with a typed reason
-and the caller falls back to ``Tablet.read``.  What it serves equals
-the tablet read path at the same read point bit for bit: the same
-zone-prune gate, chunk plan and bucket, kernel and combine, and the
-same monolithic twin under ``min_chunks``.
+the device cannot compile, a build side the device join refuses)
+raises BypassIneligible with a typed reason and the caller falls back
+to ``Tablet.read``.  What it serves equals the tablet read path at the
+same read point bit for bit: the same zone-prune gate, chunk plan and
+bucket, kernel and combine, and the same monolithic twin under
+``min_chunks``.  Document-path scans raise NotPortedError (ROADMAP.md
+queue 1 item 9b).
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ import numpy as np
 from ..errors import NotPortedError
 from ..ops.device_batch import bucket_rows, build_batch
 from ..ops.grouped_scan import DictGroupSpec
-from ..ops.scan import AggSpec, HashGroupSpec, ScanKernel, _expand_avg, _np
+from ..ops.scan import (AggSpec, HashGroupSpec, ScanKernel, _np,
+                        expand_aggregates, needed_probe_columns)
 from ..ops.stream_scan import (LAST_STREAM_STATS, chunk_safe_mvcc,
                                streaming_scan_aggregate)
 from ..storage.columnar import KEY_REBUILD_STATS, ColumnarBlock
@@ -33,13 +40,13 @@ from ..storage.sst import SstReader
 from ..utils import flags
 from .errors import (REASON_COLUMN_NOT_FIXED, REASON_EXPR_SHAPE,
                      REASON_GROUPED_OFF, REASON_HASH_GROUP,
+                     REASON_JOIN_OFF, REASON_JOIN_SHAPE,
                      REASON_NO_COLUMNAR, REASON_NOT_AGGREGATE,
                      REASON_NOT_CHUNK_SAFE, REASON_SLOT_OVERFLOW,
                      BypassIneligible)
 from .prefilter import make_prefilter
 
-_JOIN_ITEM = "queue 1 item 5 (joins and fused plans)"
-_DOC_ITEM = "queue 1 item 9 (document shredding)"
+_DOC_ITEM = "queue 1 item 9b (document shredding)"
 
 
 def open_snapshot_readers(snap) -> List[SstReader]:
@@ -116,22 +123,13 @@ def bypass_scan_aggregate(
         raise BypassIneligible(REASON_GROUPED_OFF)
     if _has_doc_nodes(where, aggs):
         raise NotPortedError("document-path bypass scans", _DOC_ITEM)
-    from ..ops.expr import device_compatible, referenced_columns
+    from ..ops.expr import device_compatible
     if where is not None and not device_compatible(where):
         raise BypassIneligible(REASON_EXPR_SHAPE, "where")
     for a in aggs:
         if a.expr is not None and not device_compatible(a.expr):
             raise BypassIneligible(REASON_EXPR_SHAPE, "aggregate expr")
-    needed: set = set()
-    if where is not None:
-        referenced_columns(where, needed)
-    for a in aggs:
-        if a.expr is not None:
-            referenced_columns(a.expr, needed)
-    if dict_group:
-        needed.update(group.cols)
-    elif group is not None:
-        needed.update(cid for cid, _, _ in group.cols)
+    needed = needed_probe_columns(where, aggs, group)
     for b in blocks:
         for cid in needed:
             # string columns ride as dictionary codes; a column with no
@@ -150,11 +148,7 @@ def bypass_scan_aggregate(
         kernel = shared_kernel(device)
     rebuilds0 = KEY_REBUILD_STATS["rebuilds"]
     cols_sorted = sorted(needed)
-    expanded = tuple(_expand_avg(aggs))
-    minmax = [i for i, a in enumerate(expanded)
-              if a.op in ("min", "max")]
-    aggs_run = expanded + tuple(AggSpec("count", expanded[i].expr)
-                                for i in minmax)
+    expanded, minmax, aggs_run = expand_aggregates(aggs)
     # compacted blocks carry no varlen lanes: a scan whose columns ride
     # as dictionary codes runs unfiltered
     rides_codes = any(
@@ -210,12 +204,96 @@ def bypass_scan_aggregate(
     return outs, np.asarray(counts), stats
 
 
-def bypass_plan_aggregate(blocks, where, aggs, group, read_ht, join_wire,
-                          chunk_rows=None, min_chunks: int = 3,
-                          grouped_out=None):
-    """The fused-plan (FK-equijoin) bypass route: not ported."""
-    raise NotPortedError("bypass_plan_aggregate (fused join plans)",
-                         _JOIN_ITEM)
+def bypass_plan_aggregate(
+        blocks: Sequence[ColumnarBlock],
+        where: Optional[tuple], aggs: Sequence[AggSpec],
+        group, read_ht: int, join_wire,
+        chunk_rows: Optional[int] = None,
+        min_chunks: int = 3,
+        grouped_out: Optional[dict] = None,
+        device="cuda") -> Tuple[tuple, np.ndarray, dict]:
+    """Fused-plan (FK-equijoin) aggregate over a pinned snapshot on
+    `device`: the bypass route of ops/plan_fusion.py.  The probe scan
+    streams keylessly like bypass_scan_aggregate (the same chunk-safety
+    gate and shared bucket); the build side is probed inside the fused
+    plan.  Raises BypassIneligible with a typed reason for every shape
+    the engine cannot serve exactly; ``REASON_JOIN_SHAPE`` carries the
+    ops/join_scan typed reason in its detail."""
+    from ..docdb.operations import (Unrewritable, _nullify_minmax)
+    from ..ops.join_scan import JoinIneligible, normalize_join
+    from ..ops.plan_fusion import (LAST_PLAN_STATS, default_plan_kernel,
+                                   monolithic_plan_aggregate,
+                                   streaming_plan_aggregate)
+    if not aggs:
+        raise BypassIneligible(REASON_NOT_AGGREGATE)
+    if isinstance(group, HashGroupSpec):
+        raise BypassIneligible(REASON_HASH_GROUP)
+    if not flags.get("join_pushdown_enabled"):
+        raise BypassIneligible(REASON_JOIN_OFF)
+    dict_group = isinstance(group, DictGroupSpec)
+    if dict_group and not flags.get("grouped_pushdown_enabled"):
+        raise BypassIneligible(REASON_GROUPED_OFF)
+    from ..ops.expr import device_compatible
+    if where is not None and not device_compatible(where):
+        raise BypassIneligible(REASON_EXPR_SHAPE, "where")
+    for a in aggs:
+        if a.expr is not None and not device_compatible(a.expr):
+            raise BypassIneligible(REASON_EXPR_SHAPE, "aggregate expr")
+    needed = needed_probe_columns(where, aggs, group,
+                                  normalize_join(join_wire))
+    for b in blocks:
+        for cid in needed:
+            if not (cid in b.fixed or cid in b.pk or cid in b.varlen):
+                raise BypassIneligible(
+                    REASON_COLUMN_NOT_FIXED, f"column {cid}")
+    if not chunk_safe_mvcc(blocks):
+        raise BypassIneligible(REASON_NOT_CHUNK_SAFE)
+    kernel = default_plan_kernel(device)
+    rebuilds0 = KEY_REBUILD_STATS["rebuilds"]
+    cols_sorted = sorted(needed)
+    expanded, minmax, aggs_run = expand_aggregates(aggs)
+    stats: dict = {}
+    gout: Optional[dict] = {} if dict_group else None
+    try:
+        got = streaming_plan_aggregate(
+            blocks, cols_sorted, where, aggs_run, group, read_ht,
+            join_wire, kernel=kernel, chunk_rows=chunk_rows,
+            min_chunks=min_chunks, grouped_out=gout)
+        if got is None:
+            try:
+                got = monolithic_plan_aggregate(
+                    blocks, cols_sorted, where, aggs_run, group,
+                    read_ht, join_wire, kernel=kernel,
+                    grouped_out=gout)
+            except KeyError as e:
+                raise BypassIneligible(REASON_COLUMN_NOT_FIXED, str(e))
+            stats["path"] = "monolithic"
+        else:
+            stats["path"] = "streaming"
+    except JoinIneligible as e:
+        raise BypassIneligible(REASON_JOIN_SHAPE, e.reason)
+    except Unrewritable:
+        raise BypassIneligible(
+            REASON_EXPR_SHAPE,
+            "string column outside a rewritable predicate shape")
+    if dict_group and gout.get("spill"):
+        raise BypassIneligible(
+            REASON_SLOT_OVERFLOW,
+            f"{gout['spill']} rows past {gout['num_slots']} slots")
+    outs, counts = got
+    outs = _nullify_minmax(expanded, minmax, outs)
+    if dict_group:
+        from ..ops.grouped_scan import decode_slot_groups
+        outs, counts, gvals = decode_slot_groups(
+            group, gout["dicts"], outs, counts)
+        if grouped_out is not None:
+            grouped_out["group_values"] = gvals
+    stats["key_rebuilds"] = KEY_REBUILD_STATS["rebuilds"] - rebuilds0
+    # the session-scoped key_rebuilds stays (it covers block collection
+    # too, not just the chunk pipeline)
+    stats.update({k: v for k, v in LAST_PLAN_STATS.items()
+                  if k not in ("path", "key_rebuilds")})
+    return outs, np.asarray(counts), stats
 
 
 def _monolithic_twin(blocks, cols_sorted, where, aggs_run, group,

@@ -4,8 +4,10 @@ Counterpart of ``yugabyte_db_tpu/bypass/session.py``.  One session is
 one frozen read point over a set of tablet shards, pinned against
 compaction for the session's lifetime.  TPC-H Q1/Q6-shaped aggregates
 run through :func:`bypass_scan_aggregate` per shard on the session's
-device and combine across shards on the host, by the very function the
-multi-tablet fan-out uses, so the two cannot drift.  The reference's
+device, and FK-equijoin aggregates (``join=``) through
+:func:`bypass_plan_aggregate`; partials combine across shards on the
+host, by the very function the multi-tablet fan-out uses, so the two
+cannot drift.  The reference's
 mesh combine (psum over a device mesh) is ROADMAP.md queue 1 item 8.
 
 The session never touches a tserver: pins come from the storage layer,
@@ -138,7 +140,8 @@ class BypassSession:
         Dict-grouped scans merge per-shard compacted partials by group
         key (``ops.scan.combine_grouped_partials``); ``grouped_out``
         receives ``{'group_values': ...}`` aligned with the counts.
-        ``combine="mesh"`` and ``join`` raise NotPortedError; an
+        ``join`` (one JoinWire or an ordered stage sequence) runs the
+        fused plan per shard.  ``combine="mesh"`` raises NotPortedError; an
         ineligible shard raises BypassIneligible."""
         if self._closed:
             raise RuntimeError("BypassSession is closed")
@@ -149,10 +152,6 @@ class BypassSession:
                                  _MESH_ITEM)
         if combine != "host":
             raise ValueError(f"unknown combine mode {combine!r}")
-        if join is not None:
-            from .scan import bypass_plan_aggregate
-            bypass_plan_aggregate(None, where, aggs, group, self.read_ht,
-                                  join)
         from ..docdb.operations import shared_kernel
         kernel = shared_kernel(self.device)
         parts, counts_parts, grouped_parts = [], [], []
@@ -164,12 +163,21 @@ class BypassSession:
             if not blocks:
                 continue            # an empty shard: combine identity
             gout: dict = {}
-            outs, counts, sstats = bypass_scan_aggregate(
-                blocks, where, aggs, group, self.read_ht, kernel=kernel,
-                chunk_rows=self.chunk_rows,
-                prefilter_enabled=self.prefilter,
-                min_chunks=self.min_chunks,
-                grouped_out=gout if dict_group else None)
+            if join is not None:
+                from .scan import bypass_plan_aggregate
+                outs, counts, sstats = bypass_plan_aggregate(
+                    blocks, where, aggs, group, self.read_ht, join,
+                    chunk_rows=self.chunk_rows,
+                    min_chunks=self.min_chunks,
+                    grouped_out=gout if dict_group else None,
+                    device=self.device)
+            else:
+                outs, counts, sstats = bypass_scan_aggregate(
+                    blocks, where, aggs, group, self.read_ht,
+                    kernel=kernel, chunk_rows=self.chunk_rows,
+                    prefilter_enabled=self.prefilter,
+                    min_chunks=self.min_chunks,
+                    grouped_out=gout if dict_group else None)
             parts.append(outs)
             counts_parts.append(counts)
             if dict_group:

@@ -11,13 +11,18 @@ cut to what an aggregate read needs:
   aggregate pushdown: the streamed route (ops/stream_scan.py) or one
   monolithic batch through the device cache, zone-map pruning, the
   clock-uncertainty restart check over every block, and dense, hash
-  and dictionary GROUP BY.
+  and dictionary GROUP BY;
+- the FK-equijoin pushdown (``ReadRequest.join``): the fused plan
+  (ops/plan_fusion.py: filter, hash-join probe, payload gather, group,
+  aggregate) on the streamed or the monolithic route.
 
 Where the reference answers on its interpreted CPU path (its response
 says ``backend == "cpu"``) the port raises ``NotPortedError`` naming
 the ROADMAP.md item that brings that path: the interpreted row path and
-small scans (item 9), point, prefix and enumerated reads (item 9),
-joins (item 5), windows (item 6), document shredding (item 9).  On
+small scans (item 9a), point, prefix and enumerated reads (item 9a),
+the interpreted join — every join the device refuses with a typed
+reason, the flag off, a device-ineligible shape, a dictionary-group
+spill — (item 9a), windows (item 6), document shredding (item 9b).  On
 every other request it answers what the reference answers.
 
 String columns ride on the device as codes into SORTED scan-global
@@ -38,15 +43,16 @@ from ..device import DeviceLike, resolve_device
 from ..errors import NotPortedError
 from ..ops.device_batch import build_batch
 from ..ops.grouped_scan import DictGroupSpec
-from ..ops.scan import AggSpec, HashGroupSpec, ScanKernel, _np
+from ..ops.scan import (AggSpec, HashGroupSpec, ScanKernel, _np,
+                        expand_aggregates, needed_probe_columns)
 from ..storage.columnar import ColumnarBlock
 from ..utils import flags
 
-_ROW_ITEM = "queue 1 item 9 (the interpreted row path)"
-_POINT_ITEM = "queue 1 item 9 (point, prefix and enumerated reads)"
-_JOIN_ITEM = "queue 1 item 5 (joins and fused plans)"
+_ROW_ITEM = "queue 1 item 9a (the interpreted row path)"
+_POINT_ITEM = "queue 1 item 9a (point, prefix and enumerated reads)"
+_JOIN_ITEM = "queue 1 item 9a (the interpreted join)"
 _WINDOW_ITEM = "queue 1 item 6 (windows)"
-_DOC_ITEM = "queue 1 item 9 (document shredding)"
+_DOC_ITEM = "queue 1 item 9b (document shredding)"
 
 #: zone-map pruning tally of the most recent monolithic pushdown scan
 #: (informational)
@@ -56,8 +62,9 @@ LAST_SCAN_PRUNE_STATS: dict = {}
 @dataclass
 class ReadRequest:
     """The reference's ReadRequest (the PgsqlReadRequestPB analog).  The
-    port serves aggregate requests; `join`, `window`, `pk_eq`,
-    `pk_prefix` and row requests are accepted and refused with
+    port serves aggregate requests, with or without a `join` (one
+    ops.join_scan.JoinWire or an ordered sequence of them); `window`,
+    `pk_eq`, `pk_prefix` and row requests are accepted and refused with
     NotPortedError."""
     table_id: str
     columns: Tuple[str, ...] = ()            # projection (empty = all)
@@ -336,8 +343,8 @@ class DocReadOperation:
         self._allow_restart = allow_restart and req.server_assigned_read_ht
         if req.pk_eq is not None or req.pk_prefix is not None:
             raise NotPortedError("point and prefix reads", _POINT_ITEM)
-        if req.join is not None:
-            raise NotPortedError("join reads", _JOIN_ITEM)
+        if req.join is not None and req.aggregates:
+            return self._execute_join_aggregate(req)
         if not req.aggregates:
             if req.window is not None:
                 raise NotPortedError("window pushdown", _WINDOW_ITEM)
@@ -433,15 +440,10 @@ class DocReadOperation:
         slot budget."""
         if not flags.get("streaming_scan_enabled"):
             return None
-        from ..ops.scan import _expand_avg
         from ..ops.stream_scan import streaming_scan_aggregate
         cache = self.device_cache
         key = self._batch_cache_key(needed) if cache is not None else None
-        expanded = tuple(_expand_avg(req.aggregates))
-        minmax = [i for i, a in enumerate(expanded)
-                  if a.op in ("min", "max")]
-        aggs_run = expanded + tuple(AggSpec("count", expanded[i].expr)
-                                    for i in minmax)
+        expanded, minmax, aggs_run = expand_aggregates(req.aggregates)
         dict_group = isinstance(req.group_by, DictGroupSpec)
         grouped_out: Optional[dict] = {} if dict_group else None
         dict_out: dict = {}
@@ -487,17 +489,8 @@ class DocReadOperation:
         if not blocks:
             raise NotPortedError("an aggregate over a tablet with no "
                                  "blocks", _ROW_ITEM)
-        needed: set = set()
-        from ..ops.expr import referenced_columns
-        if req.where is not None:
-            referenced_columns(req.where, needed)
-        for a in req.aggregates:
-            if a.expr is not None:
-                referenced_columns(a.expr, needed)
-        if isinstance(req.group_by, (HashGroupSpec, DictGroupSpec)):
-            needed.update(req.group_by.cols)
-        elif req.group_by is not None:
-            needed.update(cid for cid, _, _ in req.group_by.cols)
+        needed = needed_probe_columns(req.where, req.aggregates,
+                                      req.group_by)
         if isinstance(req.group_by, DictGroupSpec) \
                 and not flags.get("grouped_pushdown_enabled"):
             raise NotPortedError("the interpreted GROUP BY "
@@ -541,12 +534,7 @@ class DocReadOperation:
                 raise NotPortedError(
                     "a string column outside a rewritable predicate "
                     f"shape ({e})", _ROW_ITEM) from e
-        from ..ops.scan import _expand_avg
-        expanded = tuple(_expand_avg(aggregates))
-        minmax = [i for i, a in enumerate(expanded)
-                  if a.op in ("min", "max")]
-        aggs_run = expanded + tuple(AggSpec("count", expanded[i].expr)
-                                    for i in minmax)
+        expanded, minmax, aggs_run = expand_aggregates(aggregates)
 
         def _nullify(outs):
             return dict_minmax_decode(
@@ -584,3 +572,103 @@ class DocReadOperation:
             batch, where, aggs_run, req.group_by, read_ht)
         return ReadResponse(agg_values=_nullify(outs),
                             group_counts=_np(counts), backend="tpu")
+
+    # ---- FK-equijoin pushdown (ReadRequest.join) -------------------------
+    def _join_eligible(self, req: ReadRequest) -> bool:
+        if not flags.get("tpu_pushdown_enabled"):
+            return False
+        from ..ops.expr import device_compatible
+        if req.where is not None and not device_compatible(req.where):
+            return False
+        for a in req.aggregates:
+            if a.expr is not None and not device_compatible(a.expr):
+                return False
+        approx_rows = sum(r.num_entries for r in self.store.ssts)
+        return approx_rows >= flags.get("tpu_min_rows_for_pushdown")
+
+    def _execute_join_aggregate(self, req: ReadRequest) -> ReadResponse:
+        """Aggregate request with a shipped build side: the fused plan
+        (filter -> probe -> gather -> group -> aggregate,
+        ops/plan_fusion.py) when eligible.  Where the reference answers
+        on its interpreted join instead (a typed JoinIneligible, the
+        flag off, a device-ineligible shape, a dict-group spill), the
+        port raises NotPortedError naming the reason and the stage."""
+        from ..ops.join_scan import JOIN_STATS, JoinIneligible
+        if not flags.get("join_pushdown_enabled"):
+            why = "join_pushdown_enabled is off"
+        elif not self._join_eligible(req):
+            why = ("pushdown off, under tpu_min_rows_for_pushdown, or an "
+                   "expression the device cannot compile")
+        else:
+            try:
+                resp = self._execute_fused_join(req)
+            except JoinIneligible as e:
+                JOIN_STATS["fallbacks"] += 1
+                raise NotPortedError(
+                    f"the interpreted join (the device join refused: "
+                    f"{e})", _JOIN_ITEM) from e
+            if resp is not None:
+                return resp
+            why = ("a shape the fused plan does not serve (hash group, "
+                   "grouped pushdown off, no columnar form, an "
+                   "unrewritable string predicate, or a dictionary "
+                   "group past its slot budget)")
+        raise NotPortedError(f"the interpreted join ({why})", _JOIN_ITEM)
+
+    def _execute_fused_join(self, req: ReadRequest
+                            ) -> Optional[ReadResponse]:
+        from ..ops.join_scan import normalize_join
+        from ..ops.plan_fusion import (default_plan_kernel,
+                                       monolithic_plan_aggregate,
+                                       streaming_plan_aggregate)
+        group = req.group_by
+        if isinstance(group, HashGroupSpec):
+            return None
+        dict_group = isinstance(group, DictGroupSpec)
+        if dict_group and not flags.get("grouped_pushdown_enabled"):
+            return None
+        blocks = self._collect_blocks()
+        if not blocks:
+            return None
+        needed = needed_probe_columns(req.where, req.aggregates, group,
+                                      normalize_join(req.join))
+        read_ht = req.read_ht if req.read_ht is not None else _MAX_HT
+        expanded, minmax, aggs_run = expand_aggregates(req.aggregates)
+        kernel = default_plan_kernel(self.device)
+        cache = self.device_cache
+        key = (self._batch_cache_key(needed)
+               if cache is not None else None)
+        gout: Optional[dict] = {} if dict_group else None
+        got = None
+        if flags.get("streaming_scan_enabled"):
+            got = streaming_plan_aggregate(
+                blocks, sorted(needed), req.where, aggs_run, group,
+                read_ht, req.join, kernel=kernel, cache=cache,
+                cache_key=key, grouped_out=gout)
+        if got is None:
+            try:
+                got = monolithic_plan_aggregate(
+                    blocks, sorted(needed), req.where, aggs_run,
+                    group, read_ht, req.join, kernel=kernel,
+                    cache=cache, cache_key=key, grouped_out=gout)
+            except KeyError:
+                return None   # a probe column lacks columnar form
+            except Unrewritable:
+                return None   # a string predicate outside the rewrite
+        if dict_group and gout.get("spill"):
+            from ..ops.grouped_scan import GROUPED_STATS
+            GROUPED_STATS["spill_fallbacks"] += 1
+            return None       # slot overflow: the interpreted join
+        self._check_restart_window(blocks, read_ht)
+        outs, counts = got
+        outs = _nullify_minmax(expanded, minmax, outs)
+        if dict_group:
+            from ..ops.grouped_scan import decode_slot_groups
+            outs_c, counts_c, gvals = decode_slot_groups(
+                group, gout["dicts"], outs, counts)
+            return ReadResponse(agg_values=outs_c,
+                                group_counts=counts_c,
+                                group_values=gvals, backend="tpu")
+        return ReadResponse(agg_values=outs,
+                            group_counts=np.asarray(counts),
+                            backend="tpu")

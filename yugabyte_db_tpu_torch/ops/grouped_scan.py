@@ -35,8 +35,9 @@ from ..storage.columnar import ColumnarBlock
 #: (informational; written by ops/stream_scan.py)
 LAST_GROUPED_STATS: dict = {}
 
-#: dict-grouped scans run by ScanKernel.run (process-wide)
-GROUPED_STATS = {"launches": 0}
+#: dict-grouped scans run by ScanKernel.run, and fused joins whose dict
+#: group spilled its slot budget (process-wide)
+GROUPED_STATS = {"launches": 0, "spill_fallbacks": 0}
 
 #: slot budgets are powers of two in this band
 _MIN_SLOTS = 4

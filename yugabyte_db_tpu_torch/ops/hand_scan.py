@@ -12,8 +12,8 @@ K3 ``GenericScan``         <- ``build_generic_scan``'s kernel
                               (pallas_scan.py:222), Triton source generated
                               per query from the expression AST
 
-Every kernel emits per-4096-row-block partials, as the Pallas kernels
-did; the callers combine them.  Each wrapper dispatches on the device
+These three kernels emit per-4096-row-block partials, as the Pallas
+kernels did; the callers combine them.  Each wrapper dispatches on the device
 of the tensors it is given: on CPU tensors it runs the plain version
 (the tests' route); on CUDA tensors it launches the kernel or raises —
 there is no fallback.  ``LAUNCHES`` counts kernel launches, and only
@@ -24,6 +24,11 @@ note): the design goal is one read of every input lane.  K1 and K2 take
 f32 lanes, as their Pallas kernels did; K3 takes a batch's lanes in
 their own dtypes (int32, f32, bool, ...) and converts them in
 registers, so the hand route reads each column once, at its width.
+
+The CUDA build and the launch counts here also serve the join probe
+kernel (csrc/join_probe.cu, wrapped by ops/join_scan.py ``probe_rows``),
+which stands in for the reference's jitted probe loop, not for a Pallas
+kernel.
 
 Building: the CUDA sources compile with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into one plain-C shared library each
@@ -54,7 +59,7 @@ BLOCK_ROWS = 8 * 128 * 4          # 4096 rows per block, as the reference
 #: kernel launches by kernel name — incremented where a kernel is
 #: launched and nowhere else (plain versions never count)
 LAUNCHES: Dict[str, int] = {"q6_scan": 0, "grouped_sum": 0,
-                            "generic_scan": 0}
+                            "generic_scan": 0, "join_probe": 0}
 
 
 def reset_launches() -> None:
@@ -76,7 +81,7 @@ class KernelBuildError(RuntimeError):
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = _REPO_ROOT / "build"
-_CUDA_SOURCES = ("q6_scan", "grouped_sum")
+_CUDA_SOURCES = ("q6_scan", "grouped_sum", "join_probe")
 
 
 # --------------------------------------------------------------------------
@@ -144,6 +149,11 @@ def _lib(name: str) -> ctypes.CDLL:
             if name == "q6_scan":
                 lib.q6_scan_launch.argtypes = [vp] * 8 + [ci, vp]
                 lib.q6_scan_launch.restype = ci
+            elif name == "join_probe":
+                lib.join_probe_launch.argtypes = [
+                    vp, ci, vp, vp, vp, vp, vp, ci, ctypes.c_longlong,
+                    vp, vp, vp]
+                lib.join_probe_launch.restype = ci
             else:
                 lib.grouped_sum_launch.argtypes = [vp, vp, vp, ci, vp,
                                                    ci, vp]

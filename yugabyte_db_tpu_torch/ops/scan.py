@@ -47,6 +47,7 @@ from .expr import (collect_constants, compile_expr, const_count,
 from .grouped_scan import (GROUPED_STATS, DictGroupSpec, ResolvedDictGroup,
                            grouped_reduce, resolve_group)
 from .hand_scan import HAND_DTYPES, GenericScan, HandScanIneligible
+from .join_scan import BUILD_COL_BASE
 
 _U64_MAX = 0xFFFFFFFFFFFFFFFF
 _I64_MAX = 0x7FFFFFFFFFFFFFFF      # U64_MAX in the flipped encoding
@@ -763,7 +764,9 @@ def _static_scales(aggs: Sequence[AggSpec],
     Returns (static_flags, scales).  Expressions that the device may
     evaluate in f32 — any f32 column, or any non-CPU device (the port's
     CUDA policy ships fractional columns as f32) — cap every
-    intermediate interval at the f32 finite range."""
+    intermediate interval at the f32 finite range.  `cols` maps column
+    ids to tensors or numpy arrays (a join's payload lanes), read only
+    for their dtype."""
     flags_, scales = [], []
     for a in aggs:
         s = None
@@ -771,7 +774,7 @@ def _static_scales(aggs: Sequence[AggSpec],
             mag = 1.0e306
             if device.type != "cpu" or (
                     cols is not None and any(
-                        getattr(cols.get(c), "dtype", None) == torch.float32
+                        _is_f32(cols.get(c))
                         for c in referenced_columns(a.expr))):
                 mag = 3.0e38
             b = expr_bound(a.expr, col_bounds, mag_limit=mag)
@@ -780,6 +783,13 @@ def _static_scales(aggs: Sequence[AggSpec],
         flags_.append(s is not None)
         scales.append(np.float32(s if s is not None else 0.0))
     return tuple(flags_), tuple(scales)
+
+
+def _is_f32(lane) -> bool:
+    """True for a float32 torch tensor or numpy array."""
+    dt = getattr(lane, "dtype", None)
+    return dt == torch.float32 if isinstance(dt, torch.dtype) \
+        else dt == np.float32
 
 
 def _expand_avg(aggs: Sequence[AggSpec]) -> List[AggSpec]:
@@ -792,6 +802,44 @@ def _expand_avg(aggs: Sequence[AggSpec]) -> List[AggSpec]:
         else:
             out.append(a)
     return out
+
+
+def expand_aggregates(aggs: Sequence[AggSpec]
+                      ) -> Tuple[tuple, List[int], tuple]:
+    """(expanded, minmax, aggs_run): AVG expanded to SUM and COUNT, the
+    positions of MIN/MAX among the expanded aggregates, and what the
+    kernel runs — the expanded aggregates plus one COUNT of each MIN/MAX
+    expression, which tells an all-NULL group from a real extreme."""
+    expanded = tuple(_expand_avg(aggs))
+    minmax = [i for i, a in enumerate(expanded) if a.op in ("min", "max")]
+    aggs_run = expanded + tuple(AggSpec("count", expanded[i].expr)
+                                for i in minmax)
+    return expanded, minmax, aggs_run
+
+
+def needed_probe_columns(where, aggs: Sequence[AggSpec], group,
+                         joins: Sequence = ()) -> set:
+    """Column ids a scan reads from its blocks: those of WHERE, of the
+    aggregate expressions and of the group.  With `joins` (normalized
+    JoinWires) build-side payload ids (>= BUILD_COL_BASE) are dropped —
+    the fused plan forms those lanes — and each stage's FK on the probe
+    table is added; a chain stage whose probe lane is an earlier stage's
+    payload adds nothing."""
+    needed: set = set()
+    if where is not None:
+        referenced_columns(where, needed)
+    for a in aggs:
+        if a.expr is not None:
+            referenced_columns(a.expr, needed)
+    if isinstance(group, GroupSpec):
+        needed.update(cid for cid, _, _ in group.cols)
+    elif group is not None:
+        needed.update(group.cols)
+    if joins:
+        needed = {c for c in needed if c < BUILD_COL_BASE}
+        needed.update(w.probe_col for w in joins
+                      if w.probe_col < BUILD_COL_BASE)
+    return needed
 
 
 # one kernel cache per device for the module-level entry points

@@ -1,7 +1,7 @@
 """Runtime flags read by the ported paths.
 
 Counterpart of ``yugabyte_db_tpu/utils/flags.py``, cut to the flags the
-ported scan, tablet read, bypass and compaction paths read, with the
+ported scan, tablet read, bypass, join and compaction paths read, with the
 reference's defaults.
 The registry keeps the reference's get/set_flag surface so call sites
 read the same; unknown names raise KeyError."""
@@ -142,3 +142,25 @@ REGISTRY.define(
     "Tablet.compact runs the pipelined chunked engine with the merge + "
     "MVCC GC on the card (docdb/compaction.py backend 'device'); off = "
     "the monolithic host baseline.")
+REGISTRY.define(
+    "join_pushdown_enabled", True,
+    "Serve FK-equijoin aggregate requests (ReadRequest.join) on the "
+    "device hash join (ops/join_scan.py): the shipped build side becomes "
+    "a pow2-bucket open-addressed table, the probe runs inside the fused "
+    "plan (ops/plan_fusion.py), and build-side payload columns gather by "
+    "match index.  Off, or any shape the device join cannot serve "
+    "exactly, is the reference's interpreted join, which the port "
+    "refuses (NotPortedError, ROADMAP.md queue 1 item 9a).")
+REGISTRY.define(
+    "join_max_build_slots", 65536,
+    "Pow2 cap on the device hash-join build table (slots = smallest pow2 "
+    ">= 2x build rows, so load factor stays <= 0.5).  Build sides needing "
+    "more slots are refused with a typed reason (build_overflow).")
+REGISTRY.define(
+    "multi_join_max_stages", 4,
+    "Max probe stages a multi-join fused plan may carry (an ordered "
+    "JoinWire list on one ReadRequest: chains like lineitem JOIN orders "
+    "JOIN customer, or stars with several fact-table FKs).  Each stage is "
+    "one host-built pow2 hash table probed in turn inside one fused plan "
+    "under one shared row mask.  More stages are refused with a typed "
+    "reason (join_stage_count).")
