@@ -19,11 +19,16 @@ Phases (any failed check raises and the script exits non-zero):
      and K2's come from ptxas in phase 1), and time the grouped K3 on
      Q1's lanes in each of its (form, SUB, warps) choices, rounds
      interleaved (one k3_config line each); the join probe kernel
-     against the plain probe at Q3's SF1 shapes (stage 0: l_orderkey of
-     the 8,388,608-row bucket against the 685,446 orders Q3 ships, 2^21
-     slots; stage 1: the gathered o_custkey lane against Q3's customers,
-     2^16 slots), midx equal on every live row (one join_probe line per
-     stage: walk lengths, kernel and plain ms, bound);
+     against the plain probe over the packed table at Q3's and Q5's SF1
+     shapes (Q3 stage 0: l_orderkey of the 8,388,608-row bucket against
+     the 685,446 orders Q3 ships, 2^21 slots; Q3 stage 1: the gathered
+     o_custkey lane against Q3's customers, 2^16 slots; Q5 stage 0:
+     every row's l_orderkey against the 214,256 orders of 1994, 2^19
+     slots), in each slot layout, midx equal on every live row (one
+     join_probe line per stage: walk lengths, the layout's bytes, warm
+     ms of each layout, the runtime's layout cold, with no live row and
+     on an empty table, plain and yardstick ms, the bound at the bytes a
+     slot needs and at the three-lane table's 13 bytes a slot);
   3. drive the main path at TPC-H SF1 (6,000,000 lineitem rows, one
      tablet): generate_lineitem -> TableCodec.bulk_blocks(262144-row
      blocks) -> build_batch(device="cuda") -> ScanKernel.run for Q6 and
@@ -120,6 +125,10 @@ PROFILE_MARGIN_S = 0.05          # host time between a profiling window's
                                  # edges and the route's first/last launch
 MARKER_KERNEL = "spin_kernel"    # torch.cuda._sleep's kernel: bounds the
 MARKER_CYCLES = 1000             # counted span of a profiling window
+QUEUE_AHEAD_CYCLES_PER_CALL = 400_000   # the least spin per timed call
+                                        # (cuda_ms): the host enqueues ahead
+SPIN_CYCLES_PER_S = 1.98e9       # H100 SXM's top SM clock: a spin of c
+                                 # cycles lasts at least c / this seconds
 #: the device names of each hand kernel's launches (hs.LAUNCHES keys)
 HAND_KERNEL_NAMES = {"q6_scan": ("q6_scan_kernel",),
                      "grouped_sum": ("grouped_sum_onehot",
@@ -156,23 +165,60 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def cuda_ms(torch, fn, reps: int, warmup: int = 3, rounds: int = 5) -> float:
+def queued_behind_spin(torch, spin_cycles: int, enqueue, tries: int = 3):
+    """Queue enqueue()'s calls behind a spin kernel (torch.cuda._sleep)
+    of `spin_cycles`, so that the device runs them without waiting on the
+    host, and return what enqueue() returned, (first event, result), once
+    the device is done.  The run fails unless, on one of `tries` tries,
+    the first event was still pending when enqueue() returned: the spin
+    outlasted the host's enqueue (a host stalled past the spin on a
+    shared machine spoils one try, not the run)."""
+    for _ in range(tries):
+        torch.cuda._sleep(spin_cycles)
+        first, out = enqueue()
+        ahead = not first.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return out
+    check(False, f"the host's enqueue outlasted a {spin_cycles}-cycle "
+          f"spin {tries} times: raise QUEUE_AHEAD_CYCLES_PER_CALL")
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 3, rounds: int = 5,
+            queued: bool = True) -> float:
     """Milliseconds per call of fn() on the card: CUDA events around
-    `reps` back-to-back calls (so the host's enqueue overlaps the
-    device's work), divided by `reps`; the median of `rounds` such
-    windows."""
+    `reps` back-to-back calls, divided by `reps`; the median of `rounds`
+    such windows.  With `queued`, each window's calls are queued behind a
+    spin (:func:`queued_behind_spin`) of twice the host's least time per
+    call in the warm-up, and no less than QUEUE_AHEAD_CYCLES_PER_CALL per
+    call, and the spin is checked to outlast the enqueue: the time is the
+    device's, not the host's.  A fn that waits on the device inside (the
+    plain probe's loop, a host-to-device copy) passes queued=False: its
+    windows include the host's time."""
+    host_s = []
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        host_s.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
+    spin = reps * max(QUEUE_AHEAD_CYCLES_PER_CALL,
+                      int(2 * min(host_s) * SPIN_CYCLES_PER_S))
+
+    def window():
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
             fn()
         end.record()
-        end.synchronize()
+        return start, (start, end)
+    times = []
+    for _ in range(rounds):
+        if queued:
+            start, end = queued_behind_spin(torch, spin, window)
+        else:
+            _, (start, end) = window()
+            end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
@@ -778,10 +824,11 @@ def compaction_phase(torch, np, data, card, root) -> None:
     prog = {"program": "chunk_merge_kernel",
             "replaces": "yugabyte_db_tpu/ops/compaction.py:263", "rows": m,
             "ms": cuda_ms(torch, lambda: oc.chunk_merge_kernel(
-                *lanes, fr_bound, fr_carry, cutoff), reps),
+                *lanes, fr_bound, fr_carry, cutoff), reps, queued=False),
             "bound_ms": bms, "bound_by": bby,
             "h2d_ms": cuda_ms(torch, lambda: oc.to_device_lanes(
-                dk, ht, wid, tomb, valid, torch.device("cuda", 0)), reps),
+                dk, ht, wid, tomb, valid, torch.device("cuda", 0)), reps,
+                queued=False),
             "card": card}
     print("[phase 5] chunk_merge on the card equals its CPU run, with and "
           "without bound and carry")
@@ -1154,102 +1201,224 @@ JOIN_ITERS = 2                  # warm join reads per timed window
 JOIN_BUILD_CAP = 1 << 24        # join_max_build_slots, as bench.py:1924
 
 
-def probe_walks(torch, js, pk, live, used, table_key, num_slots):
+PROBE_FLUSH_BYTES = 128 << 20    # written between cold probe launches
+PROBE_COLD_REPS = 10            # cold launches per stage (median)
+
+
+def probe_walks(torch, js, pk, live, table, num_slots):
     """Slots each live probe row visits before its hit or its empty slot
-    (the walk the probe kernel takes), counted by a plain torch loop."""
+    (the walk the probe kernel takes) in the packed table, counted by a
+    plain torch loop."""
     slot = js.home_slots(pk, num_slots)
     k = pk.to(torch.int64)
     steps = torch.zeros(pk.shape, dtype=torch.int32, device=pk.device)
     done = torch.logical_not(live)
     while not bool(done.all()):
         steps += torch.logical_not(done).to(torch.int32)
-        tu = used[slot]
-        done = done | torch.logical_not(tu) | (tu & (table_key[slot] == k))
+        s = table[slot]
+        tu = s[:, 1] >= 0
+        done = done | torch.logical_not(tu) | (tu & (s[:, 0].to(torch.int64)
+                                                     == k))
         slot = torch.where(done, slot, (slot + 1) & (num_slots - 1))
     return steps[live]
 
 
-def join_probe_check(torch, np, hs, ldata, odata, cdata, card, reps):
-    """Phase 2's probe check at Q3's shapes: stage 0 probes l_orderkey of
-    the 8,388,608-row SF1 bucket against the 685,446 orders Q3 ships;
-    stage 1 probes the gathered o_custkey lane against Q3's customers.
-    The kernel's midx must equal the plain probe's on every row whose
-    incoming mask is set, and the outgoing masks must be equal.  Prints
-    one `join_probe` line per stage (walk lengths, times, bound) and
-    returns the kernels-line entry (stage 0)."""
+def cuda_ms_cold(torch, fn, reps: int, flush_bytes: int) -> float:
+    """Milliseconds of one call of fn() with the L2 cache cold: a
+    `flush_bytes` scratch tensor is written before each call, outside the
+    CUDA events around the call; the median of `reps` calls, queued
+    behind a checked spin as in :func:`cuda_ms`."""
+    scratch = torch.empty(flush_bytes // 4, dtype=torch.float32,
+                          device="cuda")
+    fn()
+    torch.cuda.synchronize()
+
+    def window():
+        pairs = []
+        for i in range(reps):
+            scratch.fill_(float(i))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        return pairs[0][0], pairs
+    pairs = queued_behind_spin(
+        torch, 2 * QUEUE_AHEAD_CYCLES_PER_CALL * reps, window)
+    del scratch
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def probe_bytes(padded: int, mask_rows: int, has_nulls: bool,
+                live_rows: int, key_bytes: int, slots: int,
+                slot_bytes: int) -> int:
+    """Bytes the probe function must move: every padded row's mask byte
+    in, midx (4 bytes) and mask byte out; the null byte only of rows whose
+    mask is set, the key only of live rows (the kernel reads no more); the
+    table once at `slot_bytes` a slot.  The bound takes the bytes a slot
+    needs: 8 where every build key fits in int32 (the narrow slot {int32
+    key; int32 val}), else 13 (used, int64 key, int32 value, as the
+    host's arrays)."""
+    return (padded * (1 + 4 + 1) + mask_rows * has_nulls
+            + live_rows * key_bytes + slots * slot_bytes)
+
+
+def probe_stages(torch, np, ldata, odata, cdata, dev):
+    """The probe stages of phase 2 at SF1, each (label, runtime, probe
+    keys, key NULL flags or None, incoming mask): Q3's stage 0
+    (l_orderkey of the 8,388,608-row bucket, masked by l_shipdate, against
+    the 685,446 orders Q3 ships, 2^21 slots), Q3's stage 1 (stage 0's
+    gathered o_custkey lane against Q3's customers, 2^16 slots, under
+    stage 0's outgoing mask) and Q5's stage 0 (every row's l_orderkey
+    against the 214,256 orders of 1994, 2^19 slots).  Stage 1's inputs
+    come from the probe kernel at its defaults."""
     from yugabyte_db_tpu_torch.models import tpch
     from yugabyte_db_tpu_torch.ops import join_scan as js
     from yugabyte_db_tpu_torch.ops.device_batch import bucket_rows
     from yugabyte_db_tpu_torch.utils import flags
-    dev = torch.device("cuda", 0)
-    q = tpch.tpch_q3_chain()
-    wires = tpch.chain_build_wires(q, odata, cdata)
-    with flags.overridden("join_max_build_slots", JOIN_BUILD_CAP):
-        rts = js.make_join_runtimes(wires, {}, device=dev)
     n = len(ldata["rowid"])
     padded = bucket_rows(n)
     pk = np.zeros(padded, np.int64)
     pk[:n] = ldata["l_orderkey"]
-    mask = np.zeros(padded, bool)
-    mask[:n] = ldata["l_shipdate"] > tpch._Q3_CUT
-    pk, mask = torch.from_numpy(pk).to(dev), torch.from_numpy(mask).to(dev)
-    nulls = None
+    pk = torch.from_numpy(pk).to(dev)
+    q3 = np.zeros(padded, bool)
+    q3[:n] = ldata["l_shipdate"] > tpch._Q3_CUT
+    every = np.zeros(padded, bool)
+    every[:n] = True
+    out = []
+    with flags.overridden("join_max_build_slots", JOIN_BUILD_CAP):
+        q3_rts = js.make_join_runtimes(tpch.chain_build_wires(
+            tpch.tpch_q3_chain(), odata, cdata), {}, device=dev)
+        q5_rts = js.make_join_runtimes(tpch.chain_build_wires(
+            tpch.tpch_q5_chain(), odata, cdata), {}, device=dev)
+    mask = torch.from_numpy(q3).to(dev)
+    out.append(("q3 stage 0", q3_rts[0], pk, None, mask))
+    rt = q3_rts[0]
+    table, pvals, pnulls = rt.to_device(dev)
+    midx, m1 = js.probe_kernel(pk, None, mask, table, rt.num_slots)
+    gidx = torch.clamp(midx, 0, rt.build_rows_pad - 1).to(torch.int64)
+    col = rt.build_cols.index(tpch.chain_bids()["o_custkey"])
+    out.append(("q3 stage 1", q3_rts[1], pvals[col][gidx],
+                pnulls[col][gidx] | (midx < 0), m1))
+    out.append(("q5 stage 0", q5_rts[0], pk, None,
+                torch.from_numpy(every).to(dev)))
+    return out
+
+
+def join_probe_check(torch, np, hs, ldata, odata, cdata, card, reps):
+    """Phase 2's probe check at the shapes of :func:`probe_stages`.  At
+    every stage the kernel, in each slot layout the stage's keys allow
+    (16 bytes; 8 where they fit in int32), must give the plain probe's
+    midx on every row whose incoming mask is set and its outgoing mask
+    everywhere; each layout is timed warm (back to back).  The runtime's
+    own layout is also timed unqueued (back to back with no spin ahead),
+    cold (a 128 MB write between launches), with no live row (the lanes alone), and with every live row ending at its
+    home slot (an empty table of the same layout and size); beside it the
+    plain probe and the card's copy of hash_join_cpu (searchsorted over
+    the sorted build keys, a gather, a compare: three calls).  Prints one
+    `join_probe` line per stage, with the bound at the bytes a slot
+    needs (:func:`probe_bytes`) and, labelled, at the three-lane table's
+    13 bytes a slot, and returns the kernels-line entry (Q3 stage 0)."""
+    from yugabyte_db_tpu_torch.ops import join_scan as js
+    dev = torch.device("cuda", 0)
     entry = None
-    for stage, rt in enumerate(rts):
-        used, tk, tv, pvals, pnulls = rt.to_device(dev)
+    for label, rt, pk, nulls, mask in probe_stages(torch, np, ldata, odata,
+                                                   cdata, dev):
+        table = rt.to_device(dev)[0]
         S = rt.num_slots
-        midx, out = js.probe_kernel(pk, nulls, mask, used, tk, tv, S)
-        plain = js.probe_table(pk, used, tk, tv, S)
-        torch.cuda.synchronize()
+        padded = pk.shape[0]
+        host = [torch.from_numpy(a).to(dev)
+                for a in (rt.used, rt.table_key, rt.table_val)]
+        narrow = js.fits_narrow(host[1], host[0])
+        layouts = [js.SLOT_WIDE] + ([js.SLOT_NARROW] if narrow else [])
         live = mask if nulls is None else mask & ~nulls
+        plain = js.probe_table(pk, table, S)
         want = live & (plain >= 0)
-        check(bool(torch.equal(out, want)),
-              f"join_probe stage {stage}: masks differ from the plain probe")
-        check(bool(torch.equal(midx[live], plain[live])),
-              f"join_probe stage {stage}: midx differs from the plain probe")
-        err = float((midx[live].to(torch.int64)
-                     - plain[live].to(torch.int64)).abs().max()) \
-            if bool(live.any()) else 0.0
-        walks = probe_walks(torch, js, pk, live, used, tk, S).double()
-        # bytes the function must move: every padded row's mask in, midx
-        # and mask out; the null byte only of rows whose mask is set, the
-        # key only of live rows (the kernel reads no more); the table once
+        sweep, err = {}, 0.0
+        for sb in layouts:
+            t = js.pack_table(*host, sb)
+            midx, out = js.probe_kernel(pk, nulls, mask, t, S)
+            torch.cuda.synchronize()
+            what = f"join_probe {label} ({sb}-byte slots)"
+            check(bool(torch.equal(out, want)),
+                  f"{what}: masks differ from the plain probe")
+            check(bool(torch.equal(midx[live], plain[live])),
+                  f"{what}: midx differs from the plain probe")
+            if bool(live.any()):
+                err = max(err, float((midx[live].to(torch.int64)
+                                      - plain[live].to(torch.int64))
+                                     .abs().max()))
+            sweep[f"{sb}B"] = cuda_ms(
+                torch, lambda t=t: js.probe_kernel(pk, nulls, mask, t, S),
+                reps)
+        slot_bytes = 2 * table.element_size()
+        ms = sweep[f"{slot_bytes}B"]
+        # the same launches timed back to back without the spin (the
+        # method of earlier runs, so their times compare with this one)
+        unqueued_ms = cuda_ms(torch, lambda: js.probe_kernel(
+            pk, nulls, mask, table, S), reps, queued=False)
+        cold_ms = cuda_ms_cold(torch, lambda: js.probe_kernel(
+            pk, nulls, mask, table, S), PROBE_COLD_REPS, PROBE_FLUSH_BYTES)
+        # where the time goes: the lanes alone (no live row), every live
+        # row ending at its home slot (an empty table), the real walks (ms)
+        empty = js.pack_table(torch.zeros_like(host[0]), host[1], host[2],
+                              slot_bytes)
+        no_live = torch.zeros_like(mask)
+        no_live_ms = cuda_ms(torch, lambda: js.probe_kernel(
+            pk, nulls, no_live, table, S), reps)
+        home_only_ms = cuda_ms(torch, lambda: js.probe_kernel(
+            pk, nulls, mask, empty, S), reps)
+        walks = probe_walks(torch, js, pk, live, table, S).double()
         n_in, n_live = int(mask.sum()), int(live.sum())
-        bms, bby = bound(padded * (1 + 4 + 1)
-                         + n_in * (nulls is not None)
-                         + n_live * pk.element_size()
-                         + S * (1 + 8 + 4), 0)
-        ms = cuda_ms(torch, lambda: js.probe_kernel(pk, nulls, mask, used,
-                                                    tk, tv, S), reps)
-        plain_ms = cuda_ms(torch, lambda: js.probe_table(pk, used, tk, tv,
-                                                         S),
-                           2, warmup=1, rounds=3)
-        print(json.dumps({"join_probe": f"q3 stage {stage}", "card": card,
+        need = [padded, n_in, nulls is not None, n_live, pk.element_size(),
+                S]
+        bms, bby = bound(probe_bytes(*need, 8 if narrow else 13), 0)
+        pr6_bms = bound(probe_bytes(*need, 13), 0)[0]
+        plain_ms = cuda_ms(torch, lambda: js.probe_table(pk, table, S),
+                           2, warmup=1, rounds=3, queued=False)
+        # the yardstick: hash_join_cpu on the card, behind a sentinel
+        # past the largest key so every searchsorted position is in range
+        skeys = torch.sort(torch.from_numpy(rt.keys_mapped).to(dev))[0]
+        skeys = torch.cat([skeys, torch.full(
+            (1,), torch.iinfo(torch.int64).max, dtype=torch.int64,
+            device=dev)])
+        pk64 = pk.to(torch.int64)
+
+        def yardstick():
+            return skeys[torch.searchsorted(skeys, pk64)] == pk64
+        check(bool(torch.equal(yardstick()[live], want[live])),
+              f"join_probe {label}: the yardstick's matches differ")
+        yard_ms = cuda_ms(torch, yardstick, reps)
+        print(json.dumps({"join_probe": label, "card": card,
                           "rows": padded, "mask_rows": n_in,
                           "live_rows": n_live,
                           "build_keys": rt.n_build, "slots": S,
                           "key_dtype": str(pk.dtype),
-                          "matched": int(out.sum()),
+                          "slot_bytes": slot_bytes,
+                          "layout_bytes": S * slot_bytes,
+                          "matched": int(want.sum()),
                           "walk_mean": float(walks.mean()),
                           "walk_max": int(walks.max()),
-                          "ms": ms, "plain_ms": plain_ms,
+                          "ms": ms, "cold_ms": cold_ms,
+                          "unqueued_ms": unqueued_ms,
+                          "no_live_ms": no_live_ms,
+                          "home_slot_only_ms": home_only_ms,
+                          "plain_ms": plain_ms,
                           "bound_ms": bms, "bound_by": bby,
+                          "share_of_bound": bms / ms,
+                          "cold_share_of_bound": bms / cold_ms,
+                          "bound_ms_13B_slots": pr6_bms,
+                          "sweep_ms": sweep,
+                          "yardstick_3calls_ms": yard_ms,
                           "max_abs_err": err}))
-        if stage == 0:
+        if entry is None:
             entry = dict(
                 name="join_probe", route="cuda",
                 source="yugabyte_db_tpu_torch/csrc/join_probe.cu",
                 replaces="yugabyte_db_tpu/ops/join_scan.py:406",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=bby, library_ms=None)
-        if stage + 1 == len(rts):
-            break
-        # stage 1 probes stage 0's gathered o_custkey lane
-        gidx = torch.clamp(midx, 0, rt.build_rows_pad - 1).to(torch.int64)
-        col = rt.build_cols.index(tpch.chain_bids()["o_custkey"])
-        pk = pvals[col][gidx]
-        nulls = pnulls[col][gidx] | (midx < 0)
-        mask = out
     return entry
 
 
@@ -1705,7 +1874,8 @@ def main(argv=None) -> int:
             replaces="yugabyte_db_tpu/ops/pallas_scan.py:222",
             max_abs_err=err,
             ms=cuda_ms(torch, lambda: entry.launch(*call), reps),
-            plain_ms=cuda_ms(torch, lambda: entry.plain(*call), reps),
+            plain_ms=cuda_ms(torch, lambda: entry.plain(*call), reps,
+                             queued=False),
             bound_ms=bms, bound_by=bby, library_ms=None))
         if q.group is not None:
             k3_config_sweep(entry, call)

@@ -22,10 +22,11 @@ from yugabyte_db_tpu_torch.ops import hand_scan as hs
 # default import mode), and the card's machine may carry an unrelated
 # top-level `tests` package
 from torch_parity import (K3_CASES, K3_LANE_DTYPES,  # noqa: F401
-                          MERGE_CASES, assert_partials, collect_consts,
-                          cuda_device, frontier_carries, k3_typed_lanes,
+                          MERGE_CASES, PROBE_EDGE_CASES, assert_partials,
+                          collect_consts, cuda_device, frontier_carries,
+                          k3_typed_lanes,
                           merge_frontier_case, port_compaction_store,
-                          q6_inputs, sorted_frontier_row)
+                          probe_edge_case, q6_inputs, sorted_frontier_row)
 
 B = hs.BLOCK_ROWS
 
@@ -315,24 +316,47 @@ def test_cuda_tablet_read_matches_cpu(cuda_device, tmp_path, streamed):
 
 
 # --- the join probe kernel and fused joins on the card ----------------------------
+def _packed_tables(keys, S, device):
+    """The packed tables of one build side on `device`: 16-byte slots,
+    and 8-byte ones where every key fits in int32."""
+    from yugabyte_db_tpu_torch.ops import join_scan as js
+    used, tkey, tval = (torch.from_numpy(a).to(device) for a in
+                        js.build_hash_table(keys, S))
+    out = [js.pack_table(used, tkey, tval, js.SLOT_WIDE)]
+    if js.fits_narrow(tkey, used):
+        out.append(js.pack_table(used, tkey, tval, js.SLOT_NARROW))
+    return out
+
+
+def _check_probe(js, pk, nulls, mask, table, S):
+    """The kernel against the plain probe on the same tensors: midx
+    equal on every live row and -1 elsewhere, the outgoing mask equal
+    everywhere (exact: both are integers)."""
+    midx, out = js.probe_kernel(pk, nulls, mask, table, S)
+    torch.cuda.synchronize()
+    plain = js.probe_table(pk, table, S)
+    live = mask if nulls is None else mask & ~nulls
+    assert torch.equal(out, live & (plain >= 0)), table.dtype
+    assert torch.equal(midx[live], plain[live]), table.dtype
+    assert bool((midx[~live] == -1).all())
+    return plain
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_nulls", [False, True])
 @pytest.mark.parametrize("load", [0.05, 0.25, 0.5])
 @pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
 def test_cuda_join_probe_matches_plain(cuda_device, key_dtype, load,
                                        with_nulls):
-    """csrc/join_probe.cu against the plain probe on random tables up to
-    the table builder's 0.5 load factor: midx equal on every row whose
-    incoming mask is set (masked rows may skip the walk), the outgoing
-    mask equal everywhere (exact: both are integers)."""
+    """csrc/join_probe.cu against the plain probe on random packed tables
+    up to the table builder's 0.5 load factor, on both slot layouts
+    (masked rows may skip the walk)."""
     from yugabyte_db_tpu_torch.ops import join_scan as js
     rng = np.random.default_rng(3)
     S = 1 << 16
     lim = 2**31 - 1 if key_dtype == torch.int32 else 1 << 40
     keys = np.unique(rng.integers(-lim, lim, int(S * load)))
     keys = keys.astype(np.int64)
-    used, tkey, tval = (torch.from_numpy(a).to(cuda_device) for a in
-                        js.build_hash_table(keys, S))
     n = 3 * B + 77
     probe = np.where(rng.random(n) < 0.6, rng.choice(keys, n),
                      rng.integers(-lim, lim, n))
@@ -340,19 +364,100 @@ def test_cuda_join_probe_matches_plain(cuda_device, key_dtype, load,
     mask = torch.from_numpy(rng.random(n) < 0.8).to(cuda_device)
     nulls = (torch.from_numpy(rng.random(n) < 0.1).to(cuda_device)
              if with_nulls else None)
-    before = hs.LAUNCHES["join_probe"]
-    midx, out = js.probe_rows(pk, nulls, mask, used, tkey, tval, S)
-    torch.cuda.synchronize()
-    assert hs.LAUNCHES["join_probe"] == before + 1
-    plain = js.probe_table(pk, used, tkey, tval, S)
-    want = mask & (plain >= 0)
-    if nulls is not None:
-        want &= ~nulls
-    assert torch.equal(out, want)
-    live = mask if nulls is None else mask & ~nulls
-    assert torch.equal(midx[live], plain[live])
-    assert bool((midx[~live] == -1).all())
-    assert int(want.sum()) > 0
+    tables = _packed_tables(keys, S, cuda_device)
+    assert len(tables) == (2 if key_dtype == torch.int32 else 1)
+    for table in tables:
+        before = hs.LAUNCHES["join_probe"]
+        midx, out = js.probe_rows(pk, nulls, mask, table, S)
+        torch.cuda.synchronize()
+        assert hs.LAUNCHES["join_probe"] == before + 1
+        plain = _check_probe(js, pk, nulls, mask, table, S)
+        live = mask if nulls is None else mask & ~nulls
+        assert torch.equal(midx[live], plain[live])
+        assert int((live & (plain >= 0)).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PROBE_EDGE_CASES)
+def test_cuda_join_probe_edge_cases(cuda_device, case):
+    """The CPU tests' probe edge cases on the card (chains that wrap from
+    slot S-1 to 0, bit-63 keys, the int64 extremes, an empty table, probe
+    keys equal to a build key in their low 32 bits only — misses on the
+    narrow slots too — an all-masked batch, NULL keys), int64 and, where
+    the keys fit, int32 probe lanes."""
+    from yugabyte_db_tpu_torch.ops import join_scan as js
+    keys, probe, mask, nulls = probe_edge_case(case)
+    S = 64 if case == "wrap" else js.table_bucket(len(keys), 1 << 16)
+    m = torch.from_numpy(mask).to(cuda_device)
+    nl = (torch.from_numpy(nulls).to(cuda_device) if nulls is not None
+          else None)
+    lanes = [torch.from_numpy(probe).to(cuda_device)]
+    if probe.min() >= -2**31 and probe.max() < 2**31:
+        lanes.append(lanes[0].to(torch.int32))
+    for table in _packed_tables(keys, S, cuda_device):
+        for pk in lanes:
+            plain = _check_probe(js, pk, nl, m, table, S)
+            if case in ("empty", "high_bits"):
+                assert bool((plain == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 5, 7, 13, 100, 255, 1023, 4099, 65_541])
+def test_cuda_join_probe_odd_lengths(cuda_device, n):
+    """Batches shorter than one thread's rows, lengths that are not a
+    multiple of the rows per thread (the scalar tail), shorter than one
+    block and a few blocks long."""
+    from yugabyte_db_tpu_torch.ops import join_scan as js
+    rng = np.random.default_rng(n)
+    keys = rng.choice(1 << 20, 3000, replace=False).astype(np.int64)
+    pk = torch.from_numpy(rng.choice(np.concatenate(
+        [keys, np.arange(1 << 20, (1 << 20) + 500)]), n)).to(cuda_device)
+    mask = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
+    nulls = torch.from_numpy(rng.random(n) < 0.1).to(cuda_device)
+    for table in _packed_tables(keys, 1 << 13, cuda_device):
+        _check_probe(js, pk, nulls, mask, table, 1 << 13)
+        _check_probe(js, pk.to(torch.int32), None, mask, table, 1 << 13)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+def test_cuda_join_probe_long_batch(cuda_device, key_dtype):
+    """A batch of 3M rows (a grid of thousands of blocks, more than the
+    card holds at once), with a ragged tail and NULL keys."""
+    from yugabyte_db_tpu_torch.ops import join_scan as js
+    rng = np.random.default_rng(29)
+    n = (3 << 20) + 13
+    keys = rng.choice(1 << 24, 200_000, replace=False).astype(np.int64)
+    probe = np.where(rng.random(n) < 0.5, rng.choice(keys, n),
+                     rng.integers(0, 1 << 24, n))
+    pk = torch.from_numpy(probe).to(key_dtype).to(cuda_device)
+    mask = torch.from_numpy(rng.random(n) < 0.6).to(cuda_device)
+    nulls = torch.from_numpy(rng.random(n) < 0.05).to(cuda_device)
+    for table in _packed_tables(keys, 1 << 19, cuda_device):
+        _check_probe(js, pk, nulls, mask, table, 1 << 19)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", list(range(1, 16)))
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+def test_cuda_join_probe_lanes_at_storage_offsets(cuda_device, key_dtype,
+                                                   offset):
+    """Probe lanes given as views at storage offsets 1-15 (pointers off
+    16-byte alignment) take the kernel's scalar accesses: the same answer
+    as the plain probe."""
+    from yugabyte_db_tpu_torch.ops import join_scan as js
+    rng = np.random.default_rng(offset)
+    n = 2 * B + 9
+    keys = rng.choice(1 << 20, 5000, replace=False).astype(np.int64)
+    big = torch.from_numpy(rng.choice(keys, n + 16)).to(key_dtype)
+    pk = big.to(cuda_device)[offset:offset + n]
+    mask = torch.from_numpy(rng.random(n + 16) < 0.8).to(
+        cuda_device)[offset:offset + n]
+    nulls = torch.from_numpy(rng.random(n + 16) < 0.1).to(
+        cuda_device)[offset:offset + n]
+    assert pk.storage_offset() == offset and mask.data_ptr() % 16
+    for table in _packed_tables(keys, 1 << 14, cuda_device):
+        _check_probe(js, pk, nulls, mask, table, 1 << 14)
 
 
 @pytest.mark.cuda

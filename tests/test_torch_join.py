@@ -16,7 +16,9 @@ import torch
 
 from yugabyte_db_tpu.ops import join_scan as jjs
 from yugabyte_db_tpu_torch.ops import join_scan as pjs
-from tests.torch_parity import (BID, assert_bitwise, flags_set, wire_pair)
+from tests.torch_parity import (BID, PROBE_EDGE_CASES, assert_bitwise,
+                                flags_set, probe_edge_case, unpack_table,
+                                wire_pair)
 
 
 @pytest.mark.parametrize("n,cap", [(0, 1 << 16), (4, 1 << 16),
@@ -165,11 +167,14 @@ def test_make_join_runtime_matches_reference(case, mode):
         assert (p.keys_mapped < 0).sum() > 0      # absent keys: sentinels
         neg = p.keys_mapped[p.keys_mapped < 0]
         assert len(set(neg.tolist())) == len(neg)
-    # the device copies hold the very lanes (here on the CPU)
-    used, tk, tv, pv, pn = p.device_lanes
-    assert_bitwise(used.numpy(), p.used)
-    assert_bitwise(tk.numpy(), p.table_key)
-    assert_bitwise(tv.numpy(), p.table_val)
+    # the device copies hold the very lanes (here on the CPU): the packed
+    # table unpacks to the reference's three arrays
+    table, pv, pn = p.device_lanes
+    assert table.dtype == torch.int32        # every key fits: narrow
+    for name, a, b in zip(("used", "table_key", "table_val"),
+                          unpack_table(table), (j.used, j.table_key,
+                                                    j.table_val)):
+        assert_bitwise(a.numpy(), b, name)
     for b, v, m in zip(p.build_cols, pv, pn):
         assert_bitwise(v.numpy(), p.payload_vals[b])
         assert_bitwise(m.numpy(), p.payload_nulls[b])
@@ -258,6 +263,17 @@ def test_build_cap_follows_the_flag():
 _JPROBE = jax.jit(jjs.probe_table, static_argnums=(4,))
 
 
+def _packings(used, tkey, tval):
+    """The packed tables of one host table: the 16-byte slots, and the
+    8-byte ones where every build key fits in int32."""
+    used, tkey, tval = (torch.from_numpy(np.asarray(a))
+                        for a in (used, tkey, tval))
+    out = [pjs.pack_table(used, tkey, tval, pjs.SLOT_WIDE)]
+    if pjs.fits_narrow(tkey, used):
+        out.append(pjs.pack_table(used, tkey, tval, pjs.SLOT_NARROW))
+    return out
+
+
 @pytest.mark.parametrize("key_dtype", ["int32", "int64"])
 @pytest.mark.parametrize("load", [0.05, 0.3, 0.5])
 @pytest.mark.parametrize("kind", ["dense", "wide", "negative"])
@@ -276,28 +292,28 @@ def test_plain_probe_matches_reference_probe(kind, load, key_dtype):
     probe = probe.astype(key_dtype)
     want = np.asarray(_JPROBE(jnp.asarray(probe), jnp.asarray(used),
                               jnp.asarray(tkey), jnp.asarray(tval), S))
-    got = pjs.probe_table(torch.from_numpy(probe), torch.from_numpy(used),
-                          torch.from_numpy(tkey), torch.from_numpy(tval), S)
-    assert_bitwise(got.numpy(), want, "midx")
+    for table in _packings(used, tkey, tval):
+        got = pjs.probe_table(torch.from_numpy(probe), table, S)
+        assert_bitwise(got.numpy(), want, f"midx ({table.dtype} slots)")
     assert (want >= 0).sum() >= 6000
 
 
 def test_probe_rows_folds_nulls_and_matches_on_the_cpu():
     keys = np.arange(0, 200, 2, dtype=np.int64)
     S = pjs.table_bucket(len(keys), 1 << 16)
-    used, tkey, tval = (torch.from_numpy(a) for a in
-                        pjs.build_hash_table(keys, S))
+    table = pjs.pack_table(*(torch.from_numpy(a) for a in
+                             pjs.build_hash_table(keys, S)))
     pk = torch.arange(100, dtype=torch.int64)
     nulls = pk % 5 == 0
     mask = pk < 90
-    midx, out = pjs.probe_rows(pk, nulls, mask, used, tkey, tval, S)
-    assert torch.equal(midx, pjs.probe_table(pk, used, tkey, tval, S))
+    midx, out = pjs.probe_rows(pk, nulls, mask, table, S)
+    assert torch.equal(midx, pjs.probe_table(pk, table, S))
     want = mask & ~nulls & (pk % 2 == 0)
     assert torch.equal(out, want)
     assert torch.equal(midx[pk % 2 == 0], (pk[pk % 2 == 0] // 2).int())
     from yugabyte_db_tpu_torch.ops.hand_scan import LAUNCHES
     before = LAUNCHES["join_probe"]
-    pjs.probe_rows(pk, None, mask, used, tkey, tval, S)
+    pjs.probe_rows(pk, None, mask, table, S)
     assert LAUNCHES["join_probe"] == before       # the plain version
 
 
@@ -319,10 +335,9 @@ def test_hash_join_cpu_matches_reference_and_the_probe(kind):
     got = pjs.hash_join_cpu(probe, keys)
     assert_bitwise(got, jjs.hash_join_cpu(probe, keys))
     S = pjs.table_bucket(len(keys), 1 << 16)
-    used, tkey, tval = (torch.from_numpy(a) for a in
-                        pjs.build_hash_table(keys, S))
-    walked = pjs.probe_table(torch.from_numpy(probe), used, tkey, tval, S)
-    assert_bitwise(walked.numpy(), got, "probe vs twin")
+    for table in _packings(*pjs.build_hash_table(keys, S)):
+        walked = pjs.probe_table(torch.from_numpy(probe), table, S)
+        assert_bitwise(walked.numpy(), got, f"probe vs twin ({table.dtype})")
 
 
 def test_join_wire_signature_matches_reference():
@@ -330,3 +345,126 @@ def test_join_wire_signature_matches_reference():
                        {BID + 1: (np.arange(4), None),
                         BID: (np.array(list("abcd"), object), None)})
     assert pw.signature() == jw.signature()
+
+
+# --- the packed device table (pack_table) and the plain probe over it ------
+
+def _reference_probe(probe, used, tkey, tval, S):
+    return np.asarray(_JPROBE(jnp.asarray(probe), jnp.asarray(used),
+                              jnp.asarray(tkey), jnp.asarray(tval), S))
+
+
+def _unpacks_to(table, used, tkey, tval):
+    for name, a, b in zip(("used", "table_key", "table_val"),
+                          unpack_table(table), (used, tkey, tval)):
+        assert_bitwise(a.numpy(), b, f"{name} ({table.dtype} slots)")
+
+
+@pytest.mark.parametrize("probe_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("load", [0.05, 0.25, 0.5])
+def test_packed_probe_matches_reference(load, probe_dtype):
+    """pack_table -> the plain probe_table on seeded tables up to the
+    builder's 0.5 load factor, against the reference's probe_table on
+    the host arrays: midx bit for bit on both slot layouts."""
+    rng = np.random.default_rng(int(load * 100))
+    S = 1 << 14
+    keys = rng.choice(np.arange(-(1 << 31), (1 << 31) - 1, 7919),
+                      int(S * load), replace=False).astype(np.int64)
+    used, tkey, tval = jjs.build_hash_table(keys, S)
+    probe = np.concatenate([rng.choice(keys, 5000),
+                            rng.integers(-(1 << 31), 1 << 31, 3000)])
+    if probe_dtype == "int64":
+        # near misses: a build key moved by 2^32, or with bit 63 set
+        probe = np.concatenate([probe, rng.choice(keys, 500) + (1 << 32),
+                                rng.choice(keys, 500) ^ (-(1 << 63))])
+    probe = probe.astype(probe_dtype)
+    want = _reference_probe(probe, used, tkey, tval, S)
+    tables = _packings(used, tkey, tval)
+    assert [t.dtype for t in tables] == [torch.int64, torch.int32]
+    for table in tables:
+        _unpacks_to(table, used, tkey, tval)
+        got = pjs.probe_table(torch.from_numpy(probe), table, S)
+        assert_bitwise(got.numpy(), want, f"midx ({table.dtype} slots)")
+    assert (want >= 0).sum() >= 5000
+
+
+@pytest.mark.parametrize("case", PROBE_EDGE_CASES)
+def test_packed_probe_edge_cases_match_reference(case):
+    """Chains that wrap from slot S-1 to 0, keys with bit 63 set, the
+    int64 extremes, an empty table (n_build 0), probe keys that differ
+    from a build key only above bit 31 (misses, never truncated into a
+    match by the narrow slots), an all-masked batch and NULL keys:
+    probe_table and probe_rows on the packed table against the
+    reference's probe_table, bit for bit."""
+    keys, probe, mask, nulls = probe_edge_case(case)
+    S = 64 if case == "wrap" else pjs.table_bucket(len(keys), 1 << 16)
+    used, tkey, tval = jjs.build_hash_table(keys, S)
+    if case == "wrap":
+        # the chain really wraps: slot 0 holds a key whose home is S - 1
+        assert used[S - 1] and used[0]
+        assert pjs._home_slots(tkey[:1], S)[0] == S - 1
+    want = _reference_probe(probe, used, tkey, tval, S)
+    if case in ("empty", "high_bits"):
+        assert (want == -1).all()
+    else:
+        assert (want >= 0).any() and (want == -1).any()
+    pk = torch.from_numpy(probe)
+    m = torch.from_numpy(mask)
+    nl = torch.from_numpy(nulls) if nulls is not None else None
+    live = mask & ~nulls if nulls is not None else mask
+    for table in _packings(used, tkey, tval):
+        _unpacks_to(table, used, tkey, tval)
+        got = pjs.probe_table(pk, table, S)
+        assert_bitwise(got.numpy(), want, f"midx ({table.dtype} slots)")
+        midx, out = pjs.probe_rows(pk, nl, m, table, S)
+        assert_bitwise(midx.numpy(), want, "probe_rows midx")
+        assert_bitwise(out.numpy(), live & (want >= 0), "probe_rows mask")
+        if case == "all_masked":
+            assert not out.any()
+
+
+def test_pack_table_layouts_and_refusals():
+    keys = np.array([5, -7, (1 << 31) - 1, -(1 << 31)], np.int64)
+    S = 8
+    used, tkey, tval = (torch.from_numpy(a) for a in
+                        pjs.build_hash_table(keys, S))
+    wide = pjs.pack_table(used, tkey, tval, pjs.SLOT_WIDE)
+    narrow = pjs.pack_table(used, tkey, tval, pjs.SLOT_NARROW)
+    assert wide.shape == narrow.shape == (S, 2)
+    assert wide.element_size() * 2 == 16 and narrow.element_size() * 2 == 8
+    # an empty slot is val -1 (sign-extended in the wide slot's pad)
+    assert bool((wide[~used, 1] == -1).all())
+    assert bool((narrow[~used, 1] == -1).all())
+    assert bool((narrow[used, 1] == tval[used]).all())
+    assert pjs.slot_layout(tkey, used) == pjs.SLOT_NARROW
+    big = torch.from_numpy(np.array([1 << 31], np.int64))
+    bu, bk, bv = (torch.from_numpy(a) for a in
+                  pjs.build_hash_table(big.numpy(), S))
+    assert not pjs.fits_narrow(bk, bu)
+    assert pjs.slot_layout(bk, bu) == pjs.SLOT_WIDE
+    with pytest.raises(ValueError, match="int32"):
+        pjs.pack_table(bu, bk, bv, pjs.SLOT_NARROW)
+    with pytest.raises(ValueError, match="slot_bytes"):
+        pjs.pack_table(used, tkey, tval, 12)
+
+
+def test_probe_kernel_checks_its_lanes_before_launching():
+    """The kernel wrapper's refusals (raised before any build or launch,
+    so they show on CPU tensors too): a table that is not packed, a table
+    view off 16-byte alignment, lanes of different lengths."""
+    S = 16
+    used, tkey, tval = (torch.from_numpy(a) for a in pjs.build_hash_table(
+        np.arange(5, dtype=np.int64), S))
+    table = pjs.pack_table(used, tkey, tval, pjs.SLOT_NARROW)
+    pk = torch.arange(40, dtype=torch.int64)
+    mask = torch.ones(40, dtype=torch.bool)
+    with pytest.raises(ValueError, match="packed table"):
+        pjs.probe_kernel(pk, None, mask, tkey, S)
+    with pytest.raises(ValueError, match="num_slots"):
+        pjs.probe_kernel(pk, None, mask, table, 2 * S)
+    buf = torch.zeros(2 * S + 4, dtype=torch.int32)
+    off = buf[1:1 + 2 * S].view(S, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        pjs.probe_kernel(pk, None, mask, off, S)
+    with pytest.raises(ValueError, match="length"):
+        pjs.probe_kernel(pk, None, mask[:30], table, S)

@@ -790,3 +790,71 @@ def by_key(vals, counts, gvals):
         out[key] = (int(counts[g]),) + tuple(
             _canon(np.asarray(v)[g]) for v in vals)
     return out
+
+
+# --- edge cases of the join probe (the plain packed probe and the kernel) --
+
+def unpack_table(table: torch.Tensor):
+    """The host's three arrays back from a packed probe table
+    (join_scan.pack_table): (used bool, table_key int64, table_val
+    int32), an empty slot's key and val 0 as the host builder leaves
+    them."""
+    val = table[:, 1].to(torch.int32)
+    used = val >= 0
+    return (used, torch.where(used, table[:, 0].to(torch.int64), 0),
+            torch.where(used, val, 0).to(torch.int32))
+
+
+PROBE_EDGE_CASES = ["wrap", "top_bit", "extremes", "empty", "high_bits",
+                    "all_masked", "null_keys"]
+
+
+def probe_wrap_keys(S: int, n: int) -> np.ndarray:
+    """`n` keys whose home slot is a table's last: their chain wraps
+    from slot S - 1 to slot 0."""
+    from yugabyte_db_tpu_torch.ops import join_scan as pjs
+    cand = np.arange(1, 200_000, dtype=np.int64)
+    return cand[pjs._home_slots(cand, S) == S - 1][:n]
+
+
+def probe_edge_case(case: str):
+    """(build keys, probe keys int64, mask, nulls or None) of one probe
+    edge case: a chain that wraps from slot S-1 to 0 (build it at 64
+    slots), keys whose hash product sets bit 63, the int64 extremes, an
+    empty build side, probe keys equal to a build key in their low 32
+    bits only (all misses), an all-masked batch, NULL keys."""
+    from yugabyte_db_tpu_torch.ops import join_scan as pjs
+    rng = np.random.default_rng(17)
+    i64 = np.iinfo(np.int64)
+    if case == "wrap":
+        ring = probe_wrap_keys(64, 5)
+        keys = np.concatenate([ring[:4], rng.choice(
+            np.arange(10_000, 20_000), 8, replace=False)])
+        probe = np.concatenate([ring, keys, [7, 9]])
+    elif case == "top_bit":
+        ks = rng.integers(-(1 << 62), 1 << 62, 1200, dtype=np.int64)
+        top = (ks.astype(np.uint64) * pjs._HASH_MULT) >> np.uint64(63)
+        keys = np.concatenate([np.unique(ks[top == 1])[:298],
+                               [i64.max, i64.min]])
+        probe = np.concatenate([keys, keys + 1, keys ^ (1 << 40)])
+    elif case == "extremes":
+        keys = np.array([i64.min, i64.max, -1, 0, 1], np.int64)
+        probe = np.array([i64.min, i64.max, i64.min + 1, i64.max - 1, -1,
+                          0, 1, 2, -2, 1 << 32, -(1 << 32)], np.int64)
+    elif case == "empty":
+        keys = np.zeros(0, np.int64)
+        probe = rng.integers(-1000, 1000, 300)
+    elif case == "high_bits":
+        keys = rng.choice(np.arange(-(1 << 31), 1 << 31, 65_537), 200,
+                          replace=False).astype(np.int64)
+        probe = np.concatenate([keys + (1 << 32), keys - (1 << 32),
+                                keys ^ (-(1 << 63)), keys ^ (1 << 47)])
+    else:
+        assert case in ("all_masked", "null_keys"), case
+        keys = rng.choice(5000, 700, replace=False).astype(np.int64)
+        probe = rng.integers(0, 6000, 2000)
+    probe = np.asarray(probe, np.int64)
+    n = len(probe)
+    mask = np.zeros(n, bool) if case == "all_masked" else rng.random(n) < .8
+    nulls = rng.random(n) < .3 if case == "null_keys" else None
+    return keys, probe, mask, nulls

@@ -151,8 +151,8 @@ def _lib(name: str) -> ctypes.CDLL:
                 lib.q6_scan_launch.restype = ci
             elif name == "join_probe":
                 lib.join_probe_launch.argtypes = [
-                    vp, ci, vp, vp, vp, vp, vp, ci, ctypes.c_longlong,
-                    vp, vp, vp]
+                    vp, ci, vp, vp, vp, ci, ci, ctypes.c_longlong, ci, vp,
+                    vp, vp]
                 lib.join_probe_launch.restype = ci
             else:
                 lib.grouped_sum_launch.argtypes = [vp, vp, vp, ci, vp,

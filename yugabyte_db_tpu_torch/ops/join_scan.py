@@ -14,11 +14,17 @@ fact table (lineitem) into a small, already-filtered dimension side
   also holds device copies of the table and the payload lanes, made once
   per :func:`make_join_runtimes`, so a streamed plan ships them once, not
   once per chunk.
+- On the device the table is ONE packed lane (:func:`pack_table`): a
+  16-byte slot ``{int64 key; int32 val; int32 pad}`` per slot, or an
+  8-byte ``{int32 key; int32 val}`` one where every build key fits in
+  int32; ``val = -1`` marks an empty slot.  A step of the walk then reads
+  one slot, one sector, where the host's three arrays would take three.
 - The PROBE runs inside the fused plan (ops/plan_fusion.py) through
   :func:`probe_rows`: on CUDA tensors the hand kernel
-  ``csrc/join_probe.cu`` (one thread per probe row walks its own chain);
-  on CPU tensors its plain version :func:`probe_table`, the reference's
-  ``lax.while_loop`` written as a Python loop of whole-batch steps.
+  ``csrc/join_probe.cu`` (each thread walks the chains of several
+  consecutive probe rows at once); on CPU tensors its plain version
+  :func:`probe_table`, the reference's ``lax.while_loop`` written as a
+  Python loop of whole-batch steps over the same packed table.
 - String join keys ride as dictionary codes: build keys map through the
   probe column's scan-global dictionary on the host; a build key absent
   from the dictionary can never match and keeps a distinct negative
@@ -54,6 +60,10 @@ JOIN_STATS = {"builds": 0, "fallbacks": 0}
 
 #: stats of the most recent build-table construction
 LAST_JOIN_STATS: dict = {}
+
+#: bytes per slot of the packed device table (pack_table): 16 holds any
+#: int64 key, 8 only keys that fit in int32
+SLOT_WIDE, SLOT_NARROW = 16, 8
 
 _MIN_TABLE_SLOTS = 8
 _MAX_TABLE_SLOTS_HARD = 1 << 24
@@ -192,8 +202,9 @@ class JoinRuntime:
     Run-time parts: the table arrays, the true build-row count and the
     padded payload lanes, so growth inside one pow2 bucket keeps the
     signature.  ``device_lanes`` holds the table and payload lanes on the
-    plan's device: (used, table_key, table_val, payload values tuple,
-    payload nulls tuple), the payloads in ``build_cols`` order."""
+    plan's device: (packed table, payload values tuple, payload nulls
+    tuple), the table as :func:`pack_table` lays it out, the payloads in
+    ``build_cols`` order."""
     probe_col: int
     num_slots: int                    # pow2 table bucket
     build_rows_pad: int               # pow2 payload bucket
@@ -227,7 +238,10 @@ class JoinRuntime:
         if lanes is None or lanes[0].device != device:
             def t(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            lanes = (t(self.used), t(self.table_key), t(self.table_val),
+            layout = slot_layout(torch.from_numpy(self.table_key),
+                                 torch.from_numpy(self.used))
+            lanes = (pack_table(t(self.used), t(self.table_key),
+                                t(self.table_val), layout),
                      tuple(t(self.payload_vals[b]) for b in self.build_cols),
                      tuple(t(self.payload_nulls[b])
                            for b in self.build_cols))
@@ -416,74 +430,127 @@ def home_slots(pk: torch.Tensor, num_slots: int) -> torch.Tensor:
     return (h >> (64 - bits)) & (num_slots - 1)
 
 
-def probe_table(pk, table_used, table_key, table_val, num_slots: int):
-    """Plain version of the probe (the reference's ``probe_table``): for
-    every probe key, follow its collision chain until a key hit or an
-    empty slot, one whole-batch step at a time (``while not
-    done.all()``, a host sync per step).  ``num_slots`` is a power of 2;
-    the builder's <= 0.5 load factor ends every walk.  Returns match_idx
-    int32 [N] (-1 = no match), the build-row gather index."""
+def fits_narrow(table_key: torch.Tensor, used: torch.Tensor) -> bool:
+    """Whether every used key of a table fits in int32 (a narrow slot)."""
+    k = table_key[used]
+    return not k.numel() or (int(k.min()) >= -(1 << 31)
+                             and int(k.max()) < (1 << 31))
+
+
+def slot_layout(table_key: torch.Tensor, used: torch.Tensor) -> int:
+    """The slot width a runtime's table takes on the device: the narrow
+    8-byte slot where its keys fit in int32 (the faster on the card at
+    every measured stage), else the 16-byte slot."""
+    return SLOT_NARROW if fits_narrow(table_key, used) else SLOT_WIDE
+
+
+def pack_table(used: torch.Tensor, table_key: torch.Tensor,
+               table_val: torch.Tensor,
+               slot_bytes: int = SLOT_WIDE) -> torch.Tensor:
+    """The device layout of a host table (used bool[S], table_key
+    int64[S], table_val int32[S]): one row per slot, little-endian.
+
+    ``SLOT_WIDE``: int64 [S, 2] = ``{int64 key; int32 val; int32 pad}``
+    (the val sign-extended, so the pad is its sign).  ``SLOT_NARROW``:
+    int32 [S, 2] = ``{int32 key; int32 val}``; raises ValueError if a
+    used key does not fit in int32.  An empty slot has ``val = -1`` (a
+    used slot's val is a build-row index >= 0) and the host's key (0).
+    Plain torch on the tables' device."""
+    val = torch.where(used, table_val, torch.full_like(table_val, -1))
+    if slot_bytes == SLOT_WIDE:
+        return torch.stack((table_key.to(torch.int64),
+                            val.to(torch.int64)), 1).contiguous()
+    if slot_bytes != SLOT_NARROW:
+        raise ValueError(f"slot_bytes must be {SLOT_WIDE} or "
+                         f"{SLOT_NARROW}, not {slot_bytes}")
+    if not fits_narrow(table_key, used):
+        raise ValueError("narrow slots take int32 build keys only")
+    return torch.stack((table_key.to(torch.int32), val), 1).contiguous()
+
+
+def _check_table(table: torch.Tensor, num_slots: int) -> None:
+    if table.dim() != 2 or table.shape[1] != 2 \
+            or table.dtype not in (torch.int64, torch.int32) \
+            or not table.is_contiguous():
+        raise ValueError("join_probe takes a packed table: contiguous "
+                         "int64 or int32 [num_slots, 2] (pack_table)")
+    if num_slots & (num_slots - 1) or num_slots < _MIN_TABLE_SLOTS \
+            or table.shape[0] != num_slots:
+        raise ValueError(f"join_probe: the table must hold num_slots "
+                         f"({num_slots}, a power of 2) slots")
+
+
+def probe_table(pk, table, num_slots: int):
+    """Plain version of the probe (the reference's ``probe_table``) over
+    the packed table: for every probe key, follow its collision chain
+    until a key hit or an empty slot (``val < 0``), one whole-batch step
+    at a time (``while not done.all()``, a host sync per step), each
+    step one gather of whole slots.  ``num_slots`` is a power of 2; the
+    builder's <= 0.5 load factor ends every walk.  A probe key compares
+    as int64 against the slot's key widened to int64, so a key outside
+    int32 never matches a narrow slot.  Returns match_idx int32 [N]
+    (-1 = no match), the build-row gather index."""
+    _check_table(table, num_slots)
     mask = num_slots - 1
     k64 = pk.to(torch.int64)
     slot = home_slots(k64, num_slots)
     midx = torch.full(k64.shape, -1, dtype=torch.int32, device=k64.device)
     done = torch.zeros(k64.shape, dtype=torch.bool, device=k64.device)
     while not bool(done.all()):
-        tk = table_key[slot]
-        tu = table_used[slot]
+        s = table[slot]
+        tk, tv = s[:, 0].to(torch.int64), s[:, 1].to(torch.int32)
+        tu = tv >= 0
         hit = tu & (tk == k64) & torch.logical_not(done)
         stop = torch.logical_not(tu) & torch.logical_not(done)
-        midx = torch.where(hit, table_val[slot], midx)
+        midx = torch.where(hit, tv, midx)
         done = done | hit | stop
         slot = torch.where(done, slot, (slot + 1) & mask)
     return midx
 
 
 def probe_rows(pk: torch.Tensor, pk_nulls: Optional[torch.Tensor],
-               mask: torch.Tensor, table_used: torch.Tensor,
-               table_key: torch.Tensor, table_val: torch.Tensor,
-               num_slots: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One probe stage of the fused plan: ``(midx, mask & ~pk_nulls &
-    matched)``.  On CPU tensors the plain version (:func:`probe_table`,
-    every row walked, as the reference); on CUDA tensors the hand kernel
-    csrc/join_probe.cu, which writes midx -1 for rows already masked out
-    (their lanes never reach an aggregate) — or raises."""
+               mask: torch.Tensor, table: torch.Tensor, num_slots: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One probe stage of the fused plan over a packed table: ``(midx,
+    mask & ~pk_nulls & matched)``.  On CPU tensors the plain version
+    (:func:`probe_table`, every row walked, as the reference); on CUDA
+    tensors the hand kernel csrc/join_probe.cu, which writes midx -1 for
+    rows already masked out (their lanes never reach an aggregate) — or
+    raises."""
     if pk.device.type == "cpu":
         if pk_nulls is not None:
             mask = mask & torch.logical_not(pk_nulls)
-        midx = probe_table(pk, table_used, table_key, table_val, num_slots)
+        midx = probe_table(pk, table, num_slots)
         return midx, mask & (midx >= 0)
-    return probe_kernel(pk, pk_nulls, mask, table_used, table_key,
-                        table_val, num_slots)
+    return probe_kernel(pk, pk_nulls, mask, table, num_slots)
 
 
-def probe_kernel(pk, pk_nulls, mask, table_used, table_key, table_val,
-                 num_slots: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The hand probe kernel on CUDA tensors: (midx int32, mask bool)."""
+def probe_kernel(pk, pk_nulls, mask, table, num_slots: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The hand probe kernel on CUDA tensors: (midx int32, mask bool).
+    Probe lanes that are not 16-byte aligned (views at a storage offset)
+    take the kernel's scalar loads; a misaligned table raises."""
     n = pk.shape[0]
     if pk.dtype not in (torch.int32, torch.int64):
         pk = pk.to(torch.int64)
     dev = pk.device
-    lanes = [pk, mask, table_used, table_key, table_val] + (
-        [pk_nulls] if pk_nulls is not None else [])
-    if any(t.device != dev or t.dim() != 1 or not t.is_contiguous()
-           for t in lanes):
+    _check_table(table, num_slots)
+    lanes = [pk, mask] + ([pk_nulls] if pk_nulls is not None else [])
+    if table.device != dev or any(
+            t.device != dev or t.dim() != 1 or not t.is_contiguous()
+            for t in lanes):
         raise ValueError("join_probe takes contiguous [N] lanes on one "
                          "device")
-    if mask.dtype != torch.bool or table_used.dtype != torch.bool \
-            or table_key.dtype != torch.int64 \
-            or table_val.dtype != torch.int32 \
+    if mask.dtype != torch.bool \
             or (pk_nulls is not None and pk_nulls.dtype != torch.bool):
-        raise ValueError("join_probe takes bool masks and used flags, an "
-                         "int64 table_key and an int32 table_val")
+        raise ValueError("join_probe takes bool masks and null flags")
     if mask.shape[0] != n or (pk_nulls is not None
                               and pk_nulls.shape[0] != n):
         raise ValueError("join_probe: probe lanes differ in length")
-    if num_slots & (num_slots - 1) or table_used.shape[0] != num_slots \
-            or table_key.shape[0] != num_slots \
-            or table_val.shape[0] != num_slots:
-        raise ValueError(f"join_probe: table lanes must hold num_slots "
-                         f"({num_slots}, a power of 2) slots")
+    if table.data_ptr() % 16:
+        raise ValueError("join_probe: the packed table must be 16-byte "
+                         "aligned")
+    vec = all(t.data_ptr() % 16 == 0 for t in lanes)
     midx = torch.empty(n, dtype=torch.int32, device=dev)
     out = torch.empty(n, dtype=torch.bool, device=dev)
     lib = _lib("join_probe")
@@ -491,9 +558,10 @@ def probe_kernel(pk, pk_nulls, mask, table_used, table_key, table_val,
     _raise_on(lib.join_probe_launch(
         pk.data_ptr(), pk.element_size(),
         pk_nulls.data_ptr() if pk_nulls is not None else None,
-        mask.data_ptr(), table_used.data_ptr(), table_key.data_ptr(),
-        table_val.data_ptr(), num_slots.bit_length() - 1, n,
-        midx.data_ptr(), out.data_ptr(), _stream()), "join_probe")
+        mask.data_ptr(), table.data_ptr(), 2 * table.element_size(),
+        num_slots.bit_length() - 1, n, int(vec),
+        midx.data_ptr(), out.data_ptr(), _stream()),
+        "join_probe")
     return midx, out
 
 

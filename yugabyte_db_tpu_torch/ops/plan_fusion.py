@@ -112,12 +112,11 @@ class FusedPlanKernel:
             # masked row never reach an aggregate.
             cols2 = dict(cols)
             nulls2 = dict(nulls)
-            for stage, (tu, tk, tv, pvals, pnulls) in zip(join_shape,
-                                                          joins):
+            for stage, (table, pvals, pnulls) in zip(join_shape, joins):
                 probe_col, num_slots, rows_pad, payload_meta = stage
                 midx, mask = probe_rows(cols2[probe_col],
                                         nulls2.get(probe_col), mask,
-                                        tu, tk, tv, num_slots)
+                                        table, num_slots)
                 matched = midx >= 0
                 gidx = torch.clamp(midx, 0, rows_pad - 1).to(torch.int64)
                 unmatched = torch.logical_not(matched)
@@ -159,7 +158,7 @@ class FusedPlanKernel:
                     REASON_KEY_TYPE,
                     f"probe column {rt.probe_col} is not an integer "
                     f"lane on device", stage=si)
-            for bid, lane in zip(rt.build_cols, rt.to_device(self.device)[3]):
+            for bid, lane in zip(rt.build_cols, rt.to_device(self.device)[1]):
                 avail[bid] = lane.dtype
         if read_ht is None:
             mvcc_mode = "none"
@@ -180,7 +179,7 @@ class FusedPlanKernel:
             merged_dicts.update(rt.payload_dicts)
             bounds.update(rt.payload_bounds)
             dtype_cols.update(zip(rt.build_cols,
-                                  rt.to_device(self.device)[3]))
+                                  rt.to_device(self.device)[1]))
         domain_args: tuple = ()
         resolved = group
         if isinstance(group, DictGroupSpec):
