@@ -99,8 +99,40 @@ Phases (any failed check raises and the script exits non-zero):
      entries served on the exact and hand routes, inexpressible ones
      printed with their reasons); one `join` and one `profile` line per
      query and route;
-  8. print the kernels line (launches per path: phase 3's scan, phase
-     6's tablet reads and phase 7's joins), then the device line last.
+  8. row reads and server-side windows at SF1, SSTs under
+     build/rows_smoke/ (removed at the end): a hash tablet and a range
+     tablet through Tablet.bulk_load; Q6's predicate as a row read
+     (rowid, l_extendedprice, l_discount, l_shipdate) streamed (>= 3
+     chunks) and monolithic, `limit` 1000 (the pipeline closes early),
+     the range tablet's rowid < n/8 AND Q6 with zone_map_pruning on and
+     off, an enumerable rowid read (refused: NotPortedError), a
+     WindowWire over the Q6 rows (PARTITION BY l_returnflag,
+     l_linestatus ORDER BY l_shipdate: ranks, cumulative and
+     whole-partition sums, min/max, lag/lead, count) equal to the numpy
+     twin window_cpu, its three typed refusals, and an overlay load at
+     ht2 read below and above it (the dedup route); every row set
+     against numpy; one `rows` line per route (rows out, wall, kernel
+     and gather s, chunks, blocks pruned), a `window` line (host sort,
+     the segment program's device ms by CUDA events against its byte
+     bound, host scatter) and one `profile` line per route;
+  9. vector search at bench.py's configurations (200,000 x 128: 256
+     lists, 5 iterations, nprobe 64; 1,000,000 x 768: 1024 lists, 2
+     iterations, nprobe 256; k-means sample 50,000; base made on the
+     card from the seed; queries base[:64] + 0.001; k 10): the two-stage
+     IVF built on the card, exact_search on the card (each query's top-1
+     its own row), the IVF search (qps, recall@10 against an f32 exact
+     search on 16 queries, no more than 0.02 below the same search's in
+     f32 on the CPU, the numpy twin's beside it; device ms per batch
+     against its bound, peak device memory), at the
+     first configuration IvfFlatIndex's probe and full-scan routes and a
+     registry save/load that searches to the same ids; `vector_program`
+     lines (the two-stage search, exact_search, a k-means iteration);
+     HNSW at 20,000 x 128 through the registry on the host, built in a
+     process of its own beside phases 8 and 9 (`hnsw` line);
+  10. print the kernels line (launches per path: phase 3's scan, phase
+     6's tablet reads, phase 7's joins, phases 8 and 9; and the new
+     paths' plain programs: window program launches, device searches),
+     then the device line last.
 
 It imports nothing of JAX: the port stands alone.
 """
@@ -1677,6 +1709,605 @@ def join_phase(torch, np, hs, ldata, odata, cdata, card, root,
         shutil.rmtree(root, ignore_errors=True)
 
 
+ROWS_BASE_US = 1_700_000_000_000_000   # the rows phase's first load (µs)
+ROWS_OVERLAY_US = 1_000          # its overlay, µs after the first load
+ROWS_ITERS = 2                   # warm row reads per timed window
+ROWS_COLS = ("rowid", "l_extendedprice", "l_discount", "l_shipdate")
+ROWS_LIMIT = 1000
+#: the rows phase's window: PARTITION BY l_returnflag, l_linestatus
+#: ORDER BY l_shipdate, every head over the Q6 rows
+ROWS_WINDOW_ITEMS = (
+    ("row_number", 0, None, "rn"), ("rank", 0, None, "rk"),
+    ("dense_rank", 0, None, "dr"), ("count_star", 0, None, "cum_rows"),
+    ("sum", 1, "l_shipdate", "cum_ship"), ("sum", 0, "l_shipdate",
+                                           "part_ship"),
+    ("min", 1, "l_shipdate", "min_ship"), ("max", 1, "l_shipdate",
+                                           "max_ship"),
+    ("lag", 1, "l_extendedprice", "prev_price"),
+    ("lead", 1, "l_extendedprice", "next_price"),
+    ("count", 1, "l_discount", "n_disc"))
+
+
+def rows_windows_phase(torch, np, hs, data, card, root, device="cuda",
+                       block_rows=TABLET_BLOCK_ROWS, profile=True) -> dict:
+    """Phase 8: row reads on the device filter route and server-side
+    windows at SF1, tablets under `root` (removed at the end): a hash
+    tablet (262,144-row blocks) and a range tablet (65,536-row blocks)
+    loaded through Tablet.bulk_load.  Q6's predicate as a row read
+    projecting rowid, l_extendedprice, l_discount, l_shipdate, streamed
+    (at least 3 chunks) and monolithic; the range tablet's rowid < n/8
+    AND Q6 with zone_map_pruning on and off; `limit` 1000; an
+    enumerable WHERE on rowid (refused: NotPortedError); a WindowWire
+    over the Q6 rows held against the numpy twin window_cpu, and its
+    three typed refusals; then an overlay load at ht2 rewriting every
+    10th rowid's l_extendedprice, read below and above ht2 (the dedup
+    route).  Every row set against numpy.  One `rows` line per route, a
+    `window` line (sort, program, scatter) and one `profile` line per
+    route.  Returns the window program's launches and the hand kernels'
+    launches of the phase."""
+    import copy
+    import shutil
+    from yugabyte_db_tpu_torch.docdb import operations as ops
+    from yugabyte_db_tpu_torch.errors import NotPortedError
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops import stream_scan as ss
+    from yugabyte_db_tpu_torch.ops import window_scan as ws
+    from yugabyte_db_tpu_torch.ops.expr import Expr
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import flags
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    cuda = torch.device(device).type == "cuda"
+    n = len(data["rowid"])
+    check(np.array_equal(data["rowid"], np.arange(n)), "rowid != position")
+    read_ht = (ROWS_BASE_US + 2 * ROWS_OVERLAY_US) << 12   # above both
+    below_ht = (ROWS_BASE_US + ROWS_OVERLAY_US // 2) << 12
+    q6 = ((data["l_shipdate"] >= tpch._D1994)
+          & (data["l_shipdate"] < tpch._D1995)
+          & (data["l_discount"] >= 0.05) & (data["l_discount"] <= 0.07)
+          & (data["l_quantity"] < 24.0))
+    zone_hi = n // 8
+    zone_where = ("and", (Expr.col(tpch.ROWID) < zone_hi).node,
+                  tpch.TPCH_Q6.where)
+    price2 = data["l_extendedprice"] * 1.5 + 1.0
+    over_sel = data["rowid"] % 10 == 0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def check_rows(rows, mask, what, price=None):
+        """`rows` hold exactly the rows of `mask`, each with its values
+        (`price`: the visible l_extendedprice lane)."""
+        ids = np.fromiter((r["rowid"] for r in rows), np.int64, len(rows))
+        want = np.nonzero(mask)[0]
+        check(len(ids) == len(want)
+              and np.array_equal(np.sort(ids), want),
+              f"{what}: {len(ids)} rows, numpy has {len(want)}")
+        lanes = {"l_extendedprice": (data["l_extendedprice"] if price is None
+                                     else price),
+                 "l_discount": data["l_discount"],
+                 "l_shipdate": data["l_shipdate"]}
+        for col, lane in lanes.items():
+            got = np.fromiter((r[col] for r in rows), lane.dtype, len(rows))
+            check(np.array_equal(got, lane[ids]), f"{what}: {col} differs")
+        check(all(type(r["rowid"]) is int and type(r["l_shipdate"]) is int
+                  and type(r["l_extendedprice"]) is float for r in rows[:8]),
+              f"{what}: row value types")
+
+    def read(tablet, table_id, where, columns=ROWS_COLS, **kw):
+        kw.setdefault("read_ht", read_ht)
+        return tablet.read(ops.ReadRequest(table_id, columns=columns,
+                                           where=where, **kw))
+
+    def timed(fn, iters=ROWS_ITERS):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        cold = time.perf_counter() - t
+        t = time.perf_counter()
+        for _ in range(iters):
+            out = fn()
+        sync()
+        return out, cold, (time.perf_counter() - t) / iters
+
+    routes = {}
+
+    def report(name, resp, cold, wall, run=None, **extra):
+        st = dict(ss.LAST_STREAM_STATS) if \
+            ops.LAST_ROW_STATS.get("route") == "streamed" else {}
+        rs = dict(ops.LAST_ROW_STATS)
+        check(resp.backend == "tpu", f"{name}: served by {resp.backend}")
+        print(json.dumps({
+            "rows": name, "card": card, "rows_scanned": n,
+            "rows_out": len(resp.rows), "route": rs.get("route"),
+            "cold_ms": cold * 1e3, "wall_ms": wall * 1e3,
+            "kernel_s": rs.get("kernel_s"), "gather_s": rs.get("gather_s"),
+            "chunks": st.get("chunks", 0),
+            "chunks_run": st.get("chunks_run", 0),
+            "blocks_pruned": st.get("zone_blocks_pruned",
+                                    ops.LAST_SCAN_PRUNE_STATS.get(
+                                        "blocks_pruned", 0)),
+            "blocks_total": st.get("zone_blocks_total",
+                                   ops.LAST_SCAN_PRUNE_STATS.get(
+                                       "blocks_total", 0)),
+            "window_served": resp.window_served,
+            "window_reason": resp.window_reason, **extra}))
+        if run is not None:
+            routes[name] = (run, wall, dict(extra.get("flags", {})))
+        return st
+
+    def profile_routes():
+        """One `profile` line per route registered since the last call."""
+        problems = []
+        for name, (run, wall, fl) in routes.items():
+            with _overrides(flags, fl):
+                problems += profile_route(torch, hs, f"rows_{name}", card,
+                                          n, run, ROWS_ITERS, wall)
+        routes.clear()
+        return problems
+
+    if os.path.exists(root):
+        shutil.rmtree(root)
+    hand_before = dict(hs.LAUNCHES)
+    win_before = ws.WINDOW_STATS["launches"]
+    try:
+        t0 = time.perf_counter()
+        tab = Tablet("lineitem-rows", tpch.lineitem_info(), f"{root}/hash",
+                     device=device)
+        ht1 = HybridTime.from_micros(ROWS_BASE_US)
+        check(tab.bulk_load(data, ht=ht1, block_rows=block_rows) == n,
+              "rows tablet load lost rows")
+        t1 = time.perf_counter()
+        rtab = Tablet("lineitem-rows-range", tpch.lineitem_range_info(),
+                      f"{root}/range", device=device)
+        check(rtab.bulk_load(data, ht=ht1) == n, "range load lost rows")
+        t2 = time.perf_counter()
+        print(json.dumps({"rows_load": {
+            "rows": n, "hash_s": t1 - t0, "range_s": t2 - t1,
+            "hash_blocks": sum(r.num_blocks() for r in tab.regular.ssts),
+            "range_blocks": sum(r.num_blocks() for r in rtab.regular.ssts)}}))
+
+        # --- Q6 rows: streamed and monolithic -------------------------------
+        full = {}
+        for route in ("streamed", "monolithic"):
+            with flags.overridden("streaming_scan_enabled",
+                                  route == "streamed"):
+                run = lambda: read(tab, "lineitem", tpch.TPCH_Q6.where)
+                resp, cold, wall = timed(run)
+                st = report(f"q6_{route}", resp, cold, wall, run,
+                            flags={"streaming_scan_enabled":
+                                   route == "streamed"})
+            check_rows(resp.rows, q6, f"q6 {route}")
+            check(ops.LAST_ROW_STATS["route"] == route,
+                  f"q6 {route} took the {ops.LAST_ROW_STATS['route']} route")
+            if route == "streamed":
+                check(st["chunks"] >= 3, f"q6 streamed {st['chunks']} chunks")
+            full[route] = resp.rows
+        print(f"[phase 8] Q6 row read: {len(full['streamed'])} of {n} rows "
+              f"({len(full['streamed']) / n:.4%})")
+
+        # --- limit 1000: the streamed pipeline closes early ---------------
+        resp, cold, wall = timed(lambda: read(tab, "lineitem",
+                                              tpch.TPCH_Q6.where,
+                                              limit=ROWS_LIMIT))
+        st = report("q6_limit", resp, cold, wall)
+        check(resp.rows == full["streamed"][:ROWS_LIMIT], "limit rows differ")
+        check(st["chunks_run"] < st["chunks"], "limit ran every chunk")
+
+        # --- the range tablet: rowid < n/8 AND Q6, pruning on and off -----
+        zone = q6 & (data["rowid"] < zone_hi)
+        got = {}
+        for prune in (True, False):
+            with flags.overridden("zone_map_pruning", prune):
+                ss.LAST_STREAM_STATS.clear()
+                ops.LAST_SCAN_PRUNE_STATS.clear()
+                run = lambda: read(rtab, "lineitem_r", zone_where)
+                resp, cold, wall = timed(run)
+                st = report(f"range_{'pruned' if prune else 'unpruned'}",
+                            resp, cold, wall, run,
+                            flags={"zone_map_pruning": prune})
+            pruned = st.get("zone_blocks_pruned",
+                            ops.LAST_SCAN_PRUNE_STATS.get("blocks_pruned", 0))
+            check((pruned > 0) == prune, f"range rows pruning {prune}: "
+                  f"{pruned} blocks pruned")
+            check_rows(resp.rows, zone, f"range pruning {prune}")
+            got[prune] = resp.rows
+        check(got[True] == got[False], "pruned rows != unpruned rows")
+
+        # --- an enumerable WHERE on the hash key: refused -----------------
+        try:
+            read(tab, "lineitem", ("in", ("col", tpch.ROWID), [3, 77, 1024]))
+            check(False, "an enumerated rowid read was served")
+        except NotPortedError as e:
+            print(json.dumps({"rows_refusal": "enumerated rowid IN",
+                              "error": str(e)}))
+
+        # --- the window over the Q6 rows ----------------------------------
+        wire = ws.WindowWire(("l_returnflag", "l_linestatus"),
+                             (("l_shipdate", False),), ROWS_WINDOW_ITEMS)
+        wcols = ROWS_COLS + ("l_returnflag", "l_linestatus", "l_quantity")
+        run = lambda: read(tab, "lineitem", tpch.TPCH_Q6.where, wcols,
+                           window=wire)
+        resp, cold, wall = timed(run)
+        check(resp.window_served and resp.window_reason is None,
+              f"window not served: {resp.window_reason}")
+        plain = read(tab, "lineitem", tpch.TPCH_Q6.where, wcols)
+
+        class NumpyTwin:
+            run = staticmethod(ws.window_cpu)
+
+        twin = copy.deepcopy(plain.rows)
+        ws.serve_window_rows(wire, twin, NumpyTwin())
+        check(resp.rows == twin, "windowed rows differ from window_cpu's")
+        check_rows(resp.rows, q6, "windowed q6")
+        report("q6_window", resp, cold, wall, run)
+        # the window's launches on the path (the timed split below and
+        # the profiles do not count)
+        window_launches = ws.WINDOW_STATS["launches"] - win_before
+        # the window's split: host sort, the program on the card (CUDA
+        # events over device lanes), host scatter
+        rows = copy.deepcopy(plain.rows)
+        t = time.perf_counter()
+        lanes = ws.window_lanes(wire, rows)
+        sort_s = time.perf_counter() - t
+        kern = ws.default_window_kernel(device)
+        t = time.perf_counter()
+        outs = kern.run(*lanes[:5])
+        run_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ws.scatter_window(lanes, outs, rows)
+        scatter_s = time.perf_counter() - t
+        check(rows == twin, "window split differs")
+        ops_sig = [(o[0], o[1] if len(o) > 1 else 0) for o in lanes[0]]
+        dev = kern.device
+
+        def lane(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        d_seg, d_peer = lane(lanes[1]), lane(lanes[2])
+        d_vals = [lane(v) for v in lanes[3] if v is not None]
+        d_nulls = [lane(m) for m in lanes[4] if m is not None]
+        n_w = len(rows)
+        out_bytes = sum((4 if o[0] in ("row_number", "rank", "dense_rank")
+                         else 8) * n_w + n_w for o in ops_sig)
+        in_bytes = 2 * n_w + sum(v.nbytes + n_w for v in lanes[3]
+                                 if v is not None)
+        bms, bby = bound(in_bytes + out_bytes, 0)
+        # unqueued: one call is some 300 small launches, so a queued
+        # window fills the card's launch queue and the host blocks
+        # behind the spin; the events then time launch-bound calls
+        prog_ms = cuda_ms(torch, lambda: ws.window_program(
+            ops_sig, d_seg, d_peer, d_vals, d_nulls), 5, rounds=3,
+            queued=False) if cuda else None
+        window_line = {
+            "window": "q6 rows", "card": card, "rows": n_w,
+            "partitions": int(lanes[1].sum()), "items": len(ops_sig),
+            "sort_s": sort_s, "program_run_s": run_s,
+            "program_ms": prog_ms, "bound_ms": bms, "bound_by": bby,
+            "bytes": in_bytes + out_bytes, "scatter_s": scatter_s,
+            "wall_ms": wall * 1e3}
+        print(json.dumps(window_line))
+
+        # --- the window's typed refusals -----------------------------------
+        refusals = {}
+        for case, items, kw, fl in (
+                ("float_sum", ROWS_WINDOW_ITEMS
+                 + (("sum", 1, "l_quantity", "cum_qty"),), {}, {}),
+                ("limit", ROWS_WINDOW_ITEMS, {"limit": ROWS_LIMIT}, {}),
+                ("flag_off", ROWS_WINDOW_ITEMS, {},
+                 {"window_server_pushdown_enabled": False})):
+            with _overrides(flags, fl):
+                r = read(tab, "lineitem", tpch.TPCH_Q6.where, wcols,
+                         window=ws.WindowWire(wire.partition_by,
+                                              wire.order_by, items), **kw)
+            check(not r.window_served and "rn" not in r.rows[0],
+                  f"window refusal {case}: served")
+            refusals[case] = r.window_reason
+        check(refusals == {"float_sum": "window_value_kind",
+                           "limit": "window_paged_scan",
+                           "flag_off": "window_server_off"},
+              f"window refusals {refusals}")
+        print(json.dumps({"window_refusals": refusals}))
+
+        # the routes so far are profiled before the overlay turns every
+        # read of this tablet into a dedup read
+        problems = profile_routes() if profile else []
+
+        # --- the overlay: the dedup route below and above ht2 -------------
+        over = {k: v[over_sel] for k, v in data.items()}
+        over["l_extendedprice"] = price2[over_sel]
+        tab.bulk_load(over, ht=HybridTime.from_micros(
+            ROWS_BASE_US + ROWS_OVERLAY_US), block_rows=block_rows)
+        visible = np.where(over_sel, price2, data["l_extendedprice"])
+        for name, ht, price in (("dedup_below", below_ht, None),
+                                ("dedup_above", read_ht, visible)):
+            run = lambda ht=ht: read(tab, "lineitem", tpch.TPCH_Q6.where,
+                                     read_ht=ht)
+            ss.LAST_STREAM_STATS.clear()
+            resp, cold, wall = timed(run)
+            check(ops.LAST_ROW_STATS["route"] == "monolithic",
+                  f"{name}: two overlapping SSTs streamed")
+            check_rows(resp.rows, q6, name, price=price)
+            report(name, resp, cold, wall, run)
+        check(not np.array_equal(visible[q6], data["l_extendedprice"][q6]),
+              "the overlay changed no Q6 row")
+
+        check(window_launches > 0 or not cuda, "the window program never ran")
+        hand = {k: v - hand_before.get(k, 0) for k, v in hs.LAUNCHES.items()}
+        print(f"[phase 8] rows and windows OK; window launches "
+              f"{window_launches}, hand kernels {hand}")
+
+        if profile:
+            problems += profile_routes()
+        check(not problems, "; ".join(problems))
+        return {"window_program": window_launches, "hand": hand}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _overrides(flags, values: dict):
+    """flags.overridden for every (name, value) of `values` at once."""
+    import contextlib
+    stack = contextlib.ExitStack()
+    for k, v in values.items():
+        stack.enter_context(flags.overridden(k, v))
+    return stack
+
+
+#: phase 9: bench.py's vector configurations (bench.py:2953-2992): the
+#: reduced one and BASELINE.json's 1,000,000 x 768 pgvector one
+VECTOR_CONFIGS = (
+    {"name": "200k_x_128", "n": 200_000, "dim": 128, "nlists": 256,
+     "iters": 5, "nprobe": 64, "repeats": 5, "flat": True},
+    {"name": "1m_x_768", "n": 1_000_000, "dim": 768, "nlists": 1024,
+     "iters": 2, "nprobe": 256, "repeats": 2, "flat": False},
+)
+VECTOR_SAMPLE = 50_000           # k-means sample (bench.py)
+VECTOR_QUERIES = 64              # queries: base[:64] + 0.001
+VECTOR_RECALL_QUERIES = 16       # recall@10 over the first 16
+VECTOR_K = 10
+HNSW_N = 20_000                  # profile_vec.py's HNSW size, m=16,
+HNSW_EF_CONSTRUCTION = 80        # ef_construction=80
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 (NVIDIA data sheet)
+
+
+def hnsw_job(seed: int, path: str) -> None:
+    """The HNSW build on the host, in a process of its own (pure Python,
+    so it overlaps the card's phases): 20,000 x 128 through the port's
+    registry, 64 queries searched, recall@10 against a numpy exact
+    search, the index saved to `path` and the numbers to path/run.json."""
+    import numpy as np
+    from yugabyte_db_tpu_torch.vector import get_index_cls
+    base = np.random.default_rng(seed).normal(
+        size=(HNSW_N, 128)).astype(np.float32)
+    q = base[:VECTOR_QUERIES] + 0.001
+    t0 = time.perf_counter()
+    idx = get_index_cls("hnsw").build(
+        base, m=16, ef_construction=HNSW_EF_CONSTRUCTION)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, ids = idx.search(q, k=VECTOR_K)
+    search_s = time.perf_counter() - t0
+    r = VECTOR_RECALL_QUERIES
+    d = ((q[:r] ** 2).sum(1)[:, None] + (base ** 2).sum(1)[None, :]
+         - 2.0 * q[:r] @ base.T)
+    ref = np.argsort(d, axis=1)[:, :VECTOR_K]
+    recall = float(np.mean([len(set(ids[i]) & set(ref[i])) / VECTOR_K
+                            for i in range(r)]))
+    idx.save(path)
+    with open(os.path.join(path, "run.json"), "w") as f:
+        json.dump({"build_s": build_s, "qps": VECTOR_QUERIES / search_s,
+                   "recall_at_10": recall, "ids": ids.tolist()}, f)
+
+
+def vectors_phase(torch, np, card, seed, root, device="cuda",
+                  configs=VECTOR_CONFIGS, hnsw=None, profile=True) -> dict:
+    """Phase 9: vector search on the card at bench.py's configurations.
+    Per configuration: the base made on the device from `seed`; the
+    two-stage IVF built (k-means and the assignment on the card);
+    exact_search on the card (every query's top-1 its own row); the IVF
+    search timed (qps on the host clock, device ms per batch by CUDA
+    events beside its bound, peak device memory); recall@10 against an
+    f32 exact search on 16 queries, no more than 0.02 below the same
+    device search's in f32 on the CPU (the numpy twin's, _cpu_search,
+    printed beside: it re-ranks the batch's probed-list union, another
+    candidate set); at the first configuration the flat
+    IvfFlatIndex's probe and full-scan routes and a save/load through
+    the registry that searches to the same ids.  `hnsw`: the running
+    hnsw_job (process, path), joined here.  One `vector` line per
+    configuration, `vector_program` lines (exact search, the two-stage
+    search, a k-means iteration: ms against bound) and an `hnsw` line.
+    Returns the device searches by kind."""
+    import shutil
+    from yugabyte_db_tpu_torch.ops import vector as pv
+    from yugabyte_db_tpu_torch.vector import AnnIndex, TwoStageIvfIndex
+    from yugabyte_db_tpu_torch.vector import ivf as pivf
+    cuda = torch.device(device).type == "cuda"
+    dev = torch.device(device)
+    k = VECTOR_K
+    r = VECTOR_RECALL_QUERIES
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def recall(ids, ref):
+        return float(np.mean([len(set(ids[i]) & set(ref[i])) / k
+                              for i in range(r)]))
+
+    def program_line(name, cfg, fn, bytes_moved, ops_by_rate):
+        """One `vector_program` line: ms per call (CUDA events) against
+        the bound: bytes over HBM, or the operations over each type's
+        peak, whichever is longer."""
+        t_ops = sum(o / rate for o, rate in ops_by_rate) * 1e3
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        bms, bby = ((t_bytes, "bytes") if t_bytes >= t_ops
+                    else (t_ops, "operations"))
+        ms = cuda_ms(torch, fn, 3, warmup=2, rounds=3) if cuda else None
+        print(json.dumps({"vector_program": name, "config": cfg,
+                          "card": card, "ms": ms, "bound_ms": bms,
+                          "bound_by": bby,
+                          "share_of_bound": bms / ms if ms else None}))
+        return ms
+
+    if os.path.exists(root):
+        shutil.rmtree(root)
+    os.makedirs(root)
+    pivf.reset_kernel_stats()
+    exact_calls = 0
+    try:
+        for cfg in configs:
+            name, n, d = cfg["name"], cfg["n"], cfg["dim"]
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            base_d = torch.randn(n, d, generator=gen, device=dev)
+            base = base_d.cpu().numpy()
+            q = base[:VECTOR_QUERIES] + 0.001
+            q_d = torch.from_numpy(q).to(dev)
+            gen_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            idx = TwoStageIvfIndex.build(base, nlists=cfg["nlists"],
+                                         iters=cfg["iters"],
+                                         sample=VECTOR_SAMPLE, seed=seed,
+                                         device=dev)
+            sync()
+            build_s = time.perf_counter() - t0
+            # exact search on the card (bf16 products)
+            _, ei = pv.exact_search(q_d, base_d, k)
+            exact_calls += 1
+            ei = ei.cpu().numpy()
+            check(np.array_equal(ei[:, 0], np.arange(VECTOR_QUERIES)),
+                  f"{name}: an exact search's top-1 is not its own row")
+            # the f32 exact answer the recalls are held against
+            qr = q_d[:r]
+            dist = ((qr * qr).sum(1)[:, None] + pv.sq_norms(base_d)[None, :]
+                    - 2.0 * pv.mm_f32(qr, base_d))
+            ref = torch.topk(-dist, k, dim=1).indices.cpu().numpy()
+            del dist
+            # the two-stage IVF: warm, then timed as bench.py times it
+            nprobe = cfg["nprobe"]
+            idx.search(q, k=k, nprobe=nprobe)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(cfg["repeats"]):
+                _, ids = idx.search(q, k=k, nprobe=nprobe)
+            search_s = (time.perf_counter() - t0) / cfg["repeats"]
+            card_recall = recall(ids, ref)
+            check(np.array_equal(ids[:, 0], np.arange(VECTOR_QUERIES)),
+                  f"{name}: an IVF search's top-1 is not its own row")
+            # the same device search on the CPU in f32 (the reference's
+            # backend="device" semantics, which the CPU tests hold the
+            # port to): the card's bf16 stage 1 keeps its recall
+            cpu_idx = TwoStageIvfIndex(idx.cent, idx.sorted, idx.ids,
+                                       idx.starts, idx.counts, idx.options,
+                                       device="cpu")
+            _, cids = cpu_idx.search(q[:r], k=k, nprobe=nprobe)
+            del cpu_idx
+            cpu_recall = recall(cids, ref)
+            check(card_recall >= cpu_recall - 0.02,
+                  f"{name}: card recall {card_recall} vs the same search "
+                  f"in f32 on the CPU {cpu_recall}")
+            # the numpy twin re-ranks the batch's probed-list UNION (with
+            # gap merging): another candidate set, printed beside
+            t0 = time.perf_counter()
+            _, tids = idx.search(q[:r], k=k, nprobe=nprobe, backend="cpu")
+            twin_s = time.perf_counter() - t0
+            twin_pool = idx.last_pool_rows
+            twin_recall = recall(tids, ref)
+            # device ms per batch: the two-stage search on device tensors
+            dv = idx._device_arrays()
+            k_eff, pool = idx.device_plan(k, nprobe)
+            prog = program_line(
+                "two_stage_search", name,
+                lambda: pivf.two_stage_search(
+                    q_d, dv["cent"], dv["row_list"], dv["vecs"],
+                    dv["norms"], k_eff, nprobe, pool),
+                dv["vecs"].numel() * dv["vecs"].element_size()
+                + 8 * n + q_d.numel() * 4,
+                [(2 * VECTOR_QUERIES * n * d, BF16_OPS_PER_S)])
+            peak = torch.cuda.max_memory_allocated() if cuda else None
+            print(json.dumps({
+                "vector": name, "card": card, "n": n, "dim": d,
+                "nlists": cfg["nlists"], "nprobe": nprobe, "k": k,
+                "generate_s": gen_s, "build_s": build_s,
+                "qps": VECTOR_QUERIES / search_s,
+                "recall_at_10": card_recall,
+                "cpu_f32_recall_at_10": cpu_recall,
+                "twin_recall_at_10": twin_recall,
+                "twin_s": twin_s, "twin_pool_rows": twin_pool,
+                "pool_rows": pool, "device_ms_per_batch": prog,
+                "bound_ms": (dv["vecs"].numel() * 2 + 8 * n)
+                / HBM_BYTES_PER_S * 1e3,
+                "peak_device_bytes": peak}))
+            # the other programs against their bounds
+            program_line("exact_search", name,
+                         lambda: pv.exact_search(q_d, base_d, k),
+                         base_d.numel() * 4 + q_d.numel() * 4,
+                         [(2 * VECTOR_QUERIES * n * d, BF16_OPS_PER_S)])
+            samp = base_d[:VECTOR_SAMPLE]
+            cent = torch.from_numpy(idx.cent).to(dev)
+            program_line("kmeans_iteration", name,
+                         lambda: pv._kmeans_iters(samp, cent, 1),
+                         samp.numel() * 4 + 2 * cent.numel() * 4,
+                         [(2 * VECTOR_SAMPLE * cfg["nlists"] * d,
+                           BF16_OPS_PER_S),
+                          (VECTOR_SAMPLE * d, FP32_OPS_PER_S)])
+            if cfg["flat"]:
+                flat = pv.IvfFlatIndex.build(base, nlists=cfg["nlists"],
+                                             sample=VECTOR_SAMPLE,
+                                             iters=cfg["iters"], seed=seed,
+                                             device=dev)
+                few = 3                  # 3 * nprobe < nlists: the probe
+                for route, qs in (("probe", q[:few]), ("full_scan", q)):
+                    flat.search(qs, k=k, nprobe=nprobe)
+                    sync()
+                    t0 = time.perf_counter()
+                    _, fi = flat.search(qs, k=k, nprobe=nprobe)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    check(np.array_equal(fi[:, 0], np.arange(len(qs))),
+                          f"{name} IvfFlatIndex {route}: top-1")
+                    print(json.dumps({"vector_flat": route, "config": name,
+                                      "card": card, "queries": len(qs),
+                                      "wall_ms": ms}))
+                del flat
+                path = os.path.join(root, name)
+                idx.save(path)
+                loaded = AnnIndex.load(path, device=dev)
+                _, li = loaded.search(q, k=k, nprobe=nprobe)
+                check(np.array_equal(li, ids),
+                      f"{name}: the saved and loaded index searches apart")
+                del loaded
+            del idx, base_d, base, samp, cent, dv, q_d, qr
+            if cuda:
+                torch.cuda.empty_cache()
+        searches = pivf.kernel_cache_stats()["calls"]
+        if hnsw is not None:
+            proc, path = hnsw
+            proc.join(timeout=600)
+            check(proc.exitcode == 0, f"the HNSW job failed: {proc.exitcode}")
+            with open(os.path.join(path, "run.json")) as f:
+                run = json.load(f)
+            loaded = AnnIndex.load(path, device=dev)
+            base = np.random.default_rng(seed).normal(
+                size=(HNSW_N, 128)).astype(np.float32)
+            _, hi = loaded.search(base[:VECTOR_QUERIES] + 0.001, k=k)
+            check(hi.tolist() == run["ids"],
+                  "the HNSW index searches apart after save and load")
+            print(json.dumps({"hnsw": f"{HNSW_N}_x_128", "m": 16,
+                              "ef_construction": HNSW_EF_CONSTRUCTION,
+                              "build_s": run["build_s"], "qps": run["qps"],
+                              "recall_at_10": run["recall_at_10"],
+                              "host": True}))
+        print(f"[phase 9] vectors OK; two-stage searches {searches}, "
+              f"exact searches {exact_calls}")
+        return {"two_stage_search": searches, "exact_search": exact_calls}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2048,19 +2679,66 @@ def main(argv=None) -> int:
 
     phase_time("7 joins")
 
-    # --- phase 8: report -------------------------------------------------
+    # --- phases 8 and 9: row reads and windows, vectors -------------------
+    # the HNSW build is host Python: it runs in a process of its own
+    # beside the two phases and is joined in phase 9
+    import multiprocessing
+    import shutil
+    here = os.path.dirname(os.path.abspath(__file__))
+    hnsw_root = os.path.join(here, "build", "hnsw_smoke")
+    shutil.rmtree(hnsw_root, ignore_errors=True)
+    os.makedirs(hnsw_root)
+    hnsw_path = os.path.join(hnsw_root, "index")
+    hnsw_proc = multiprocessing.get_context("spawn").Process(
+        target=hnsw_job, args=(args.seed, hnsw_path), daemon=True)
+    hnsw_proc.start()
+    try:
+        rowed = rows_windows_phase(torch, np, hs, data, card,
+                                   os.path.join(here, "build", "rows_smoke"))
+        phase_time("8 rows and windows")
+        hand_before = dict(hs.LAUNCHES)
+        vectored = vectors_phase(torch, np, card, args.seed,
+                                 os.path.join(here, "build", "vector_smoke"),
+                                 hnsw=(hnsw_proc, hnsw_path))
+        vector_hand = {k: v - hand_before.get(k, 0)
+                       for k, v in hs.LAUNCHES.items()}
+    finally:
+        if hnsw_proc.is_alive():
+            hnsw_proc.terminate()
+        hnsw_proc.join(timeout=30)
+        shutil.rmtree(hnsw_root, ignore_errors=True)
+    phase_time("9 vectors")
+
+    # --- phase 10: report ------------------------------------------------
     for k in kernels:
         scan_path = launches.get(k["name"], per_query.get(k["name"], 0))
         k["launches_by_path"] = {"scan": scan_path,
                                  "tablet_seam": seam.get(k["name"], 0),
-                                 "join": joined.get(k["name"], 0)}
+                                 "join": joined.get(k["name"], 0),
+                                 "rows_windows": rowed["hand"].get(
+                                     k["name"], 0),
+                                 "vectors": vector_hand.get(k["name"], 0)}
         k["launches"] = sum(k["launches_by_path"].values())
         check(k["launches"] > 0, f"{k['name']} launched 0 times")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    # the new paths' plain torch programs (no hand kernel): the window
+    # program's launches on phase 8's reads and phase 9's device searches
+    programs = [{"name": "window_program", "path": "rows_windows",
+                 "source": "yugabyte_db_tpu_torch/ops/window_scan.py",
+                 "launches": rowed["window_program"]},
+                {"name": "two_stage_search", "path": "vectors",
+                 "source": "yugabyte_db_tpu_torch/vector/ivf.py",
+                 "launches": vectored["two_stage_search"]},
+                {"name": "exact_search", "path": "vectors",
+                 "source": "yugabyte_db_tpu_torch/ops/vector.py",
+                 "launches": vectored["exact_search"]}]
+    check(all(p["launches"] > 0 for p in programs),
+          f"a program of the new paths never ran: {programs}")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in kernels]}))
+                                  for e in kernels],
+                      "programs": programs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

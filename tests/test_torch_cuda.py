@@ -7,7 +7,9 @@ device-backend compaction against the baseline backend, byte for byte,
 a card tablet's reads and bypass session against the same tablet read
 on the CPU; the join probe kernel (CUDA C++, csrc/join_probe.cu)
 against its plain version, and fused join reads on the card against
-the CPU, bit for bit.
+the CPU, bit for bit; the window segment program, windowed row reads
+and the vector searches (bf16 products on the card) against their CPU
+runs.
 Every test here needs a GPU and skips without one; the file imports
 nothing of JAX, so it runs where JAX is not installed:
 
@@ -22,7 +24,9 @@ from yugabyte_db_tpu_torch.ops import hand_scan as hs
 # default import mode), and the card's machine may carry an unrelated
 # top-level `tests` package
 from torch_parity import (K3_CASES, K3_LANE_DTYPES,  # noqa: F401
-                          MERGE_CASES, PROBE_EDGE_CASES, assert_partials,
+                          MERGE_CASES, PROBE_EDGE_CASES, WINDOW_CASES,
+                          WINDOW_ITEMS, assert_partials, window_case,
+                          window_rows,
                           collect_consts, cuda_device, frontier_carries,
                           k3_typed_lanes,
                           merge_frontier_case, port_compaction_store,
@@ -513,3 +517,184 @@ def test_cuda_join_read_matches_cpu(cuda_device, tmp_path, streamed):
             assert np.array_equal(bc, got.group_counts)
             for b, g in zip(bv, got.agg_values):
                 assert np.asarray(b).tobytes() == np.asarray(g).tobytes()
+
+
+# --- windows, row reads and vector search on the card ---------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_cuda_window_program_matches_cpu(cuda_device, case):
+    """The segment program on the card against its CPU run: every lane
+    equal (floats with NaN where the CPU has NaN)."""
+    from yugabyte_db_tpu_torch.ops import window_scan as ws
+    ops, seg, peer, values, nulls = window_case(case)
+    before = ws.WINDOW_STATS["launches"]
+    got = ws.WindowKernel(cuda_device).run(ops, seg, peer, values, nulls)
+    assert ws.WINDOW_STATS["launches"] == before + 1
+    want = ws.WindowKernel("cpu").run(ops, seg, peer, values, nulls)
+    for op, (gv, gm), (wv, wm) in zip(ops, got, want):
+        assert gv.dtype == wv.dtype and np.array_equal(gm, wm), (case, op)
+        assert np.array_equal(gv, wv, equal_nan=gv.dtype.kind == "f"), \
+            (case, op)
+
+
+@pytest.mark.cuda
+def test_cuda_window_rows_match_cpu(cuda_device):
+    import copy
+    from yugabyte_db_tpu_torch.ops import window_scan as ws
+    wire = ws.WindowWire(("flag", "status"), (("day", False),),
+                         WINDOW_ITEMS)
+    rows = window_rows()
+    got, want = copy.deepcopy(rows), copy.deepcopy(rows)
+    ws.serve_window_rows(wire, got, ws.WindowKernel(cuda_device))
+    ws.serve_window_rows(wire, want, ws.WindowKernel("cpu"))
+    assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streamed", [True, False])
+def test_cuda_windowed_row_read_matches_cpu(cuda_device, tmp_path, streamed):
+    """A Q6 row read with a window on a card tablet and on its CPU twin:
+    the same rows in the same order, the same window values."""
+    from yugabyte_db_tpu_torch.docdb.operations import ReadRequest
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops import window_scan as ws
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import flags
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    data = tpch.generate_lineitem(0.02, seed=5)
+    wire = ws.WindowWire(
+        ("l_returnflag", "l_linestatus"), (("l_shipdate", False),),
+        (("rank", 0, None, "rk"), ("sum", 1, "l_shipdate", "cum"),
+         ("lag", 1, "l_extendedprice", "prev")))
+    resp = {}
+    for dev in (cuda_device, "cpu"):
+        t = Tablet("t", tpch.lineitem_info(), str(tmp_path / str(dev)),
+                   device=dev)
+        t.bulk_load(data, ht=HybridTime(1 << 40), block_rows=8192)
+        with flags.overridden("device_float_dtype", "float64"), \
+                flags.overridden("streaming_chunk_rows", 32768), \
+                flags.overridden("streaming_scan_enabled", streamed):
+            resp[str(dev)] = t.read(ReadRequest(
+                "lineitem", columns=("rowid", "l_returnflag",
+                                     "l_linestatus", "l_shipdate",
+                                     "l_extendedprice"),
+                where=tpch.TPCH_Q6.where, window=wire, read_ht=1 << 41))
+    got, want = resp[str(cuda_device)], resp["cpu"]
+    assert got.window_served and want.window_served
+    assert got.rows == want.rows and len(got.rows) > 0
+
+
+def _same_distances_by_id(gd, gi, wd, wi):
+    """Each id both searches returned, past each query's own row: the
+    card's distance within 1 % of the CPU's (bf16 rounding of the
+    products; the two may pick different ids among near-ties)."""
+    checked = 0
+    for a_d, a_i, b_d, b_i in zip(gd, gi, wd, wi):
+        want = dict(zip(b_i[1:].tolist(), b_d[1:].tolist()))
+        for d, i in zip(a_d[1:].tolist(), a_i[1:].tolist()):
+            if i in want:
+                assert abs(d - want[i]) <= 1e-2 * want[i], (i, d, want[i])
+                checked += 1
+    assert checked >= gi.shape[0] * (gi.shape[1] - 1) // 2
+
+
+def _vector_corpus(n=20_000, d=128, seed=0):
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(n, d)).astype(np.float32)
+    return base, base[:64] + 0.001
+
+
+@pytest.mark.cuda
+def test_cuda_distances_match_cpu(cuda_device):
+    """bf16 operands on the card: equal to the f32 product of the
+    bf16-rounded operands on the CPU within f32 accumulation error
+    (1e-5 of |q|^2 + |b|^2); inner products likewise."""
+    from yugabyte_db_tpu_torch.ops import vector as pv
+    base, q = _vector_corpus(4096)
+    qb, bb = (torch.from_numpy(x).bfloat16().float() for x in (q, base))
+    dots = (qb @ bb.t()).numpy()
+    qn, bn = (q * q).sum(1), (base * base).sum(1)
+    scale = qn[:, None] + bn[None, :]
+    want = np.maximum(scale - 2.0 * dots, 0.0)
+    got = pv.l2_distance2(torch.from_numpy(q).to(cuda_device),
+                          torch.from_numpy(base).to(cuda_device))
+    assert got.dtype == torch.float32
+    assert np.all(np.abs(got.cpu().numpy() - want) <= 1e-5 * scale)
+    ip = pv.inner_product(torch.from_numpy(q).to(cuda_device),
+                          torch.from_numpy(base).to(cuda_device)).cpu()
+    assert np.all(np.abs(ip.numpy() - dots) <= 1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_cuda_exact_search_matches_cpu(cuda_device):
+    from yugabyte_db_tpu_torch.ops import vector as pv
+    base, q = _vector_corpus()
+    gd, gi = pv.exact_search(q, base, 10, device=cuda_device)
+    wd, wi = pv.exact_search(q, base, 10, device="cpu")
+    gi, wi = gi.cpu().numpy(), wi.numpy()
+    assert np.array_equal(gi[:, 0], np.arange(64))       # own rows first
+    overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(gi, wi)])
+    assert overlap >= 0.9, overlap
+    _same_distances_by_id(gd.cpu().numpy(), gi, wd.numpy(), wi)
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_matches_cpu(cuda_device):
+    """Well-separated clusters from one seed point each: the bf16
+    assignment on the card is the CPU's, so the f32 one-hot sums give
+    the same centroids within f32 rounding."""
+    from yugabyte_db_tpu_torch.ops import vector as pv
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(12, 16)).astype(np.float32) * 50
+    label = rng.integers(0, 12, 4000)
+    data = centers[label] + rng.normal(size=(4000, 16)).astype(np.float32)
+    init = data[[int(np.nonzero(label == c)[0][0]) for c in range(12)]]
+    got = pv._kmeans_iters(torch.from_numpy(data).to(cuda_device),
+                           torch.from_numpy(init).to(cuda_device), 6)
+    want = pv._kmeans_iters(torch.from_numpy(data), torch.from_numpy(init), 6)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_two_stage_search_matches_cpu(cuda_device, tmp_path):
+    """One index on both devices (saved, then loaded on each): the card's
+    bf16 stage 1 and f32 re-rank against the CPU's f32 search."""
+    from yugabyte_db_tpu_torch.vector import AnnIndex, TwoStageIvfIndex
+    from yugabyte_db_tpu_torch.vector import ivf as pivf
+    base, q = _vector_corpus()
+    TwoStageIvfIndex.build(base, nlists=64, iters=5, sample=20_000,
+                           device=cuda_device).save(str(tmp_path / "i"))
+    card = AnnIndex.load(str(tmp_path / "i"), device=cuda_device)
+    cpu = AnnIndex.load(str(tmp_path / "i"), device="cpu")
+    pivf.reset_kernel_stats()
+    gd, gi = card.search(q, k=10, nprobe=16)
+    assert pivf.kernel_cache_stats()["calls"] == 1
+    wd, wi = cpu.search(q, k=10, nprobe=16)
+    assert np.array_equal(gi[:, 0], np.arange(64))
+    overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(gi, wi)])
+    assert overlap >= 0.95, overlap
+    _same_distances_by_id(gd, gi, wd, wi)
+    # the numpy twin from the card-built index: the same ids
+    td, ti = card.search(q, k=10, nprobe=16, backend="cpu")
+    assert np.array_equal(ti, cpu.search(q, k=10, nprobe=16,
+                                         backend="cpu")[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [3, 64])
+def test_cuda_flat_index_matches_cpu(cuda_device, nq):
+    """IvfFlatIndex on both devices from the same arrays: 3 queries take
+    the probe route, 64 the shared full scan."""
+    from yugabyte_db_tpu_torch.ops import vector as pv
+    base, q = _vector_corpus()
+    card = pv.IvfFlatIndex.build(base, nlists=64, iters=5,
+                                 device=cuda_device)
+    cpu = pv.IvfFlatIndex(card.centroids.cpu().numpy(),
+                          card.lists.cpu().numpy(),
+                          card.list_lens.cpu().numpy(), base, device="cpu")
+    gd, gi = card.search(q[:nq], k=10, nprobe=16)
+    wd, wi = cpu.search(q[:nq], k=10, nprobe=16)
+    assert np.array_equal(gi[:, 0], np.arange(nq))
+    overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(gi, wi)])
+    assert overlap >= 0.9, overlap

@@ -213,6 +213,14 @@ def test_import_check_covers_the_join_slice():
     assert (PORT / "csrc" / "join_probe.cu").is_file()
 
 
+def test_import_check_covers_rows_windows_and_vectors():
+    names = {str(p.relative_to(PORT)) for p in _port_sources()
+             if PORT in p.parents}
+    assert {"ops/window_scan.py", "ops/vector.py", "vector/__init__.py",
+            "vector/registry.py", "vector/ivf.py",
+            "vector/hnsw.py"} <= names
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
@@ -307,6 +315,41 @@ def test_join_read_runs_without_jax_and_msgpack(tmp_path):
     assert out.returncode == 0, out.stderr
     backend, n = out.stdout.split()
     assert backend == "tpu" and int(n) > 0
+
+
+def test_rows_windows_and_vectors_run_without_jax(tmp_path):
+    """A windowed row read through Tablet.read (CPU tablet, filter route)
+    and a two-stage IVF search, in an interpreter where jax and msgpack
+    cannot be imported."""
+    code = (_BLOCKED +
+            "import numpy as np\n"
+            "from yugabyte_db_tpu_torch.docdb.operations import ReadRequest\n"
+            "from yugabyte_db_tpu_torch.models import tpch\n"
+            "from yugabyte_db_tpu_torch.ops.window_scan import WindowWire\n"
+            "from yugabyte_db_tpu_torch.tablet import Tablet\n"
+            "from yugabyte_db_tpu_torch.vector import TwoStageIvfIndex\n"
+            "data = tpch.generate_lineitem(0.002, seed=1)\n"
+            f"t = Tablet('li', tpch.lineitem_info(), {str(tmp_path)!r},"
+            " device='cpu')\n"
+            "t.bulk_load(data, block_rows=4096)\n"
+            "w = WindowWire(('l_returnflag',), (('l_shipdate', False),),"
+            " (('row_number', 0, None, 'rn'),))\n"
+            "r = t.read(ReadRequest('lineitem', columns=('rowid',"
+            " 'l_returnflag', 'l_shipdate'), where=tpch.TPCH_Q6.where,"
+            " window=w))\n"
+            "assert r.backend == 'tpu' and r.window_served and r.rows\n"
+            "base = np.random.default_rng(0).normal(size=(2000, 16))"
+            ".astype(np.float32)\n"
+            "idx = TwoStageIvfIndex.build(base, nlists=16, iters=3,"
+            " device='cpu')\n"
+            "_, ids = idx.search(base[:8] + 0.001, k=5, nprobe=4)\n"
+            "assert (ids[:, 0] == np.arange(8)).all()\n"
+            "print(len(r.rows), max(x['rn'] for x in r.rows))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_rows, top_rank = map(int, out.stdout.split())
+    assert 0 < top_rank <= n_rows
 
 
 def test_flag_override_restores_on_exit():

@@ -218,16 +218,23 @@ def test_refuses_where_the_reference_serves_on_the_cpu(tablets, case):
 
 
 def test_filter_reads_are_refused(tablets):
-    """Row reads with a WHERE: the reference serves them by its device
-    filter route; the port's row path (projection and row gather) is
-    ROADMAP.md queue 1 item 9, so it refuses every row read."""
+    """Row reads with a WHERE that the reference answers on its CPU path
+    are refused: an enumerable WHERE on the hash key (its MultiGet,
+    ROADMAP.md queue 1 item 9a).  Those it serves on its device filter
+    route the port serves too (tests/test_torch_rows.py)."""
     (jt,), (pt,) = tablets["hash"]
+    jreq, preq = requests("lineitem", ("in", ("col", 0), [3, 5, 8]), (),
+                          None, READ_HT)
+    with _flags("float64"):
+        assert jt.read(jreq).backend == "cpu"
+        with pytest.raises(NotPortedError, match="item 9"):
+            pt.read(preq)
     jreq, preq = requests("lineitem", tpch.TPCH_Q6.where, (), None,
                           READ_HT)
     with _flags("float64"):
-        assert jt.read(jreq).backend == "tpu"
-        with pytest.raises(NotPortedError, match="item 9"):
-            pt.read(preq)
+        jresp, presp = jt.read(jreq), pt.read(preq)
+    assert jresp.backend == presp.backend == "tpu"
+    assert presp.rows == jresp.rows and presp.rows
 
 
 @pytest.mark.parametrize("route", ["streamed", "monolithic"])

@@ -858,3 +858,83 @@ def probe_edge_case(case: str):
     mask = np.zeros(n, bool) if case == "all_masked" else rng.random(n) < .8
     nulls = rng.random(n) < .3 if case == "null_keys" else None
     return keys, probe, mask, nulls
+
+
+# --- windows: sorted segment lanes -------------------------------------------
+#: every op head, with the params the read seam sends (cumulative 1,
+#: whole-partition 0) and a few offsets/widths
+WINDOW_OPS = [("row_number",), ("rank",), ("dense_rank",), ("count_star", 1),
+              ("count_star", 0), ("lag", 1), ("lead", 2), ("lag", 0),
+              ("sum", 1), ("sum", 0), ("count", 1), ("count", 0),
+              ("min", 1), ("min", 0), ("max", 1), ("max", 0),
+              ("rolling_sum", 3), ("rolling_sum", 1)]
+WINDOW_CASES = ["one_row", "one_segment", "own_segments", "random",
+                "int64_extremes", "float_nan"]
+
+
+def window_case(case: str):
+    """(ops, seg_start, peer_start, values, nulls) of one sorted row set:
+    a single row, one segment, every row its own segment, random
+    segments and peers with nulls, int64 values near both extremes (the
+    sums wrap alike everywhere), and float64 lanes with NaNs (lag, lead,
+    min and max only: a SUM truncates to int64, undefined for NaN)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    n = {"one_row": 1, "one_segment": 300, "own_segments": 200}.get(case,
+                                                                    2000)
+    seg = rng.random(n) < .05
+    peer = rng.random(n) < .5
+    if case == "one_segment":
+        seg[:] = False
+    elif case == "own_segments":
+        seg[:] = True
+    seg[0] = True
+    ops = list(WINDOW_OPS)
+    if case == "float_nan":
+        ops = [o for o in ops if o[0] in ("row_number", "lag", "lead", "min",
+                                          "max")]
+    values, nulls = [], []
+    for op in ops:
+        if op[0] in ("row_number", "rank", "dense_rank", "count_star"):
+            values.append(None)
+            nulls.append(None)
+            continue
+        if case == "int64_extremes":
+            i64 = np.iinfo(np.int64)
+            v = np.where(rng.random(n) < .5,
+                         rng.integers(i64.max - 1000, i64.max, n,
+                                      endpoint=True),
+                         rng.integers(i64.min, i64.min + 1000, n))
+        elif case == "float_nan":
+            v = rng.normal(size=n) * 1e3
+            v[rng.random(n) < .05] = np.nan
+        else:
+            v = rng.integers(-10 ** 6, 10 ** 6, n)
+        values.append(np.asarray(v, np.float64 if case == "float_nan"
+                                 else np.int64))
+        nulls.append(rng.random(n) < (0.0 if case == "one_row" else .2))
+    return ops, seg, peer, values, nulls
+
+
+def window_rows(n: int = 3000, seed: int = 2):
+    """Name-keyed rows for serve_window_rows: string and int partition
+    keys, an int order key with peers, int, float and nullable lanes."""
+    rng = np.random.default_rng(seed)
+    return [{"flag": "ANR"[int(f)], "status": int(s), "day": int(d),
+             "qty": int(q), "price": float(p),
+             "disc": None if m else int(di)}
+            for f, s, d, q, p, m, di in zip(
+                rng.integers(0, 3, n), rng.integers(0, 2, n),
+                rng.integers(0, 400, n), rng.integers(1, 51, n),
+                rng.uniform(900, 100_000, n), rng.random(n) < .1,
+                rng.integers(0, 11, n))]
+
+
+#: every item head of a WindowWire over window_rows
+WINDOW_ITEMS = (("row_number", 0, None, "rn"), ("rank", 0, None, "rk"),
+                ("dense_rank", 0, None, "dr"), ("count_star", 0, None, "cs"),
+                ("sum", 1, "qty", "sum_qty"), ("sum", 0, "qty", "tot_qty"),
+                ("min", 1, "day", "min_day"), ("max", 1, "qty", "max_qty"),
+                ("count", 1, "disc", "n_disc"), ("sum", 1, "disc", "s_disc"),
+                ("lag", 1, "price", "prev_price"),
+                ("lead", 1, "price", "next_price"),
+                ("lead", 2, "disc", "next_disc"))

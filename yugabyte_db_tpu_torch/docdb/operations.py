@@ -1,12 +1,15 @@
-"""DocDB read operations: the tablet read seam's aggregate routes.
+"""DocDB read operations: the tablet read seam.
 
 Counterpart of ``yugabyte_db_tpu/docdb/operations.py`` (the analog of
 the reference's PgsqlReadOperation, src/yb/docdb/pgsql_operation.cc)
-cut to what an aggregate read needs:
+cut to the device routes of a read:
 
 - ``ReadRequest`` / ``ReadResponse`` with the reference's fields;
 - the dictionary rewrite of string predicates (module functions:
   ``rewrite_where_and_aggs``, ``rewrite_strings``, ``Unrewritable``);
+- ``extract_scan_options``, which decides (as the reference does)
+  whether a row read on a single-integer-hash-PK table is an enumerated
+  MultiGet;
 - ``DocReadOperation`` with its restart loop (``execute``) and the
   aggregate pushdown: the streamed route (ops/stream_scan.py) or one
   monolithic batch through the device cache, zone-map pruning, the
@@ -14,16 +17,22 @@ cut to what an aggregate read needs:
   and dictionary GROUP BY;
 - the FK-equijoin pushdown (``ReadRequest.join``): the fused plan
   (ops/plan_fusion.py: filter, hash-join probe, payload gather, group,
-  aggregate) on the streamed or the monolithic route.
+  aggregate) on the streamed or the monolithic route;
+- the filter route of row reads with a WHERE: the row mask on the
+  device (streamed or monolithic, zone-pruned), the matching rows
+  gathered on the host from the columnar blocks, and the server-side
+  window pushdown (``ReadRequest.window``, ops/window_scan.py) over
+  them, refusals typed on the response.
 
 Where the reference answers on its interpreted CPU path (its response
 says ``backend == "cpu"``) the port raises ``NotPortedError`` naming
-the ROADMAP.md item that brings that path: the interpreted row path and
-small scans (item 9a), point, prefix and enumerated reads (item 9a),
-the interpreted join — every join the device refuses with a typed
-reason, the flag off, a device-ineligible shape, a dictionary-group
-spill — (item 9a), windows (item 6), document shredding (item 9b).  On
-every other request it answers what the reference answers.
+the ROADMAP.md item that brings that path: the interpreted row path,
+small scans and row reads with no WHERE or a paging state (item 9a),
+point, prefix and enumerated reads (item 9a), the interpreted join —
+every join the device refuses with a typed reason, the flag off, a
+device-ineligible shape, a dictionary-group spill — (item 9a), document
+shredding (item 9b).  On every other request it answers what the
+reference answers.
 
 String columns ride on the device as codes into SORTED scan-global
 dictionaries, so ordering predicates map to code ranges, equality/IN to
@@ -32,8 +41,10 @@ exact codes, and LIKE to a boolean lookup table over the dictionary
 from __future__ import annotations
 
 import bisect
+import math
 import re
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -51,21 +62,26 @@ from ..utils import flags
 _ROW_ITEM = "queue 1 item 9a (the interpreted row path)"
 _POINT_ITEM = "queue 1 item 9a (point, prefix and enumerated reads)"
 _JOIN_ITEM = "queue 1 item 9a (the interpreted join)"
-_WINDOW_ITEM = "queue 1 item 6 (windows)"
 _DOC_ITEM = "queue 1 item 9b (document shredding)"
 
 #: zone-map pruning tally of the most recent monolithic pushdown scan
 #: (informational)
 LAST_SCAN_PRUNE_STATS: dict = {}
+#: the most recent filter-route row read: route, rows out, and its host
+#: seconds split between the mask kernel and the row gather
+#: (informational)
+LAST_ROW_STATS: dict = {}
 
 
 @dataclass
 class ReadRequest:
     """The reference's ReadRequest (the PgsqlReadRequestPB analog).  The
     port serves aggregate requests, with or without a `join` (one
-    ops.join_scan.JoinWire or an ordered sequence of them); `window`,
-    `pk_eq`, `pk_prefix` and row requests are accepted and refused with
-    NotPortedError."""
+    ops.join_scan.JoinWire or an ordered sequence of them), and row
+    requests with a WHERE on the filter route, with or without a
+    `window` (ops.window_scan.WindowWire); `pk_eq`, `pk_prefix` and the
+    row shapes the reference serves on its CPU path are accepted and
+    refused with NotPortedError."""
     table_id: str
     columns: Tuple[str, ...] = ()            # projection (empty = all)
     where: Optional[tuple] = None            # expr AST over column IDS
@@ -86,15 +102,20 @@ class ReadRequest:
 
 @dataclass
 class ReadResponse:
-    """The reference's ReadResponse cut to an aggregate answer (the
-    port serves no rows, pages or windows)."""
+    """The reference's ReadResponse: rows, or an aggregate answer."""
+    rows: List[Dict[str, object]] = field(default_factory=list)
     agg_values: Optional[tuple] = None        # scalars or per-group arrays
     group_counts: Optional[object] = None
     # hash- and dict-grouped results: per-group key values, aligned
     # with group_counts / agg_values
     group_values: Optional[tuple] = None
+    paging_state: Optional[bytes] = None      # the port never pages
     # "tpu": the reference's wire value for the device pushdown backend
     backend: str = "cpu"
+    # window pushdown outcome: True when `rows` carry the request's
+    # window values; on a typed refusal its reason rides back instead
+    window_served: bool = False
+    window_reason: Optional[str] = None
 
 
 class Unrewritable(Exception):
@@ -213,6 +234,143 @@ def rewrite_strings(node, dicts):
         else:
             out.append(c)
     return tuple(out)
+
+
+# --- scan options (which row reads are enumerated point gets) ---------------
+
+_POINT_TYPES = ("int32", "int64", "timestamp", "string")
+_RANGE_TYPES = ("int32", "int64", "timestamp")
+
+
+def extract_scan_options(where, range_cols):
+    """Multi-column skip-scan options (the reference's; upstream:
+    hybrid/ScanChoices, docdb/hybrid_scan_choices.cc): walk the
+    conjuncts of `where` and, following range-PK column order, collect
+    per-column target sets — point sets from =/IN on the leading
+    columns, then one optional numeric interval on the next column.
+    Returns (point_lists, interval, residual):
+      point_lists: [(ColumnSchema, sorted values)] for leading columns
+      interval:    (ColumnSchema, lo, hi) inclusive (either end None)
+                   or None
+      residual:    conjuncts NOT consumed by the bounds (re-checked
+                   row-wise), or None
+    Point lists enumerate in sorted order so the segment scan preserves
+    encoded-pk order (ORDER BY stays pushdown-compatible)."""
+    conjuncts = []
+
+    def flatten(n):
+        if n[0] == "and":
+            flatten(n[1])
+            flatten(n[2])
+        else:
+            conjuncts.append(n)
+
+    if where is not None:
+        flatten(where)
+
+    def col_of(n):
+        # (col, const) comparisons only, either operand order
+        if n[0] == "cmp":
+            if n[2][0] == "col" and n[3][0] == "const":
+                return n[2][1], n[1], n[3][1]
+            if n[3][0] == "col" and n[2][0] == "const":
+                flip = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le",
+                        "eq": "eq", "ne": "ne"}
+                return n[3][1], flip[n[1]], n[2][1]
+        return None
+
+    def norm_point(col, v):
+        """A point value an =/IN target on `col` can actually hit, or
+        None. Non-integral numerics can never equal an integer column
+        (consumed as provably-false, NOT truncated); type mismatches
+        are rejected so the conjunct stays residual."""
+        if col.type == "string":
+            return v if isinstance(v, str) else None
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            return None
+        if isinstance(v, float):
+            return int(v) if float(v).is_integer() else None
+        return v
+
+    used = set()
+    point_lists = []
+    interval = None
+    for col in range_cols:
+        pts = None
+        lo = hi = None
+        for i, n in enumerate(conjuncts):
+            if i in used:
+                continue
+            if n[0] == "in" and n[1] == ("col", col.id) \
+                    and col.type in _POINT_TYPES:
+                if not all(isinstance(v, (int, float, str))
+                           and not isinstance(v, bool)
+                           for v in n[2] if v is not None):
+                    continue       # untypeable list: stays residual
+                vals = {p for v in n[2] if v is not None
+                        for p in [norm_point(col, v)] if p is not None}
+                pts = vals if pts is None else pts & vals
+                used.add(i)
+                continue
+            c = col_of(n)
+            if c is None or c[0] != col.id:
+                continue
+            op, v = c[1], c[2]
+            if op == "eq" and col.type in _POINT_TYPES:
+                if col.type != "string" and not isinstance(
+                        v, (int, float)) or isinstance(v, bool):
+                    continue       # untypeable: stays residual
+                if col.type == "string" and not isinstance(v, str):
+                    continue
+                p = norm_point(col, v)
+                new = {p} if p is not None else set()
+                pts = new if pts is None else pts & new
+                used.add(i)
+            elif col.type in _RANGE_TYPES and op in ("ge", "gt") \
+                    and isinstance(v, (int, float)) \
+                    and not isinstance(v, bool):
+                # integer column: k >= 4.5 means k >= 5; k > 4.5 too
+                b = math.ceil(v) if op == "ge" else math.floor(v) + 1
+                lo = b if lo is None else max(lo, b)
+                used.add(i)
+            elif col.type in _RANGE_TYPES and op in ("le", "lt") \
+                    and isinstance(v, (int, float)) \
+                    and not isinstance(v, bool):
+                b = math.floor(v) if op == "le" else math.ceil(v) - 1
+                hi = b if hi is None else min(hi, b)
+                used.add(i)
+        if n_between := [i for i, n in enumerate(conjuncts)
+                         if i not in used and n[0] == "between"
+                         and n[1] == ("col", col.id)
+                         and n[2][0] == "const" and n[3][0] == "const"
+                         and col.type in _RANGE_TYPES
+                         and all(isinstance(n[j][1], (int, float))
+                                 and not isinstance(n[j][1], bool)
+                                 for j in (2, 3))]:
+            for i in n_between:
+                n = conjuncts[i]
+                blo, bhi = math.ceil(n[2][1]), math.floor(n[3][1])
+                lo = blo if lo is None else max(lo, blo)
+                hi = bhi if hi is None else min(hi, bhi)
+                used.add(i)
+        if pts is not None:
+            if lo is not None or hi is not None:
+                pts = {p for p in pts
+                       if (lo is None or p >= lo)
+                       and (hi is None or p <= hi)}
+            point_lists.append((col, sorted(pts)))
+            continue
+        if lo is not None or hi is not None:
+            interval = (col, lo, hi)
+        break       # first non-point column ends the enumerable prefix
+    residual = [n for i, n in enumerate(conjuncts) if i not in used]
+    if not residual:
+        res = None
+    else:
+        res = residual[0]
+        for r in residual[1:]:
+            res = ("and", res, r)
+    return point_lists, interval, res
 
 
 # --- the read executor --------------------------------------------------------
@@ -340,22 +498,67 @@ class DocReadOperation:
 
     def _execute_once(self, req: ReadRequest,
                       allow_restart: bool = True) -> ReadResponse:
+        """The reference's route order: point and prefix reads, joins,
+        enumerated reads, the aggregate pushdown, the filter route."""
         self._allow_restart = allow_restart and req.server_assigned_read_ht
         if req.pk_eq is not None or req.pk_prefix is not None:
             raise NotPortedError("point and prefix reads", _POINT_ITEM)
         if req.join is not None and req.aggregates:
             return self._execute_join_aggregate(req)
-        if not req.aggregates:
-            if req.window is not None:
-                raise NotPortedError("window pushdown", _WINDOW_ITEM)
-            raise NotPortedError("row reads (filter and projection)",
-                                 _ROW_ITEM)
-        if not self._tpu_eligible(req):
-            raise NotPortedError(
-                "an aggregate the reference serves on its interpreted "
-                "path (pushdown off, under tpu_min_rows_for_pushdown, or "
-                "an expression the device cannot compile)", _ROW_ITEM)
-        return self._execute_tpu_aggregate(req)
+        filter_shape = (not req.aggregates and req.where is not None
+                        and req.paging_state is None)
+        if filter_shape and self._hash_enumerable(req):
+            # the reference answers by MultiGet in key-enumeration order:
+            # the filter route's rows would be equal but ordered apart
+            raise NotPortedError("an enumerated read (=, IN or a bounded "
+                                 "interval on the hash key)", _POINT_ITEM)
+        if req.aggregates:
+            if not self._tpu_eligible(req):
+                raise NotPortedError(
+                    "an aggregate the reference serves on its interpreted "
+                    "path (pushdown off, under tpu_min_rows_for_pushdown, "
+                    "or an expression the device cannot compile)",
+                    _ROW_ITEM)
+            return self._execute_tpu_aggregate(req)
+        if filter_shape and self._tpu_eligible(req):
+            return self._serve_window(req, self._execute_tpu_filter(req))
+        raise NotPortedError(
+            "a row read the reference serves on its interpreted row path "
+            "(no WHERE, a paging state, pushdown off, under "
+            "tpu_min_rows_for_pushdown, or an expression the device "
+            "cannot compile)", _ROW_ITEM)
+
+    def _hash_enumerable(self, req: ReadRequest) -> bool:
+        """True where the reference's _hash_enumerated_read serves the
+        read: a single-INTEGER-hash-PK table whose WHERE yields =, IN or
+        a bounded interval on the key of at most hash_scan_enumerate_max
+        keys (its applicability test, without the MultiGet)."""
+        info = self.codec.info
+        kcs = info.schema.key_columns
+        if (len(kcs) != 1 or kcs[0].type not in ("int32", "int64")
+                or info.partition_schema.kind != "hash"):
+            return False
+        w = req.where
+        if (w is not None and w[0] == "between" and w[1][0] == "col"
+                and w[1][1] == kcs[0].id and w[2][0] == "const"
+                and w[3][0] == "const"
+                and type(w[2][1]) is int and type(w[3][1]) is int):
+            point_lists, interval = None, (kcs[0], w[2][1], w[3][1])
+        else:
+            point_lists, interval, _ = extract_scan_options(w, kcs)
+        # constants outside the column's width never match a stored key
+        kmin, kmax = ((-2**31, 2**31 - 1) if kcs[0].type == "int32"
+                      else (-2**63, 2**63 - 1))
+        if point_lists:
+            n_keys = sum(1 for k in point_lists[0][1] if kmin <= k <= kmax)
+        elif interval is not None and interval[1] is not None \
+                and interval[2] is not None:
+            lo = max(int(interval[1]), kmin)
+            hi = min(int(interval[2]), kmax)
+            n_keys = max(hi - lo + 1, 0)
+        else:
+            return False
+        return n_keys <= flags.get("hash_scan_enumerate_max")
 
     def _tpu_eligible(self, req: ReadRequest) -> bool:
         if not flags.get("tpu_pushdown_enabled"):
@@ -672,3 +875,173 @@ class DocReadOperation:
         return ReadResponse(agg_values=outs,
                             group_counts=np.asarray(counts),
                             backend="tpu")
+
+    # ---- the filter route of row reads ------------------------------------
+    def _execute_tpu_filter(self, req: ReadRequest) -> ReadResponse:
+        """Filter-pushdown row scan: the WHERE mask on the device
+        (streamed, or one monolithic batch after zone pruning), the
+        matching rows gathered on the host from the columnar blocks in
+        block order.  Where the reference falls to its interpreted row
+        loop the port raises NotPortedError."""
+        blocks = self._collect_blocks()
+        if not blocks:
+            raise NotPortedError("a row read over a tablet with no blocks",
+                                 _ROW_ITEM)
+        from ..ops.expr import referenced_columns
+        from ..ops.stream_scan import chunk_safe_mvcc
+        needed = set(referenced_columns(req.where))
+        by_name = {c.name: c for c in self.codec.schema.columns}
+        proj_cols = ([by_name[n] for n in req.columns] if req.columns
+                     else list(self.codec.schema.columns))
+        read_ht = req.read_ht if req.read_ht is not None else _MAX_HT
+        resp = self._try_streaming_filter(req, blocks, needed, proj_cols,
+                                          read_ht)
+        if resp is not None:
+            return resp
+        kept, prune_key = self._zone_prune(blocks, req.where, read_ht)
+        t0 = time.perf_counter()
+        try:
+            batch = self._cached_batch(kept, needed, prune_key)
+        except KeyError as e:
+            raise NotPortedError(f"a column with no columnar form ({e})",
+                                 _ROW_ITEM) from e
+        # several blocks that may hold versions of one key: dedup mode.
+        # The reference sorts whenever there are several blocks; a
+        # chunk-safe run keeps the visible mode, as the aggregate route
+        # does (the same rows pass, and the cached batch stays one)
+        if len(blocks) > 1 and not chunk_safe_mvcc(blocks):
+            batch.unique_keys = False
+        try:
+            where = rewrite_strings(req.where, batch.dicts)
+        except Unrewritable as e:
+            raise NotPortedError("a string column outside a rewritable "
+                                 f"predicate shape ({e})", _ROW_ITEM) from e
+        _, _, mask = self.kernel.run(batch, where, (), None, read_ht)
+        sel = np.nonzero(mask.cpu().numpy())[0]
+        if req.limit is not None and len(sel) > req.limit:
+            sel = sel[:req.limit]
+        t1 = time.perf_counter()
+        rows = self._gather_rows(kept, sel, proj_cols)
+        if rows is None:
+            raise NotPortedError("a projected column with no columnar "
+                                 "form", _ROW_ITEM)
+        _note_rows("monolithic", rows, t1 - t0, time.perf_counter() - t1)
+        return ReadResponse(rows=rows, backend="tpu")
+
+    def _try_streaming_filter(self, req: ReadRequest, blocks, needed,
+                              proj_cols, read_ht: int
+                              ) -> Optional[ReadResponse]:
+        """The streamed filter route (ops/stream_scan.py
+        streaming_scan_filter): per-chunk WHERE masks on the device while
+        the next chunk's batch forms, rows gathered per chunk.  None
+        falls through to the monolithic batch."""
+        if not flags.get("streaming_scan_enabled"):
+            return None
+        # every block must hold every projected column up front: rows
+        # already emitted cannot be taken back
+        for b in blocks:
+            for c in proj_cols:
+                if not (c.id in b.fixed or c.id in b.pk
+                        or c.id in b.varlen):
+                    return None
+        from ..ops.stream_scan import LAST_STREAM_STATS, streaming_scan_filter
+        cache = self.device_cache
+        key = (self._batch_cache_key(needed) + ("rows",)
+               if cache is not None else None)
+        gather_s = [0.0]
+
+        def materialize(chunk_blocks, sel):
+            t = time.perf_counter()
+            rows = self._gather_rows(chunk_blocks, sel, proj_cols) or []
+            gather_s[0] += time.perf_counter() - t
+            return rows
+
+        rows = streaming_scan_filter(
+            blocks, sorted(needed), req.where, read_ht, materialize,
+            limit=req.limit, kernel=self.kernel, cache=cache,
+            cache_key=key)
+        if rows is None:
+            return None
+        _note_rows("streamed", rows, LAST_STREAM_STATS["kernel_s"],
+                   gather_s[0])
+        return ReadResponse(rows=rows, backend="tpu")
+
+    @staticmethod
+    def _gather_rows(blocks, sel, proj_cols
+                     ) -> Optional[List[Dict[str, object]]]:
+        """Selected row indices (positions in the concatenated block
+        list) as projected row dicts, one pass per (column, block):
+        Python scalars as ``.item()`` gives them, text decoded for
+        STRING, JSON and DECIMAL, raw bytes otherwise, None for nulls.
+        None when a projected column has no columnar form."""
+        from ..dockv.packed_row import ColumnType
+        rows: List[Dict[str, object]] = [dict() for _ in range(len(sel))]
+        offsets = np.cumsum([0] + [b.n for b in blocks])
+        blk_of = np.searchsorted(offsets, sel, side="right") - 1
+        local = sel - offsets[blk_of]
+        for c in proj_cols:
+            name = c.name
+            is_text = c.type in (ColumnType.STRING, ColumnType.JSON,
+                                 ColumnType.DECIMAL)
+            for bi, b in enumerate(blocks):
+                which = np.nonzero(blk_of == bi)[0]
+                if not len(which):
+                    continue
+                li = local[which]
+                if c.id in b.fixed:
+                    vals, nulls = b.fixed[c.id]
+                    for j, v, null in zip(which.tolist(), vals[li].tolist(),
+                                          nulls[li].tolist()):
+                        rows[j][name] = None if null else v
+                elif c.id in b.pk:
+                    for j, v in zip(which.tolist(), b.pk[c.id][li].tolist()):
+                        rows[j][name] = v
+                elif c.id in b.varlen:
+                    ends, heap, nulls = b.varlen[c.id]
+                    for j, i_ in zip(which.tolist(), li.tolist()):
+                        if nulls[i_]:
+                            rows[j][name] = None
+                            continue
+                        lo = int(ends[i_ - 1]) if i_ else 0
+                        raw = heap[lo:int(ends[i_])]
+                        rows[j][name] = raw.decode() if is_text else raw
+                else:
+                    return None
+        return rows
+
+    def _serve_window(self, req: ReadRequest,
+                      resp: ReadResponse) -> ReadResponse:
+        """The server-side window pushdown boundary: a row response whose
+        request carries a WindowWire gets its window values attached
+        here, over the tablet's own post-WHERE rows
+        (ops/window_scan.serve_window_rows).  Every refusal is typed on
+        the response (window_reason) and the rows serve plain."""
+        if req.window is None or req.aggregates:
+            return resp
+        from ..ops.window_scan import (REASON_WINDOW_OFF,
+                                       REASON_WINDOW_PAGED, WINDOW_STATS,
+                                       WindowIneligible,
+                                       default_window_kernel,
+                                       serve_window_rows)
+        try:
+            if not flags.get("window_server_pushdown_enabled"):
+                raise WindowIneligible(REASON_WINDOW_OFF)
+            if req.paging_state is not None or req.limit is not None \
+                    or resp.paging_state is not None:
+                # a paged or limited scan serves a row SUBSET: window
+                # frames need every partition row
+                raise WindowIneligible(REASON_WINDOW_PAGED)
+            serve_window_rows(req.window, resp.rows,
+                              default_window_kernel(self.device))
+        except WindowIneligible as e:
+            WINDOW_STATS["fallbacks"] += 1
+            resp.window_reason = e.reason
+            return resp
+        resp.window_served = True
+        return resp
+
+
+def _note_rows(route: str, rows, kernel_s: float, gather_s: float) -> None:
+    LAST_ROW_STATS.clear()
+    LAST_ROW_STATS.update(route=route, rows=len(rows), kernel_s=kernel_s,
+                          gather_s=gather_s)

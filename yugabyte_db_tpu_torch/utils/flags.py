@@ -164,3 +164,16 @@ REGISTRY.define(
     "one host-built pow2 hash table probed in turn inside one fused plan "
     "under one shared row mask.  More stages are refused with a typed "
     "reason (join_stage_count).")
+REGISTRY.define(
+    "window_server_pushdown_enabled", True,
+    "Serve window functions server-side over a sorted-scan request shape "
+    "(ReadRequest.window through ops/window_scan.py): the tablet sorts its "
+    "visible post-WHERE rows by (partition, order) and attaches the window "
+    "values.  Ineligible shapes serve plain rows with a typed reason on "
+    "the response; off refuses the request shape entirely.")
+REGISTRY.define(
+    "hash_scan_enumerate_max", 1024,
+    "Max enumerable key-target count for answering a short range/IN scan "
+    "over a single-integer-hash-PK table by batched point gets (the "
+    "reference's MultiGet route, which the port refuses: ROADMAP.md queue "
+    "1 item 9a).")
