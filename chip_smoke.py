@@ -129,10 +129,26 @@ Phases (any failed check raises and the script exits non-zero):
      lines (the two-stage search, exact_search, a k-means iteration);
      HNSW at 20,000 x 128 through the registry on the host, built in a
      process of its own beside phases 8 and 9 (`hnsw` line);
-  10. print the kernels line (launches per path: phase 3's scan, phase
+  10. the multi-device tablet mesh (BASELINE.json config 3 at SF1):
+     phase 6's eight hash tablets, their SST blocks in a sharded batch
+     on an 8 x 1 and a 4 x 2 mesh (slot s on card s mod the card count:
+     all on one card here), Q6 and Q1 through distributed_scan_aggregate
+     with no read point and at the tablets' read point, against numpy
+     and against the host combine of Tablet.read (1e-9), the meshes bit
+     for bit, a dynamic-scale Q6 (the cross-shard max pass); the bypass
+     mesh combine over one tablet, and over eight (the reference's
+     ValueError on fewer than eight cards); sharded_exact_search over
+     phase 9's 1M x 768 base in 8 slots against exact_search, and
+     sharded_ann_search over 4 two-stage IVF shards of 50,000 x 128
+     (every list probed, recall@10 >= 0.9); one `mesh` line per query
+     and mesh (wall, rows/s, batch build, slot programs and device
+     activities per query, the combine's ms, host syncs before the
+     rescale, bytes per card), a `profile` line per query, `mesh_vector`
+     and `mesh_ann` lines;
+  11. print the kernels line (launches per path: phase 3's scan, phase
      6's tablet reads, phase 7's joins, phases 8 and 9; and the new
-     paths' plain programs: window program launches, device searches),
-     then the device line last.
+     paths' plain programs: window program launches, device searches,
+     the mesh's slot programs), then the device line last.
 
 It imports nothing of JAX: the port stands alone.
 """
@@ -301,7 +317,7 @@ def expr_nodes(node) -> int:
 
 
 def profile_route(torch, hs, name, card, rows, run, iters,
-                  wall=None) -> list:
+                  wall=None, stats=None) -> list:
     """One `profile` JSON line for a route: wall ms per query on the
     host clock (profiler off), device-busy ms per query from
     torch.profiler (device activities only: kernels and copies, from
@@ -323,7 +339,9 @@ def profile_route(torch, hs, name, card, rows, run, iters,
     caller to fail on: a marker missing, no device activity, a hand
     kernel recorded fewer or more times than its launch count rose, or
     a device activity recorded a number of times that is not a whole
-    multiple of the queries run (each query launches the same work)."""
+    multiple of the queries run (each query launches the same work).
+    `stats`, when given, receives the device activities and busy ms
+    per query."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t_call = time.perf_counter()
@@ -387,6 +405,10 @@ def profile_route(torch, hs, name, card, rows, run, iters,
                         f"{launched}")
     top.sort(reverse=True)
     busy = busy_us / iters / 1e6
+    if stats is not None:
+        stats["activities_per_query"] = sum(c for _, c in
+                                            per_name.values()) / iters
+        stats["device_busy_ms"] = busy * 1e3
     print(json.dumps({"profile": name, "card": card, "wall_ms": wall * 1e3,
                       "device_busy_ms": busy * 1e3,
                       "idle_share": 1.0 - busy / wall,
@@ -986,14 +1008,16 @@ def k3_launches_by_query(kern) -> dict:
 
 def tablet_seam_phase(torch, np, hs, data, card, root,
                       device="cuda", block_rows=TABLET_BLOCK_ROWS,
-                      profile=True) -> dict:
+                      profile=True, keep=None) -> dict:
     """Phase 6: the tablet read seam — Tablet.bulk_load into SSTs, then
     Tablet.read on eight hash tablets (combined by combine_agg_partials)
     and on one streamed tablet, exact and hand routes; a BypassSession
     over the eight tablets with the prefilter on and off against the
     tablet reads at one read point; a range-sharded tablet's zone-pruned
     Q6 with pruning on and off.  Every answer against numpy.  Returns
-    the K3 launches of the phase's reads by query signature."""
+    the K3 launches of the phase's reads by query signature.  `keep`: a
+    dict that receives the eight hash tablets and their read point;
+    their SSTs then stay under root/hash8 for the caller to remove."""
     import shutil
     from yugabyte_db_tpu_torch.bypass import BypassSession
     from yugabyte_db_tpu_torch.docdb import operations as ops
@@ -1223,9 +1247,15 @@ def tablet_seam_phase(torch, np, hs, data, card, root,
                             card, n, lambda q=q, s=sess: s.scan_aggregate(
                                 q.where, q.aggs, q.group), STREAM_ITERS)
         check(not problems, "; ".join(problems))
+        if keep is not None:
+            keep.update(tablets=table8.tablets, read_ht=read_ht)
         return launches
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if keep is None:
+            shutil.rmtree(root, ignore_errors=True)
+        else:
+            for sub in ("hash1", "range"):
+                shutil.rmtree(os.path.join(root, sub), ignore_errors=True)
 
 
 JOIN_BLOCK_ROWS = 65_536        # Tablet.bulk_load's default (bench.py:1897)
@@ -2308,6 +2338,323 @@ def vectors_phase(torch, np, card, seed, root, device="cuda",
         shutil.rmtree(root, ignore_errors=True)
 
 
+#: phase 10: BASELINE.json config 3 ("TPC-H SF=10 Q1 sharded across 8
+#: tablets -> psum", bench.py:2730-2770) at SF1, the sharded vector search
+MESH_SHAPES = ((8, 1), (4, 2))   # tablet x block shards over 8 tablets
+MESH_ITERS = 5                   # warm queries per timed window
+MESH_VECTOR = (1_000_000, 768)   # phase 9's 1M x 768 base, 8 slots
+MESH_ANN = (4, 50_000, 128, 64)  # shards, rows each, dim, lists (all probed)
+
+
+def mesh_phase(torch, np, hs, data, card, tablets, read_ht, seed,
+               device="cuda", vector=MESH_VECTOR, ann=MESH_ANN,
+               profile=True) -> dict:
+    """Phase 10: the multi-device tablet mesh.  Config 3 at SF1: the
+    eight hash tablets' SST blocks (gathered as bench.py:2742-2748
+    does) in a sharded batch on an 8 x 1 and a 4 x 2 mesh (slot s on
+    card s mod the card count), Q6 and Q1 through
+    distributed_scan_aggregate with no read point and at the tablets'
+    read point, each against numpy and against the host combine of
+    Tablet.read over the same tablets, the two meshes bit for bit, and a
+    dynamic-scale Q6 (column stats dropped: the cross-shard max pass).
+    The bypass mesh combine over one tablet, and over the eight (the
+    reference's ValueError on fewer than eight cards).
+    sharded_exact_search on a 1M x 768 base in 8 slots (views of one
+    base) against exact_search; sharded_ann_search over 4 two-stage IVF
+    shards, every list probed.  One `mesh` line per query and mesh, one
+    `profile` line per query, a `mesh_vector` and a `mesh_ann` line.
+    Returns the launches of the two programs on the phase's path."""
+    import dataclasses
+    import warnings
+    from yugabyte_db_tpu_torch.bypass import BypassSession
+    from yugabyte_db_tpu_torch.docdb import operations as ops
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops import vector as pv
+    from yugabyte_db_tpu_torch.ops.scan import (_expand_avg,
+                                                combine_agg_partials,
+                                                needed_probe_columns)
+    from yugabyte_db_tpu_torch.parallel import distributed_scan as pds
+    from yugabyte_db_tpu_torch.parallel import vector as ppv
+    from yugabyte_db_tpu_torch.parallel.mesh import tablet_mesh
+    from yugabyte_db_tpu_torch.vector import TwoStageIvfIndex
+    cuda = torch.device(device).type == "cuda"
+    n = len(data["rowid"])
+    Q6, Q1 = tpch.TPCH_Q6, tpch.TPCH_Q1
+    ref = {"q6": tpch.numpy_reference(Q6, data),
+           "q1": tpch.numpy_reference(Q1, data)}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-300)
+
+    def check_answer(q, vals, counts, what, ref_q=None, exact=None):
+        """Against numpy (revenue 1e-5, Q1 counts and quantity sums
+        exact), or with `exact` (a host combine) within 1e-9, counts
+        exact."""
+        if exact is not None:
+            check(np.array_equal(np.asarray(counts, np.int64),
+                                 np.asarray(exact[1], np.int64)),
+                  f"{what}: counts differ from the host combine")
+            for i, (a, b) in enumerate(zip(vals, exact[0])):
+                a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+                check(bool(np.all(np.abs(a - b) <= 1e-9 * np.abs(b))),
+                      f"{what}: agg {i} off the host combine by more than "
+                      "1e-9")
+            return
+        r_q = ref[q.name] if ref_q is None else ref_q
+        if q is Q1:
+            for g in range(6):
+                qsum, psum, cnt = r_q[g]
+                check(int(counts[g]) == cnt, f"{what}: Q1 count g{g}")
+                check(float(vals[0][g]) == qsum,
+                      f"{what}: Q1 qty sum g{g} not exact")
+                check(rel(vals[1][g], psum) < 1e-5,
+                      f"{what}: Q1 price sum g{g}")
+            return
+        r = rel(vals[0], r_q)
+        check(r < 1e-5, f"{what}: Q6 relative error {r}")
+
+    def host_combine(q):
+        resps = [t.read(ops.ReadRequest(
+            "lineitem", where=q.where, aggregates=q.aggs, group_by=q.group,
+            read_ht=read_ht)) for t in tablets]
+        return combine_agg_partials(
+            tuple(_expand_avg(q.aggs)), [r.agg_values for r in resps],
+            [r.group_counts for r in resps])
+
+    def blocks_of(t):
+        return [r.columnar_block(i) for r in t.regular.ssts
+                for i in range(r.num_blocks())]
+
+    n_cards = torch.cuda.device_count() if cuda else 1
+    devices = [torch.device("cuda", s % n_cards) if cuda
+               else torch.device("cpu") for s in range(8)]
+    kern = pds._DEFAULT
+    kern.launches = 0
+    ppv.LAUNCHES["sharded_exact_search"] = 0
+    hosts = {q.name: host_combine(q) for q in (Q6, Q1)}
+    for q in (Q6, Q1):
+        check_answer(q, hosts[q.name][0], hosts[q.name][1],
+                     f"host combine {q.name}")
+    t0 = time.perf_counter()
+    shard_blocks = [blocks_of(t) for t in tablets]
+    collect_s = time.perf_counter() - t0
+    check(sum(b.n for bl in shard_blocks for b in bl) == n,
+          "the tablets' blocks lost rows")
+    answers = {}
+    problems = []
+    for T, B in MESH_SHAPES:
+        tm = tablet_mesh(T, B, devices=devices)
+        t0 = time.perf_counter()
+        batch = pds.build_sharded_batch(tm, shard_blocks,
+                                        sorted(Q1.columns))
+        sync()
+        build_s = time.perf_counter() - t0
+        mesh = f"{T}x{B}"
+        for q in (Q6, Q1):
+            for mode, rh in (("none", None), ("visible", read_ht)):
+                vals, counts = pds.distributed_scan_aggregate(
+                    batch, q.where, q.aggs, q.group, rh)
+                what = f"mesh {mesh} {q.name} {mode}"
+                check_answer(q, vals, counts, what)
+                check_answer(q, vals, counts, what, exact=hosts[q.name])
+                answers[(mesh, q.name, mode)] = (vals, counts)
+            # timed and profiled with no read point, like phase 4's
+            # monolithic exact route
+            run = lambda q=q: pds.distributed_scan_aggregate(  # noqa: E731
+                batch, q.where, q.aggs, q.group)
+            before = kern.launches
+            run()
+            launches = kern.launches - before
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(MESH_ITERS):
+                run()
+            sync()
+            wall = (time.perf_counter() - t0) / MESH_ITERS
+            # the combine alone, and the host syncs before the rescale
+            aggs, raws = kern.shard_partials(batch, q.where, q.aggs,
+                                             q.group)
+            combine_ms = (cuda_ms(torch, lambda: kern.combine(tm, aggs, raws),
+                                  20) if cuda else None)
+            syncs = None
+            if cuda:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        aggs, raws = kern.shard_partials(
+                            batch, q.where, q.aggs, q.group)
+                        kern.combine(tm, aggs, raws)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                # one warning per synchronizing call (the mode's own
+                # notice that it is a prototype is not one)
+                found = [f"{w.filename}:{w.lineno}: {w.message}"
+                         for w in caught
+                         if "synchroniz" in str(w.message)
+                         and "prototype" not in str(w.message)]
+                syncs = len(found)
+                check(syncs == 0, f"mesh {mesh} {q.name}: {syncs} host "
+                      f"syncs before the rescale: {found[:4]}")
+            stats: dict = {}
+            if profile and mesh == "8x1":
+                problems += profile_route(torch, hs, f"mesh8_{q.name}", card,
+                                          n, run, PROFILE_ITERS, wall,
+                                          stats=stats)
+            # the least time for the work: each lane the query reads
+            # (its columns, their NULL lanes, valid) once, every slot
+            row_bytes = 1 + sum(
+                batch.cols[c][0].element_size() + 1
+                for c in needed_probe_columns(q.where, q.aggs, q.group))
+            bms = (row_bytes * batch.padded_rows * batch.num_shards
+                   / HBM_BYTES_PER_S * 1e3)
+            print(json.dumps({
+                "mesh": mesh, "query": q.name, "card": card, "cards": n_cards,
+                "rows": n, "padded_rows_per_slot": batch.padded_rows,
+                "wall_ms": wall * 1e3, "rows_per_s": n / wall,
+                "collect_blocks_s": collect_s,
+                "build_sharded_batch_s": build_s,
+                "slot_programs_per_query": launches,
+                "device_activities_per_query": stats.get(
+                    "activities_per_query"),
+                "device_busy_ms": stats.get("device_busy_ms"),
+                "bound_ms": bms, "bound_by": "bytes",
+                "combine_ms": combine_ms,
+                "host_syncs_before_rescale": syncs,
+                "bytes_per_card": batch.bytes_by_device()}))
+        if mesh == "8x1":
+            # one SUM on the dynamic scale: no column stats, so the
+            # cross-shard max pass runs on the card before quantizing
+            passes = kern.vmax_passes
+            bare = dataclasses.replace(batch, col_bounds={})
+            vals, counts = pds.distributed_scan_aggregate(bare, Q6.where,
+                                                          Q6.aggs)
+            check(kern.vmax_passes == passes + 1,
+                  "the dynamic-scale Q6 ran no cross-shard max pass")
+            check_answer(Q6, vals, counts, "mesh 8x1 q6 dynamic scale")
+            print(json.dumps({"mesh_dynamic_scale": "q6", "card": card,
+                              "revenue": float(vals[0]),
+                              "rel_err": rel(vals[0], ref["q6"])}))
+        del batch
+    for key in answers:
+        if key[0] == "4x2":
+            a, b = answers[key], answers[("8x1",) + key[1:]]
+            check(np.asarray(a[1]).tobytes() == np.asarray(b[1]).tobytes()
+                  and all(np.asarray(x).tobytes() == np.asarray(y).tobytes()
+                          for x, y in zip(a[0], b[0])),
+                  f"meshes 4x2 and 8x1 differ on {key[1:]}")
+    check(not problems, "; ".join(problems))
+    scan_launches = kern.launches
+
+    # --- the bypass mesh combine ------------------------------------------
+    one = shard_blocks[0]
+    cols = {name: np.concatenate([b.fixed[cid][0] for b in one])
+            for cid, name in ((tpch.QTY, "l_quantity"),
+                              (tpch.EXTPRICE, "l_extendedprice"),
+                              (tpch.DISCOUNT, "l_discount"),
+                              (tpch.SHIPDATE, "l_shipdate"))}
+    with BypassSession(tablets[:1], read_ht=read_ht, device=device) as sess:
+        vals, counts, st = sess.scan_aggregate(Q6.where, Q6.aggs,
+                                               combine="mesh")
+    check(st["combine"] == "mesh" and st["shards_scanned"] == 1,
+          f"bypass mesh stats {st}")
+    check_answer(Q6, vals, counts, "bypass mesh, one tablet",
+                 ref_q=tpch.numpy_reference(Q6, cols))
+    with BypassSession(tablets, read_ht=read_ht, device=device) as sess:
+        if cuda and n_cards < len(tablets):
+            try:
+                sess.scan_aggregate(Q6.where, Q6.aggs, combine="mesh")
+                check(False, "an 8-tablet mesh combine ran on "
+                      f"{n_cards} card(s)")
+            except ValueError as e:
+                print(json.dumps({"bypass_mesh": 8, "cards": n_cards,
+                                  "refused": str(e)}))
+        else:
+            vals, counts, st = sess.scan_aggregate(Q6.where, Q6.aggs,
+                                                   combine="mesh")
+            check_answer(Q6, vals, counts, "bypass mesh, eight tablets")
+            print(json.dumps({"bypass_mesh": 8, "cards": n_cards,
+                              "revenue": float(vals[0])}))
+
+    # --- sharded vector search ---------------------------------------------
+    vn, vd = vector
+    k, S = VECTOR_K, 8
+    gen = torch.Generator(device=devices[0]).manual_seed(seed)
+    base = torch.randn(vn, vd, generator=gen, device=devices[0])
+    q = base[:VECTOR_QUERIES].cpu().numpy() + 0.001
+    n_shard = vn // S
+    views = [base[s * n_shard:(s + 1) * n_shard] for s in range(S)]
+    tm = tablet_mesh(S, 1, devices=[devices[0]] * S)
+    before = ppv.LAUNCHES["sharded_exact_search"]
+    sd, si = ppv.sharded_exact_search(tm, q, views, k)
+    search_launches = ppv.LAUNCHES["sharded_exact_search"] - before
+    check(np.array_equal(si[:, 0], np.arange(VECTOR_QUERIES)),
+          "sharded exact search: a top-1 is not its own row")
+    wd, wi = pv.exact_search(torch.from_numpy(q).to(devices[0]),
+                             base[:n_shard * S], k + 1)
+    wd, wi = wd.cpu().numpy(), wi.cpu().numpy()
+    untied = [r for r in range(len(q))
+              if wd[r, k] - wd[r, k - 1] > 1e-4 * wd[r, k]]
+    check(all(set(si[r].tolist()) == set(wi[r, :k].tolist())
+              for r in untied),
+          "sharded exact search: ids differ from exact_search")
+    dist_err = float(np.max(np.abs(sd - wd[:, :k])
+                            / np.maximum(np.abs(wd[:, :k]), 1e-30)))
+    check(dist_err <= 1e-3, f"sharded exact search: distances off by "
+          f"{dist_err} relative")
+    ms = (cuda_ms(torch, lambda: ppv.sharded_exact_search(tm, q, views, k),
+                  3, warmup=1, rounds=3, queued=False) if cuda else None)
+    bms = vn * vd * 4 / HBM_BYTES_PER_S * 1e3
+    print(json.dumps({"mesh_vector": f"{vn}_x_{vd}", "card": card,
+                      "slots": S, "queries": len(q), "k": k,
+                      "untied_queries": len(untied),
+                      "max_rel_dist_err": dist_err, "ms_per_batch": ms,
+                      "bound_ms": bms, "bound_by": "bytes",
+                      "share_of_bound": bms / ms if ms else None}))
+    del base, views
+    n_ann, an, ad, nlists = ann
+    gen = torch.Generator(device=devices[0]).manual_seed(seed + 1)
+    abase = torch.randn(n_ann * an, ad, generator=gen,
+                        device=devices[0]).cpu().numpy()
+    aq = abase[::(n_ann * an) // VECTOR_QUERIES][:VECTOR_QUERIES] + 0.001
+    t0 = time.perf_counter()
+    indexes = [TwoStageIvfIndex.build(abase[i * an:(i + 1) * an],
+                                      nlists=nlists, iters=5,
+                                      sample=VECTOR_SAMPLE, seed=seed,
+                                      device=devices[0])
+               for i in range(n_ann)]
+    sync()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ad_, ai = ppv.sharded_ann_search(aq, indexes, k, nprobe=nlists)
+    search_s = time.perf_counter() - t0
+    check(bool(((ai >= 0) & (ai < n_ann * an)).all()),
+          "sharded ANN search: an invalid id")
+    check(bool((np.diff(ad_, axis=1) >= -1e-5).all()),
+          "sharded ANN search: distances decrease")
+    ab = torch.from_numpy(abase).to(devices[0])
+    aqd = torch.from_numpy(aq).to(devices[0])
+    dist = ((aqd * aqd).sum(1)[:, None] + pv.sq_norms(ab)[None, :]
+            - 2.0 * pv.mm_f32(aqd, ab))
+    aref = torch.topk(-dist, k, dim=1).indices.cpu().numpy()
+    recall = float(np.mean([len(set(ai[r]) & set(aref[r])) / k
+                            for r in range(len(aq))]))
+    check(recall >= 0.9, f"sharded ANN search recall@10 {recall} < 0.9")
+    print(json.dumps({"mesh_ann": f"{n_ann}_x_{an}_x_{ad}", "card": card,
+                      "nlists": nlists, "nprobe": nlists,
+                      "build_s": build_s, "search_ms": search_s * 1e3,
+                      "recall_at_10": recall}))
+    print(f"[phase 10] mesh OK; distributed_scan slot programs "
+          f"{scan_launches}, sharded_exact_search slot programs "
+          f"{search_launches}")
+    return {"distributed_scan": scan_launches,
+            "sharded_exact_search": search_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2645,10 +2992,12 @@ def main(argv=None) -> int:
     phase_time("5 compaction")
 
     # --- phase 6: the tablet read seam -----------------------------------
-    seam = tablet_seam_phase(
-        torch, np, hs, data, card,
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                     "tablet_smoke"))
+    # (its eight hash tablets stay for phase 10's mesh)
+    tablet_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "tablet_smoke")
+    kept: dict = {}
+    seam = tablet_seam_phase(torch, np, hs, data, card, tablet_root,
+                             keep=kept)
 
     phase_time("6 tablet seam")
 
@@ -2702,14 +3051,20 @@ def main(argv=None) -> int:
                                  hnsw=(hnsw_proc, hnsw_path))
         vector_hand = {k: v - hand_before.get(k, 0)
                        for k, v in hs.LAUNCHES.items()}
+        phase_time("9 vectors")
+
+        # --- phase 10: the multi-device tablet mesh -----------------------
+        meshed = mesh_phase(torch, np, hs, data, card, kept["tablets"],
+                            kept["read_ht"], args.seed)
+        phase_time("10 mesh")
     finally:
         if hnsw_proc.is_alive():
             hnsw_proc.terminate()
         hnsw_proc.join(timeout=30)
         shutil.rmtree(hnsw_root, ignore_errors=True)
-    phase_time("9 vectors")
+        shutil.rmtree(tablet_root, ignore_errors=True)
 
-    # --- phase 10: report ------------------------------------------------
+    # --- phase 11: report ------------------------------------------------
     for k in kernels:
         scan_path = launches.get(k["name"], per_query.get(k["name"], 0))
         k["launches_by_path"] = {"scan": scan_path,
@@ -2724,7 +3079,8 @@ def main(argv=None) -> int:
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     # the new paths' plain torch programs (no hand kernel): the window
-    # program's launches on phase 8's reads and phase 9's device searches
+    # program's launches on phase 8's reads, phase 9's device searches
+    # and phase 10's slot programs
     programs = [{"name": "window_program", "path": "rows_windows",
                  "source": "yugabyte_db_tpu_torch/ops/window_scan.py",
                  "launches": rowed["window_program"]},
@@ -2733,7 +3089,14 @@ def main(argv=None) -> int:
                  "launches": vectored["two_stage_search"]},
                 {"name": "exact_search", "path": "vectors",
                  "source": "yugabyte_db_tpu_torch/ops/vector.py",
-                 "launches": vectored["exact_search"]}]
+                 "launches": vectored["exact_search"]},
+                {"name": "distributed_scan", "path": "mesh",
+                 "source": "yugabyte_db_tpu_torch/parallel/"
+                           "distributed_scan.py",
+                 "launches": meshed["distributed_scan"]},
+                {"name": "sharded_exact_search", "path": "mesh",
+                 "source": "yugabyte_db_tpu_torch/parallel/vector.py",
+                 "launches": meshed["sharded_exact_search"]}]
     check(all(p["launches"] > 0 for p in programs),
           f"a program of the new paths never ran: {programs}")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}

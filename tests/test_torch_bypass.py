@@ -396,13 +396,10 @@ def test_refusals_of_what_is_not_ported(shards):
     _, pts = shards[("hash", 1)]
     q = tpch.TPCH_Q6
     with pbp.BypassSession(pts, read_ht=READ_HT, device="cpu") as s:
-        with pytest.raises(NotPortedError, match="item 8"):
-            s.scan_aggregate(q.where, q.aggs, combine="mesh")
-        # joins run through the fused plan now; over the mesh combine
-        # they stay refused with it
+        # the mesh combine serves no join, as in the reference
         join = pjs.JoinWire(probe_col=tpch.ROWID,
                             keys=np.arange(4, dtype=np.int64))
-        with pytest.raises(NotPortedError, match="item 8"):
+        with pytest.raises(ValueError, match="mesh combine does not serve"):
             s.scan_aggregate(q.where, q.aggs, combine="mesh", join=join)
         with pytest.raises(NotPortedError, match="item 9"):
             s.scan_aggregate(("cmp", "gt", ("json", "->", ("col", 1), "a"),
@@ -410,6 +407,108 @@ def test_refusals_of_what_is_not_ported(shards):
     assert s.closed
     with pytest.raises(RuntimeError, match="closed"):
         s.scan_aggregate(q.where, q.aggs)
+
+
+# --- the mesh combine -------------------------------------------------------------
+@pytest.mark.parametrize("mode", ["float32", "float64"])
+@pytest.mark.parametrize("query,n_tablets", [("q6", 1), ("q6", 8), ("q1", 8)])
+def test_mesh_combine_matches_reference(shards, data, query, n_tablets,
+                                        mode):
+    """combine="mesh" over CPU slots against the reference's mesh combine
+    on its 8 virtual CPU devices: the same sharded batch and program,
+    hence the same bits; and within 1e-6 of numpy, the reference test's
+    bar (tests/test_bypass_reader.py::test_mesh_combine_psum)."""
+    kind, q = QUERIES[query]
+    jts, pts = shards[(kind, n_tablets)]
+    with _flags(mode):
+        with pbp.BypassSession(pts, read_ht=READ_HT, device="cpu") as ps, \
+                jbp.BypassSession(jts, read_ht=READ_HT) as js:
+            pv, pc, pst = ps.scan_aggregate(q.where, q.aggs, q.group,
+                                            combine="mesh")
+            jv, jc, jst = js.scan_aggregate(q.where, to_jax_aggs(q.aggs),
+                                            to_jax_group(q.group),
+                                            combine="mesh")
+    assert_same_answer(pv, pc, jv, jc, what="mesh vs reference mesh")
+    assert pst == jst
+    assert pst["combine"] == "mesh" and pst["shards_scanned"] == n_tablets
+    if query == "q6":
+        ref = tpch.numpy_reference(q, data)
+        assert abs(float(pv[0]) - ref) <= 1e-6 * abs(ref)
+    else:
+        for g, (qsum, psum, cnt) in tpch.numpy_reference(q, data).items():
+            assert int(pc[g]) == cnt and float(pv[0][g]) == qsum
+            assert abs(float(pv[1][g]) - psum) <= 1e-6 * abs(psum)
+
+
+def test_mesh_combine_equals_the_host_combine(shards):
+    """Mesh and host combines of one session agree: counts exact, sums
+    within 1e-9 relative (one scale over all shards against one per
+    shard)."""
+    _, pts = shards[("hash", 8)]
+    q = tpch.TPCH_Q1
+    with _flags(), pbp.BypassSession(pts, read_ht=READ_HT,
+                                     device="cpu") as s:
+        mv, mc, _ = s.scan_aggregate(q.where, q.aggs, q.group,
+                                     combine="mesh")
+        hv, hc, _ = s.scan_aggregate(q.where, q.aggs, q.group)
+    assert np.array_equal(np.asarray(mc), np.asarray(hc))
+    for a, b in zip(mv, hv):
+        np.testing.assert_allclose(np.asarray(a, np.float64),
+                                   np.asarray(b, np.float64), rtol=1e-9)
+
+
+@pytest.mark.parametrize("shape", ["dict", "hash"])
+def test_mesh_combine_refuses_unserved_group_shapes(shards, shape):
+    """A dict-grouped scan: the reference's ValueError, in both packages.
+    A hash group: the reference fails on unpacking its int column ids
+    (TypeError); the port refuses with a ValueError naming the shape."""
+    kind, n = ("str", 1) if shape == "dict" else ("hash", 8)
+    jts, pts = shards[(kind, n)]
+    if shape == "dict":
+        q = QUERIES["q1_str"][1]
+        where, aggs, group = q.where, q.aggs, q.group
+        perr, jerr, match = ValueError, ValueError, "dict-grouped"
+    else:
+        where, aggs, group = _reason_case("hash_group")
+        perr, jerr, match = ValueError, TypeError, "HashGroupSpec"
+    with _flags():
+        with pbp.BypassSession(pts, read_ht=READ_HT, device="cpu") as ps, \
+                jbp.BypassSession(jts, read_ht=READ_HT) as js:
+            with pytest.raises(jerr):
+                js.scan_aggregate(where, to_jax_aggs(aggs),
+                                  to_jax_group(group), combine="mesh")
+            with pytest.raises(perr, match=match):
+                ps.scan_aggregate(where, aggs, group, combine="mesh")
+
+
+def test_mesh_combine_refuses_a_shard_that_is_not_chunk_safe(tmp_path, data):
+    jts, pts = tablet_pair(str(tmp_path), "hash", data, n_tablets=2,
+                           loads=((0, None), (10, None)))
+    q = tpch.TPCH_Q6
+    reasons = []
+    with _flags():
+        for bp, ts, kw, aggs in ((pbp, pts, {"device": "cpu"}, q.aggs),
+                                 (jbp, jts, {}, to_jax_aggs(q.aggs))):
+            with bp.BypassSession(ts, read_ht=READ_HT, **kw) as s:
+                with pytest.raises(bp.BypassIneligible) as ei:
+                    s.scan_aggregate(q.where, aggs, None, combine="mesh")
+            reasons.append(ei.value.reason)
+    assert reasons == ["not_chunk_safe"] * 2
+
+
+def test_mesh_combine_on_cuda_needs_a_card_per_shard(shards, monkeypatch):
+    """A CUDA session takes one card per shard and raises the
+    reference's ValueError when the machine has fewer (here: a session
+    that believes it is on a one-card machine; nothing runs)."""
+    import torch
+    _, pts = shards[("hash", 8)]
+    q = tpch.TPCH_Q6
+    with pbp.BypassSession(pts, read_ht=READ_HT, device="cpu") as s:
+        s.device = torch.device("cuda", 0)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="mesh combine needs 8 "
+                                             "devices, backend has 1"):
+            s.scan_aggregate(q.where, q.aggs, None, combine="mesh")
 
 
 def test_session_defaults_to_cuda(shards):

@@ -9,7 +9,11 @@ on the CPU; the join probe kernel (CUDA C++, csrc/join_probe.cu)
 against its plain version, and fused join reads on the card against
 the CPU, bit for bit; the window segment program, windowed row reads
 and the vector searches (bf16 products on the card) against their CPU
-runs.
+runs; the distributed scan on a 2-slot mesh of the one card against the
+same mesh on CPU slots, and the sharded exact search against
+exact_search; on a machine with several cards, the mesh with its slots
+spread over every card, and the bypass mesh combine with one card per
+shard.
 Every test here needs a GPU and skips without one; the file imports
 nothing of JAX, so it runs where JAX is not installed:
 
@@ -698,3 +702,176 @@ def test_cuda_flat_index_matches_cpu(cuda_device, nq):
     assert np.array_equal(gi[:, 0], np.arange(nq))
     overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(gi, wi)])
     assert overlap >= 0.9, overlap
+
+
+def _mesh_batches(devices, q, dynamic):
+    """A 2-slot sharded batch of SF-small lineitem blocks (even and odd
+    blocks) on `devices`, lanes in f32 on both devices."""
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.parallel import tablet_mesh
+    from yugabyte_db_tpu_torch.parallel.distributed_scan import \
+        build_sharded_batch
+    from yugabyte_db_tpu_torch.utils import flags
+    from torch_parity import lineitem_data, port_blocks
+    blocks = port_blocks(lineitem_data(20 * 4096 + 333, seed=3))
+    with flags.overridden("device_float_dtype", "float32"):
+        batch = build_sharded_batch(tablet_mesh(2, devices=devices),
+                                    [blocks[::2], blocks[1::2]],
+                                    sorted(q.columns))
+    if dynamic:                # no column stats: the cross-shard max pass
+        batch.col_bounds.clear()
+    return batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dynamic", [False, True])
+@pytest.mark.parametrize("read_ht", [None, 1000])
+@pytest.mark.parametrize("query", ["q6", "q1"])
+def test_cuda_mesh_scan_matches_cpu_mesh(cuda_device, query, read_ht,
+                                         dynamic):
+    """A 2-slot mesh on the one card against the same mesh on CPU slots:
+    counts exact, SUMs within 1e-9 relative."""
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.parallel.distributed_scan import \
+        DistributedScanKernel
+    q = tpch.TPCH_Q6 if query == "q6" else tpch.TPCH_Q1
+    kern = DistributedScanKernel()
+    got = kern.run(_mesh_batches([cuda_device] * 2, q, dynamic), q.where,
+                   q.aggs, q.group, read_ht)
+    assert kern.launches == 2 and kern.vmax_passes == int(dynamic)
+    want = DistributedScanKernel().run(
+        _mesh_batches(["cpu"] * 2, q, dynamic), q.where, q.aggs, q.group,
+        read_ht)
+    assert np.array_equal(got[1], want[1])
+    for a, b in zip(got[0], want[0]):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype
+        if a.dtype.kind in "iu":
+            assert np.array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", [(2, 1), (2, 2)])
+def test_cuda_sharded_exact_search_matches_exact_search(cuda_device, T, B):
+    """Slots as views of one base on the card against exact_search over
+    the whole base: own rows first, distances within 1e-5 of |q|^2 +
+    |b|^2, the same ids wherever the distances are not tied."""
+    from yugabyte_db_tpu_torch.ops import vector as pv
+    from yugabyte_db_tpu_torch.parallel import (sharded_exact_search,
+                                                tablet_mesh)
+    base, q = _vector_corpus()
+    S = T * B
+    whole = torch.from_numpy(base).to(cuda_device)
+    n_shard = len(base) // S
+    views = [whole[s * n_shard:(s + 1) * n_shard] for s in range(S)]
+    tm = tablet_mesh(T, B, devices=[cuda_device] * S)
+    gd, gi = sharded_exact_search(tm, q, views, 10)
+    wd, wi = pv.exact_search(q, whole, 11, device=cuda_device)
+    wd, wi = wd.cpu().numpy(), wi.cpu().numpy()
+    assert np.array_equal(gi[:, 0], np.arange(64))
+    scale = (q * q).sum(1)[:, None] + 2.0 * (base * base).sum(1).max()
+    assert np.all(np.abs(gd - wd[:, :10]) <= 1e-5 * scale)
+    for g, d, w in zip(gi, wd, wi):
+        if d[10] - d[9] > 1e-4 * d[10]:
+            assert set(g.tolist()) == set(w[:10].tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dynamic", [False, True])
+@pytest.mark.parametrize("query", ["q6", "q1"])
+def test_cuda_mesh_across_cards_matches_cpu_mesh(cuda_device, query,
+                                                 dynamic):
+    """Slots on distinct cards (slot s on card s mod the card count, two
+    slots a card): the partials and the cross-shard maxima cross cards
+    by device-to-device copies; the answer equals the CPU mesh's."""
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.parallel.distributed_scan import \
+        DistributedScanKernel
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    q = tpch.TPCH_Q6 if query == "q6" else tpch.TPCH_Q1
+    devices = [torch.device("cuda", s % cards) for s in range(2 * cards)]
+    got = DistributedScanKernel().run(
+        _split_batch(devices, q, dynamic), q.where, q.aggs, q.group, 1000)
+    want = DistributedScanKernel().run(
+        _split_batch(["cpu"] * len(devices), q, dynamic), q.where, q.aggs,
+        q.group, 1000)
+    assert np.array_equal(got[1], want[1])
+    for a, b in zip(got[0], want[0]):
+        np.testing.assert_allclose(np.asarray(a, np.float64),
+                                   np.asarray(b, np.float64), rtol=1e-9,
+                                   atol=0)
+
+
+def _split_batch(devices, q, dynamic):
+    """A sharded batch of small lineitem blocks, one block list a slot,
+    lanes in f32 on every device."""
+    from yugabyte_db_tpu_torch.parallel import tablet_mesh
+    from yugabyte_db_tpu_torch.parallel.distributed_scan import \
+        build_sharded_batch
+    from yugabyte_db_tpu_torch.utils import flags
+    from torch_parity import lineitem_data, port_blocks
+    S = len(devices)
+    blocks = port_blocks(lineitem_data(S * 4096 + 333, seed=4))
+    with flags.overridden("device_float_dtype", "float32"):
+        batch = build_sharded_batch(tablet_mesh(S, devices=devices),
+                                    [blocks[s::S] for s in range(S)],
+                                    sorted(q.columns))
+    if dynamic:
+        batch.col_bounds.clear()
+    return batch
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_exact_search_across_cards(cuda_device):
+    """A numpy base in one slot per card: each slot's rows go to its
+    card; the merge on card 0 equals exact_search on card 0."""
+    from yugabyte_db_tpu_torch.ops import vector as pv
+    from yugabyte_db_tpu_torch.parallel import (sharded_exact_search,
+                                                tablet_mesh)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    base, q = _vector_corpus(n=4096 * cards)
+    tm = tablet_mesh(devices=[torch.device("cuda", c)
+                              for c in range(cards)])
+    gd, gi = sharded_exact_search(tm, q, base.reshape(cards, 4096, -1), 10)
+    wd, wi = pv.exact_search(q, base, 11, device=cuda_device)
+    wd, wi = wd.cpu().numpy(), wi.cpu().numpy()
+    assert np.array_equal(gi[:, 0], np.arange(64))
+    scale = (q * q).sum(1)[:, None] + 2.0 * (base * base).sum(1).max()
+    assert np.all(np.abs(gd - wd[:, :10]) <= 1e-5 * scale)
+    for g, d, w in zip(gi, wd, wi):
+        if d[10] - d[9] > 1e-4 * d[10]:
+            assert set(g.tolist()) == set(w[:10].tolist())
+
+
+@pytest.mark.cuda
+def test_cuda_bypass_mesh_one_card_per_shard(cuda_device, tmp_path):
+    """A session over as many tablets as there are cards: the mesh
+    combine puts shard i on card i and equals the host combine (counts
+    exact, sums within 1e-9: one scale for all shards against one per
+    shard)."""
+    from yugabyte_db_tpu_torch.bypass import BypassSession
+    from yugabyte_db_tpu_torch.models import tpch
+    from torch_parity import lineitem_data
+    cards = torch.cuda.device_count()
+    table = tpch.LineitemTable(str(tmp_path), num_tablets=cards,
+                               device=cuda_device)
+    table.load(lineitem_data(cards * 3 * 4096, seed=6), block_rows=4096)
+    read_ht = max(t.clock.now().value for t in table.tablets)
+    for q in (tpch.TPCH_Q6, tpch.TPCH_Q1):
+        with BypassSession(table.tablets, read_ht=read_ht,
+                           device=cuda_device) as s:
+            mv, mc, st = s.scan_aggregate(q.where, q.aggs, q.group,
+                                          combine="mesh")
+            hv, hc, _ = s.scan_aggregate(q.where, q.aggs, q.group)
+        assert st["combine"] == "mesh" and st["shards_scanned"] == cards
+        assert np.array_equal(np.asarray(mc), np.asarray(hc))
+        for a, b in zip(mv, hv):
+            np.testing.assert_allclose(np.asarray(a, np.float64),
+                                       np.asarray(b, np.float64),
+                                       rtol=1e-9, atol=0)

@@ -384,7 +384,11 @@ def test_bypass_typed_reasons(int_tablets):
                     ps.scan_aggregate(WHERE, AGGS, group, join=pwire)
             assert pe.value.reason == je.value.reason == reason
             assert pe.value.detail == je.value.detail
-        with pytest.raises(NotPortedError, match="item 8"):
+        # the mesh combine serves no join, in either package
+        with pytest.raises(ValueError, match="mesh combine does not serve"):
+            js.scan_aggregate(WHERE, to_jax_aggs(AGGS), to_jax_group(GROUP),
+                              combine="mesh", join=jw)
+        with pytest.raises(ValueError, match="mesh combine does not serve"):
             ps.scan_aggregate(WHERE, AGGS, GROUP, combine="mesh", join=pw)
 
 

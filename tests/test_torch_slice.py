@@ -221,6 +221,13 @@ def test_import_check_covers_rows_windows_and_vectors():
             "vector/hnsw.py"} <= names
 
 
+def test_import_check_covers_the_mesh():
+    names = {str(p.relative_to(PORT)) for p in _port_sources()
+             if PORT in p.parents}
+    assert {"parallel/__init__.py", "parallel/mesh.py",
+            "parallel/distributed_scan.py", "parallel/vector.py"} <= names
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
@@ -350,6 +357,40 @@ def test_rows_windows_and_vectors_run_without_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     n_rows, top_rank = map(int, out.stdout.split())
     assert 0 < top_rank <= n_rows
+
+
+def test_mesh_runs_without_jax():
+    """A Q6 through build_sharded_batch and distributed_scan_aggregate
+    on a 2-slot CPU mesh, and a sharded exact search, in an interpreter
+    where jax and msgpack cannot be imported."""
+    code = (_BLOCKED +
+            "import numpy as np\n"
+            "from yugabyte_db_tpu_torch.docdb.table_codec import TableCodec\n"
+            "from yugabyte_db_tpu_torch.models import tpch\n"
+            "from yugabyte_db_tpu_torch.parallel import (tablet_mesh,"
+            " sharded_exact_search)\n"
+            "from yugabyte_db_tpu_torch.parallel.distributed_scan import ("
+            "build_sharded_batch, distributed_scan_aggregate)\n"
+            "from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime\n"
+            "data = tpch.generate_lineitem(0.002, seed=1)\n"
+            "blocks = TableCodec(tpch.lineitem_info()).bulk_blocks("
+            "data, HybridTime(1000), block_rows=4096)\n"
+            "tm = tablet_mesh(2, devices=['cpu', 'cpu'])\n"
+            "b = build_sharded_batch(tm, [blocks[::2], blocks[1::2]],"
+            " sorted(tpch.TPCH_Q6.columns))\n"
+            "(rev,), cnt = distributed_scan_aggregate(b, tpch.TPCH_Q6.where,"
+            " tpch.TPCH_Q6.aggs, read_ht=1000)\n"
+            "ref = tpch.numpy_reference(tpch.TPCH_Q6, data)\n"
+            "assert abs(float(rev) - ref) <= 1e-9 * abs(ref)\n"
+            "base = np.random.default_rng(0).normal(size=(2, 100, 8))"
+            ".astype(np.float32)\n"
+            "_, ids = sharded_exact_search(tm, base[1, :4] + 0.001, base, 3)\n"
+            "assert (ids[:, 0] == 100 + np.arange(4)).all()\n"
+            "print(int(cnt))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) > 0
 
 
 def test_flag_override_restores_on_exit():

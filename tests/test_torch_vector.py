@@ -27,6 +27,7 @@ from yugabyte_db_tpu_torch.vector import HnswIndex as PHnsw
 from yugabyte_db_tpu_torch.vector import TwoStageIvfIndex as PIvf
 from yugabyte_db_tpu_torch.vector import ivf as pivf
 from yugabyte_db_tpu_torch.vector import registry as preg
+from tests.torch_parity import ids_agree
 
 N, DIM, K = 6000, 32, 10
 RTOL = 1e-5
@@ -67,19 +68,6 @@ def test_distances_match_reference(corpus, fn):
                                atol=RTOL * np.abs(want).max())
 
 
-def _ids_agree(got_ids, want_d_k1, want_ids, k):
-    """Per query: the id sets are equal where the reference's k-th and
-    (k+1)-th distances differ by more than 1e-4 relative (else a tie
-    within rounding may order them either way)."""
-    checked = 0
-    for g, wd, wi in zip(got_ids, want_d_k1, want_ids):
-        if len(wd) > k and wd[k] - wd[k - 1] <= 1e-4 * abs(wd[k]):
-            continue
-        assert set(g[:k].tolist()) == set(wi[:k].tolist())
-        checked += 1
-    return checked
-
-
 def test_exact_search_matches_reference(corpus):
     base, q = corpus
     jd, ji = jv.exact_search(jnp.asarray(q), jnp.asarray(base), K + 1)
@@ -87,7 +75,7 @@ def test_exact_search_matches_reference(corpus):
     jd, ji = np.asarray(jd), np.asarray(ji)
     np.testing.assert_allclose(pd.numpy(), jd[:, :K], rtol=RTOL,
                                atol=RTOL * jd.max())
-    assert _ids_agree(pi.numpy(), jd, ji, K) >= len(q) // 2
+    assert ids_agree(pi.numpy(), jd, ji, K) >= len(q) // 2
     assert (pi[:16, 0].numpy() == np.arange(16)).all()   # own rows first
 
 
@@ -137,7 +125,7 @@ def test_two_stage_device_path_matches_reference(corpus, ivf_pair, nprobe,
     fin = np.isfinite(jd_k)
     np.testing.assert_allclose(pd[fin], jd_k[fin], rtol=RTOL,
                                atol=RTOL * jd_k[fin].max())
-    assert _ids_agree(pi, jd, ji, k) >= len(q) // 2
+    assert ids_agree(pi, jd, ji, k) >= len(q) // 2
     assert p.last_pool_rows == j.last_pool_rows
 
 
@@ -226,7 +214,7 @@ def test_flat_device_programs_match_reference(corpus, flat_arrays, route):
     jd, ji = np.asarray(jd)[:len(qs)], np.asarray(ji)[:len(qs)]
     np.testing.assert_allclose(pd, jd[:, :K], rtol=RTOL,
                                atol=RTOL * jd.max())
-    assert _ids_agree(pi, jd, ji, K) >= len(qs) // 2
+    assert ids_agree(pi, jd, ji, K) >= len(qs) // 2
 
 
 def test_flat_build_matches_reference(corpus, flat_arrays):

@@ -416,6 +416,20 @@ K3_CASES = {
 }
 
 
+def ids_agree(got_ids, want_d_k1, want_ids, k):
+    """Per query: the id sets are equal where the reference's k-th and
+    (k+1)-th distances differ by more than 1e-4 relative (else a tie
+    within rounding may order them either way).  Returns the number of
+    queries checked."""
+    checked = 0
+    for g, wd, wi in zip(got_ids, want_d_k1, want_ids):
+        if len(wd) > k and wd[k] - wd[k - 1] <= 1e-4 * abs(wd[k]):
+            continue
+        assert set(g[:k].tolist()) == set(wi[:k].tolist())
+        checked += 1
+    return checked
+
+
 def collect_consts(where, aggs):
     from yugabyte_db_tpu_torch.ops.expr import collect_constants
     consts = []

@@ -7,8 +7,8 @@ run through :func:`bypass_scan_aggregate` per shard on the session's
 device, and FK-equijoin aggregates (``join=``) through
 :func:`bypass_plan_aggregate`; partials combine across shards on the
 host, by the very function the multi-tablet fan-out uses, so the two
-cannot drift.  The reference's
-mesh combine (psum over a device mesh) is ROADMAP.md queue 1 item 8.
+cannot drift — or, with ``combine="mesh"``, on a device mesh of one
+slot per shard (parallel/distributed_scan.py).
 
 The session never touches a tserver: pins come from the storage layer,
 files are opened directly, kernels launch from the calling thread.
@@ -21,14 +21,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..device import DeviceLike, resolve_device
-from ..errors import NotPortedError
 from ..ops.scan import AggSpec, _expand_avg, combine_agg_partials
 from .errors import REASON_NO_SSTS, BypassIneligible
 from .pinner import TabletSnapshot, pin_tablet
 from .scan import (bypass_scan_aggregate, collect_keyless_blocks,
                    open_snapshot_readers)
-
-_MESH_ITEM = "queue 1 item 8 (multi-device)"
 
 
 def combine_partials(aggs: Sequence[AggSpec], parts: List[tuple],
@@ -141,15 +138,20 @@ class BypassSession:
         key (``ops.scan.combine_grouped_partials``); ``grouped_out``
         receives ``{'group_values': ...}`` aligned with the counts.
         ``join`` (one JoinWire or an ordered stage sequence) runs the
-        fused plan per shard.  ``combine="mesh"`` raises NotPortedError; an
-        ineligible shard raises BypassIneligible."""
+        fused plan per shard.  ``combine="mesh"`` combines on a device
+        mesh (:meth:`_scan_mesh`); it serves neither dict-grouped nor
+        join scans (ValueError).  An ineligible shard raises
+        BypassIneligible."""
         if self._closed:
             raise RuntimeError("BypassSession is closed")
         from ..ops.grouped_scan import DictGroupSpec
         dict_group = isinstance(group, DictGroupSpec)
         if combine == "mesh":
-            raise NotPortedError("the mesh combine of a bypass session",
-                                 _MESH_ITEM)
+            if dict_group or join is not None:
+                raise ValueError(
+                    "mesh combine does not serve dict-grouped or "
+                    "join scans; use combine='host'")
+            return self._scan_mesh(where, aggs, group)
         if combine != "host":
             raise ValueError(f"unknown combine mode {combine!r}")
         from ..docdb.operations import shared_kernel
@@ -202,6 +204,46 @@ class BypassSession:
             return outs, counts, stats
         outs, counts = combine_partials(aggs, parts, counts_parts)
         return outs, counts, stats
+
+    def _scan_mesh(self, where, aggs, group):
+        """Combine across shards on a device mesh: one slot per
+        non-empty shard, the partials combined on the lead device by
+        parallel/distributed_scan.py at the session's read point (no
+        chunking, no prefilter: the sharded batch is built whole).  On
+        CUDA each shard takes a card of its own (ValueError when there
+        are fewer cards than shards); on the CPU the slots are CPU
+        slots.  Every shard must be chunk-safe (BypassIneligible)."""
+        from ..ops.scan import needed_probe_columns
+        from ..ops.stream_scan import chunk_safe_mvcc
+        from ..parallel.distributed_scan import (
+            build_sharded_batch, check_mesh_group,
+            distributed_scan_aggregate)
+        from ..parallel.mesh import tablet_mesh
+        from .errors import REASON_NOT_CHUNK_SAFE
+        shards = [b for b in self._blocks if b]
+        if not shards:
+            raise BypassIneligible(REASON_NO_SSTS, "every shard is empty")
+        if self.device.type == "cuda":
+            import torch
+            have = torch.cuda.device_count()
+            if have < len(shards):
+                raise ValueError(f"mesh combine needs {len(shards)} "
+                                 f"devices, backend has {have}")
+            devices = [torch.device("cuda", i) for i in range(len(shards))]
+        else:
+            devices = [self.device] * len(shards)
+        check_mesh_group(group)
+        for blocks in shards:
+            if not chunk_safe_mvcc(blocks):
+                raise BypassIneligible(REASON_NOT_CHUNK_SAFE)
+        tm = tablet_mesh(len(shards), 1, devices=devices)
+        batch = build_sharded_batch(
+            tm, shards, sorted(needed_probe_columns(where, aggs, group)))
+        outs, counts = distributed_scan_aggregate(
+            batch, where, tuple(aggs), group, self.read_ht)
+        stats = self.stats()
+        stats.update(combine="mesh", shards_scanned=len(shards))
+        return tuple(np.asarray(o) for o in outs), np.asarray(counts), stats
 
     def stats(self) -> dict:
         return {"read_ht": self.read_ht,

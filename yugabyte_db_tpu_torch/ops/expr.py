@@ -318,14 +318,14 @@ def _join(a, b) -> Tuple[torch.dtype, bool]:
     return _DEFAULT_OF_KIND[_kind(dw)], True
 
 
-def _as(x, dt: torch.dtype, like) -> torch.Tensor:
-    """x as a tensor of dtype dt (a literal becomes a 0-dim tensor on
-    the device of ``like``)."""
+def _as(x, dt: torch.dtype) -> torch.Tensor:
+    """x as a tensor of dtype dt.  A literal becomes a 0-dim CPU tensor,
+    which a CUDA operation takes as a scalar argument: no host-to-device
+    copy, which would wait for the device."""
     v = x.v if isinstance(x, Weak) else x
     if isinstance(v, torch.Tensor):
         return v if v.dtype == dt else v.to(dt)
-    dev = like.device if isinstance(like, torch.Tensor) else None
-    return torch.tensor(v, dtype=dt, device=dev)
+    return torch.tensor(v, dtype=dt)
 
 
 def _tensor_of(x):
@@ -336,8 +336,7 @@ def _tensor_of(x):
 
 def _operands(a, b):
     dt, weak = _join(a, b)
-    like = _tensor_of(a) if _tensor_of(a) is not None else _tensor_of(b)
-    return _as(a, dt, like), _as(b, dt, like), weak
+    return _as(a, dt), _as(b, dt), weak
 
 
 _TORCH_CMP = {
@@ -368,7 +367,7 @@ class _TorchOps:
             # int-int arithmetic runs in int64: an int32 product/sum past
             # 2^31 would silently wrap (PG semantics: int ops widen)
             if _kind(_dtype_of(a)[0]) == 1 and _kind(_dtype_of(b)[0]) == 1:
-                a = _as(a, torch.int64, _tensor_of(b))
+                a = _as(a, torch.int64)
         x, y, weak = _operands(a, b)
         if op == "add":
             r = x + y

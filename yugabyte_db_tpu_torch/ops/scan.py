@@ -132,26 +132,30 @@ def _sum_prep_static(v, m, scale):
     if _is_exact_int(v):
         return torch.where(m, v.to(torch.int64), 0), _NOSCALE
     vm = torch.where(m, v, 0)
-    s = torch.tensor(float(scale), dtype=vm.dtype, device=vm.device)
+    # a 0-dim CPU tensor: a scalar argument on CUDA, with no copy
+    s = torch.tensor(float(scale), dtype=vm.dtype)
     q = torch.round(vm * s).to(torch.int64)
     return q, scale
 
 
-def _sum_prep(v, m, n_total: int):
+def _sum_prep(v, m, n_total: int, vmax=None):
     """Dynamic-scale SUM prep -> (q int64 [0 outside mask], scale, vm).
 
     Integer/bool values pass through exactly (scale sentinel 0.0).
     Float values quantize at a per-batch scale s = 2^k, k = floor(62 -
     log2(n_total) - log2(max|v|)).  Degenerate inputs (non-finite, or
     magnitudes outside the dtype's exp2 range) give scale NaN and q 0;
-    the masked values `vm` then feed a plain float fallback sum."""
+    the masked values `vm` then feed a plain float fallback sum.
+    `vmax`: a precomputed max|v| (a 0-d tensor on v's device) in place
+    of this batch's own — the distributed kernel's max over every
+    shard, so that all shards quantize at one scale."""
     if _is_exact_int(v):
         return torch.where(m, v.to(torch.int64), 0), _NOSCALE, None
     dt = v.dtype
     vm = torch.where(m, v, 0)
-    vmax = torch.max(torch.abs(vm))
-    safe = torch.maximum(vmax, torch.tensor(1e-30, dtype=dt,
-                                            device=vm.device))
+    if vmax is None:
+        vmax = torch.max(torch.abs(vm))
+    safe = torch.clamp(vmax, min=1e-30)
     k = torch.floor((62.0 - float(np.log2(max(n_total, 1))))
                     - torch.log2(safe))
     lo, hi = (-120.0, 120.0) if dt == torch.float32 else (-1000.0, 1000.0)
@@ -159,8 +163,7 @@ def _sum_prep(v, m, n_total: int):
     ok = torch.isfinite(vmax) & (k == kc)
     s = torch.exp2(kc).to(dt)
     q = torch.where(ok, torch.round(vm * s).to(torch.int64), 0)
-    s = torch.where(ok, s, torch.tensor(float("nan"), dtype=dt,
-                                        device=vm.device))
+    s = s.masked_fill(~ok, float("nan"))
     return q, s, vm
 
 
@@ -192,8 +195,8 @@ def _type_min(v):
 
 
 def _fill_where(m, v, fill):
-    return torch.where(m, v, torch.tensor(fill, dtype=v.dtype,
-                                          device=v.device))
+    # a Python scalar keeps v's dtype and needs no device copy
+    return torch.where(m, v, fill)
 
 
 def _grouped_extreme(v, m, gid, G: int, is_min: bool,
@@ -375,16 +378,10 @@ def masked_aggregate(group, agg_fns, prep, cols, nulls, consts, mask,
     return tuple(out), tuple(scales), counts, mask
 
 
-def _build_kernel(where_node, agg_specs: Tuple[AggSpec, ...],
-                  group: Optional[GroupSpec], mvcc_mode: str,
-                  static_sums: Tuple[bool, ...] = (),
-                  strategy: str = "unroll"):
-    """The exact route's program for one signature (the reference's
-    ``_build_kernel``).  Returns fn(...) -> (agg_outs, agg_scales,
-    counts, mask); each float SUM out is an exact int64 accumulation to
-    divide by its scale host-side (scale 0.0 = integer-exact)."""
-    # WHERE constants first, then each aggregate's, in AggSpec order —
-    # every compile lands at its cumulative offset so slots never collide
+def _compile_aggs(where_node, agg_specs: Tuple[AggSpec, ...]):
+    """(where_fn or None, [(op, fn or None)]): WHERE constants first,
+    then each aggregate's, in AggSpec order — every compile lands at its
+    cumulative offset so slots never collide."""
     off = const_count(where_node) if where_node is not None else 0
     where_fn = compile_expr(where_node) if where_node is not None else None
     agg_fns = []
@@ -394,29 +391,96 @@ def _build_kernel(where_node, agg_specs: Tuple[AggSpec, ...],
         else:
             agg_fns.append((a.op, compile_expr(a.expr, offset=off)))
             off += const_count(a.expr)
+    return where_fn, agg_fns
+
+
+def _row_mask(where_fn, mvcc_mode, cols, nulls, consts, valid, key_hash, ht,
+              write_id, tombstone, read_ht):
+    """The MVCC mask AND the WHERE (a NULL WHERE is false)."""
+    mask = visibility_mask(mvcc_mode, valid, key_hash, ht, write_id,
+                           tombstone, read_ht)
+    if where_fn is not None:
+        wv, wn = where_fn(cols, nulls, consts)
+        mask = mask & wv
+        if wn is not None:
+            mask = mask & torch.logical_not(wn)
+    return mask
+
+
+def _build_kernel(where_node, agg_specs: Tuple[AggSpec, ...],
+                  group: Optional[GroupSpec], mvcc_mode: str,
+                  row_multiplier: int = 1,
+                  static_sums: Tuple[bool, ...] = (),
+                  strategy: str = "unroll"):
+    """The exact route's program for one signature (the reference's
+    ``_build_kernel``).  Returns fn(...) -> (agg_outs, agg_scales,
+    counts, mask); each float SUM out is an exact int64 accumulation to
+    divide by its scale host-side (scale 0.0 = integer-exact).
+
+    `row_multiplier`: the distributed kernel runs this program on each
+    of that many equal-size shards, and the dynamic scale must hold for
+    all their rows together (n_total = padded rows x shards).  fn's
+    `sum_vmax`, when given, holds per aggregate the max|v| over every
+    shard (:func:`_build_vmax_pass`) for its dynamic-scale SUMs: the
+    reference's in-kernel ``pmax``, which a single-controller mesh does
+    as a pass of its own."""
+    where_fn, agg_fns = _compile_aggs(where_node, agg_specs)
     static_sums = static_sums or (False,) * len(agg_fns)
 
-    def _prep(i, v, m, n_total, sum_scales):
-        if static_sums[i]:
-            q, s = _sum_prep_static(v, m, sum_scales[i])
-            return q, s, None
-        return _sum_prep(v, m, n_total)
+    def fn(cols, nulls, consts, valid, key_hash, ht, write_id, tombstone,
+           read_ht, sum_scales, group_domains=(), sum_vmax=None):
+        def prep(i, v, m, n_total, sum_scales):
+            if static_sums[i]:
+                q, s = _sum_prep_static(v, m, sum_scales[i])
+                return q, s, None
+            return _sum_prep(v, m, n_total,
+                             None if sum_vmax is None else sum_vmax[i])
+
+        mask = _row_mask(where_fn, mvcc_mode, cols, nulls, consts, valid,
+                         key_hash, ht, write_id, tombstone, read_ht)
+        if isinstance(group, HashGroupSpec):
+            return _hash_group(group, agg_fns, prep, cols, nulls, consts,
+                               mask, sum_scales, row_multiplier)
+        return masked_aggregate(group, agg_fns, prep, cols, nulls, consts,
+                                mask, group_domains, sum_scales,
+                                mask.shape[0] * row_multiplier, strategy)
+
+    return fn
+
+
+def _build_vmax_pass(where_node, agg_specs: Tuple[AggSpec, ...],
+                     group: Optional[GroupSpec], mvcc_mode: str,
+                     static_sums: Tuple[bool, ...]):
+    """The first pass of the cross-shard scale agreement, for an
+    ungrouped or dense-grouped program of :func:`_build_kernel`:
+    fn(cols, nulls, consts, valid, key_hash, ht, write_id, tombstone,
+    read_ht) -> per aggregate, the masked max|v| of a dynamic-scale
+    float SUM (a 0-d tensor on the shard's device), else None.  The
+    mask is the one the program's SUM sees: rows out of the MVCC mask,
+    the WHERE, the group columns' NULLs or the value's NULL count 0."""
+    where_fn, agg_fns = _compile_aggs(where_node, agg_specs)
+    static_sums = static_sums or (False,) * len(agg_fns)
 
     def fn(cols, nulls, consts, valid, key_hash, ht, write_id, tombstone,
-           read_ht, sum_scales, group_domains=()):
-        mask = visibility_mask(mvcc_mode, valid, key_hash, ht, write_id,
-                               tombstone, read_ht)
-        if where_fn is not None:
-            wv, wn = where_fn(cols, nulls, consts)
-            mask = mask & wv
-            if wn is not None:
-                mask = mask & torch.logical_not(wn)
-        if isinstance(group, HashGroupSpec):
-            return _hash_group(group, agg_fns, _prep, cols, nulls, consts,
-                               mask, sum_scales)
-        return masked_aggregate(group, agg_fns, _prep, cols, nulls, consts,
-                                mask, group_domains, sum_scales,
-                                mask.shape[0], strategy)
+           read_ht):
+        mask = _row_mask(where_fn, mvcc_mode, cols, nulls, consts, valid,
+                         key_hash, ht, write_id, tombstone, read_ht)
+        for cid, _, _ in (group.cols if group is not None else ()):
+            gn = nulls.get(cid)
+            if gn is not None:
+                mask = mask & torch.logical_not(gn)
+        out = []
+        for i, (op, f) in enumerate(agg_fns):
+            if op != "sum" or f is None or static_sums[i]:
+                out.append(None)
+                continue
+            v, vn = f(cols, nulls, consts)
+            if _is_exact_int(v):
+                out.append(None)
+                continue
+            m = mask if vn is None else mask & torch.logical_not(vn)
+            out.append(torch.max(torch.abs(torch.where(m, v, 0))))
+        return tuple(out)
 
     return fn
 
@@ -436,7 +500,7 @@ def _segment_extreme(x, seg, G: int, is_min: bool):
 
 
 def _hash_group(group: HashGroupSpec, agg_fns, prep, cols, nulls, consts,
-                mask, sum_scales):
+                mask, sum_scales, row_multiplier: int = 1):
     """HashGroupSpec: sort by (not-in-mask, *group columns); segment ids
     are the cumsum of group starts, clipped to max_groups - 1;
     ``n_groups`` is the true count, so overflow shows there.  Returns
@@ -470,7 +534,7 @@ def _hash_group(group: HashGroupSpec, agg_fns, prep, cols, nulls, consts,
             out.append(_segment_sum(m.to(torch.int64), seg, G))
             scales.append(_NOSCALE)
         elif op == "sum":
-            q, s, vm = prep(i, v_s, m, n, sum_scales)
+            q, s, vm = prep(i, v_s, m, n * row_multiplier, sum_scales)
             out.append(_segment_sum(q, seg, G))
             scales.append(s if vm is None
                           else (s, _segment_sum(vm, seg, G)))
