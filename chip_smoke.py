@@ -105,7 +105,7 @@ Phases (any failed check raises and the script exits non-zero):
      (rowid, l_extendedprice, l_discount, l_shipdate) streamed (>= 3
      chunks) and monolithic, `limit` 1000 (the pipeline closes early),
      the range tablet's rowid < n/8 AND Q6 with zone_map_pruning on and
-     off, an enumerable rowid read (refused: NotPortedError), a
+     off, an enumerable rowid read (batched point gets on the host), a
      WindowWire over the Q6 rows (PARTITION BY l_returnflag,
      l_linestatus ORDER BY l_shipdate: ranks, cumulative and
      whole-partition sums, min/max, lag/lead, count) equal to the numpy
@@ -145,10 +145,36 @@ Phases (any failed check raises and the script exits non-zero):
      activities per query, the combine's ms, host syncs before the
      rescale, bytes per card), a `profile` line per query, `mesh_vector`
      and `mesh_ann` lines;
-  11. print the kernels line (launches per path: phase 3's scan, phase
-     6's tablet reads, phase 7's joins, phases 8 and 9; and the new
+  11. the write path (htap_phase and ycsb_job, the latter in a process of
+     its own beside the former): (a) TPC-H SF1 lineitem in one tablet
+     (262,144-row blocks) takes the refresh functions (TPC-H v3.0.1
+     §2.26: RF1 inserts SF x 1500 orders of 1-7 lineitems, one write
+     request each; RF2 deletes SF x 1500 orders' lineitems) through
+     Tablet.apply_write; Q6 and Q1 on the card over SST + memtable
+     (MVCC mode dedup), after flush() and a second RF1/RF2 over 2 SSTs +
+     memtable, and after flush() and Tablet.compact() on the card on the
+     exact route and through K3; every answer against numpy over the
+     live rows (counts and l_quantity sums exact, revenue 1e-5, K3 2e-4)
+     and after each step get_row of 1,000 inserted, 1,000 deleted and
+     1,000 untouched rowids, and the deleted rows read back at a read
+     point before RF2; `htap_load`, `htap_refresh`, one `htap` line per
+     query and step (first read after the writes, warm wall, device
+     busy and idle share from a `profile` window), `flush` and
+     `htap_compaction` lines; (b) BASELINE.json config 1: YCSB
+     workloads A, B, C (1 and 32 clients) and E, 50,000 operations each,
+     on a 1,000,000-row usertable (10 fields x 100 bytes) with an 8 MiB
+     memtable (the async flush on the apply path), every updated key
+     read back; 100,000 upserts with a row TTL (half expiring before the
+     history cutoff), flush(), Tablet.compact() through _compact_rows
+     (merge_gc_split on the card), its output equal entry for entry to
+     the baseline backend's CPU feed on a copy and merge_gc_split's
+     order and keep equal to its CPU run; `ycsb_load`, `point` (ops/s,
+     p50 and p99 µs), `flush_apply` and `row_compaction` lines;
+  12. print the kernels line (launches per path: phase 3's scan, phase
+     6's tablet reads, phase 7's joins, phases 8, 9 and 11; and the new
      paths' plain programs: window program launches, device searches,
-     the mesh's slot programs), then the device line last.
+     the mesh's slot programs, merge_gc_split), then the device line
+     last.
 
 It imports nothing of JAX: the port stands alone.
 """
@@ -213,23 +239,28 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def queued_behind_spin(torch, spin_cycles: int, enqueue, tries: int = 3):
+def queued_behind_spin(torch, spin_cycles: int, enqueue, tries: int = 4):
     """Queue enqueue()'s calls behind a spin kernel (torch.cuda._sleep)
     of `spin_cycles`, so that the device runs them without waiting on the
     host, and return what enqueue() returned, (first event, result), once
     the device is done.  The run fails unless, on one of `tries` tries,
     the first event was still pending when enqueue() returned: the spin
-    outlasted the host's enqueue (a host stalled past the spin on a
-    shared machine spoils one try, not the run)."""
+    outlasted the host's enqueue.  A host stalled past the spin on a
+    shared machine spoils one try, not the run: each retry doubles the
+    spin (the first event is recorded behind it, so the window it opens
+    does not depend on the spin's length)."""
+    spin = spin_cycles
     for _ in range(tries):
-        torch.cuda._sleep(spin_cycles)
+        torch.cuda._sleep(spin)
         first, out = enqueue()
         ahead = not first.query()
         torch.cuda.synchronize()
         if ahead:
             return out
+        spin *= 2
     check(False, f"the host's enqueue outlasted a {spin_cycles}-cycle "
-          f"spin {tries} times: raise QUEUE_AHEAD_CYCLES_PER_CALL")
+          f"spin, doubled {tries - 1} times: raise "
+          "QUEUE_AHEAD_CYCLES_PER_CALL")
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 3, rounds: int = 5,
@@ -1543,7 +1574,6 @@ def join_phase(torch, np, hs, ldata, odata, cdata, card, root,
     import shutil
     from yugabyte_db_tpu_torch.bypass import BypassSession
     from yugabyte_db_tpu_torch.docdb.operations import ReadRequest
-    from yugabyte_db_tpu_torch.errors import NotPortedError
     from yugabyte_db_tpu_torch.models import tpch
     from yugabyte_db_tpu_torch.ops import join_scan as js
     from yugabyte_db_tpu_torch.ops import plan_fusion as pf
@@ -1612,14 +1642,16 @@ def join_phase(torch, np, hs, ldata, odata, cdata, card, root,
                                group_by=group, join=wires, read_ht=read_ht)
 
         # the reference's default build cap refuses even q3ish at SF1
-        # (53,404 keys need 131,072 slots)
+        # (53,404 keys need 131,072 slots): the device join's typed
+        # refusal (Tablet.read then answers on the interpreted join)
         cap = flags.get("join_max_build_slots")
         if 2 * len(queries["q3ish"][3].keys) > cap:
             try:
-                tablet.read(request("q3ish"))
-                check(False, "q3ish served under the default build cap")
-            except NotPortedError as e:
-                check(js.REASON_BUILD_OVERFLOW in str(e),
+                js.make_join_runtimes(queries["q3ish"][3], {},
+                                      device=device)
+                check(False, "q3ish built under the default build cap")
+            except js.JoinIneligible as e:
+                check(e.reason == js.REASON_BUILD_OVERFLOW,
                       f"q3ish refused for another reason: {e}")
                 print(f"[phase 7] at join_max_build_slots={cap}: {e}")
 
@@ -1767,7 +1799,7 @@ def rows_windows_phase(torch, np, hs, data, card, root, device="cuda",
     projecting rowid, l_extendedprice, l_discount, l_shipdate, streamed
     (at least 3 chunks) and monolithic; the range tablet's rowid < n/8
     AND Q6 with zone_map_pruning on and off; `limit` 1000; an
-    enumerable WHERE on rowid (refused: NotPortedError); a WindowWire
+    enumerable WHERE on rowid (batched point gets); a WindowWire
     over the Q6 rows held against the numpy twin window_cpu, and its
     three typed refusals; then an overlay load at ht2 rewriting every
     10th rowid's l_extendedprice, read below and above ht2 (the dedup
@@ -1778,7 +1810,6 @@ def rows_windows_phase(torch, np, hs, data, card, root, device="cuda",
     import copy
     import shutil
     from yugabyte_db_tpu_torch.docdb import operations as ops
-    from yugabyte_db_tpu_torch.errors import NotPortedError
     from yugabyte_db_tpu_torch.models import tpch
     from yugabyte_db_tpu_torch.ops import stream_scan as ss
     from yugabyte_db_tpu_torch.ops import window_scan as ws
@@ -1945,13 +1976,19 @@ def rows_windows_phase(torch, np, hs, data, card, root, device="cuda",
             got[prune] = resp.rows
         check(got[True] == got[False], "pruned rows != unpruned rows")
 
-        # --- an enumerable WHERE on the hash key: refused -----------------
-        try:
-            read(tab, "lineitem", ("in", ("col", tpch.ROWID), [3, 77, 1024]))
-            check(False, "an enumerated rowid read was served")
-        except NotPortedError as e:
-            print(json.dumps({"rows_refusal": "enumerated rowid IN",
-                              "error": str(e)}))
+        # --- an enumerable WHERE on the hash key: batched point gets -----
+        ids = [3, 77, 1024]
+        t = time.perf_counter()
+        resp = read(tab, "lineitem", ("in", ("col", tpch.ROWID), ids))
+        enum_s = time.perf_counter() - t
+        check(resp.backend == "cpu", "the enumerated read left the host")
+        mask = np.zeros(len(data["rowid"]), bool)
+        mask[ids] = True
+        check_rows(resp.rows, mask, "enumerated rowid IN")
+        check([r["rowid"] for r in resp.rows] == ids,
+              "enumerated rows out of key order")
+        print(json.dumps({"rows_enumerated": "rowid IN", "rows":
+                          len(resp.rows), "s": enum_s, "card": card}))
 
         # --- the window over the Q6 rows ----------------------------------
         wire = ws.WindowWire(("l_returnflag", "l_linestatus"),
@@ -2655,6 +2692,453 @@ def mesh_phase(torch, np, hs, data, card, tablets, read_ht, seed,
             "sharded_exact_search": search_launches}
 
 
+# --- phase 11: the write path -------------------------------------------------------
+WRITE_BASE_US = 1_700_000_000_000_000   # the write path's mock clocks start here
+HTAP_CHECK_KEYS = 1000                 # rowids per get_row check set
+HTAP_ITERS = 5                         # warm queries per htap timing window
+YCSB_ROWS = 1_000_000                  # BASELINE.json config 1's usertable
+YCSB_OPS = 50_000                      # operations per workload
+YCSB_TTL_UPSERTS = 100_000             # YCQL USING TTL upserts
+YCSB_FLUSH_BYTES = 8 << 20             # memstore_flush_threshold_bytes (cut:
+#                                        the reference's default is 64 MiB)
+
+
+def _live_lineitem(np, data, alive, inserted):
+    """The live rows as column arrays: the loaded rows not deleted, then
+    every inserted row."""
+    out = {k: v[alive] for k, v in data.items()}
+    if inserted:
+        rows = list(inserted.values())
+        for k in out:
+            out[k] = np.concatenate([out[k], np.asarray(
+                [r[k] for r in rows], dtype=data[k].dtype)])
+    return out
+
+
+def htap_phase(torch, np, hs, data, card, root, seed=0, device="cuda",
+               block_rows=TABLET_BLOCK_ROWS, profile=True) -> dict:
+    """Phase 11 (a): TPC-H SF1 lineitem in ONE tablet taking the refresh
+    functions (RF1 inserts of SF x 1500 orders, one write request each;
+    RF2 deletes of SF x 1500 orders' lineitems) through Tablet.apply_write
+    while Q6 and Q1 run on the card over SST + memtable (MVCC mode
+    dedup), then after a flush and a second RF1/RF2 pair (2 SSTs +
+    memtable), then after flush() and a major compaction on the card, on
+    the exact route and through K3.  Every answer against numpy over the
+    live rows; after each step get_row of inserted, deleted and untouched
+    rowids, and at a read point before RF2 the deleted rows read back.
+    The refresh rows and the check sets are drawn from `seed`.  Returns
+    the K3 launches of the phase by query signature."""
+    import shutil
+    from yugabyte_db_tpu_torch.docdb.operations import (ReadRequest, RowOp,
+                                                        WriteRequest,
+                                                        shared_kernel)
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import flags
+    from yugabyte_db_tpu_torch.utils.hybrid_time import (HybridClock,
+                                                         HybridTime,
+                                                         MockPhysicalClock)
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    shutil.rmtree(root, ignore_errors=True)
+    n = len(data["rowid"])
+    phys = MockPhysicalClock(WRITE_BASE_US)
+    t0 = time.perf_counter()
+    tablet = Tablet("htap", tpch.lineitem_info(), os.path.join(root, "t"),
+                    clock=HybridClock(phys), device=device)
+    tablet.bulk_load(data, ht=HybridTime.from_micros(WRITE_BASE_US),
+                     block_rows=block_rows)
+    print(json.dumps({"htap_load": {"rows": n, "s": time.perf_counter() - t0,
+                                    "card": card}}))
+    alive = np.ones(n, bool)
+    inserted: dict = {}
+    deleted: set = set()
+    rng = np.random.default_rng(seed + 11)
+    k3_before = k3_launches_by_query(shared_kernel(device))
+    Q6, Q1 = tpch.TPCH_Q6, tpch.TPCH_Q1
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-300)
+
+    def check_answer(q, resp, live, what, hand=False):
+        check(resp.backend == "tpu", f"{what}: the read left the card")
+        if q is Q6:
+            r = rel(resp.agg_values[0], tpch.numpy_reference(Q6, live))
+            check(r < (2e-4 if hand else 1e-5),
+                  f"{what}: Q6 relative error {r}")
+            return
+        ref = tpch.numpy_reference(Q1, live)
+        for g in range(6):
+            qsum, psum, cnt = ref[g]
+            check(int(resp.group_counts[g]) == cnt, f"{what}: Q1 count g{g}")
+            if hand:
+                check(rel(resp.agg_values[0][g], qsum) < 2e-4,
+                      f"{what}: Q1 qty sum g{g}")
+            else:
+                check(float(resp.agg_values[0][g]) == qsum,
+                      f"{what}: Q1 qty sum g{g} not exact")
+            check(rel(resp.agg_values[1][g], psum) < (2e-4 if hand
+                                                       else 1e-5),
+                  f"{what}: Q1 price sum g{g}")
+
+    def read(q):
+        return tablet.read(ReadRequest("lineitem", where=q.where,
+                                       aggregates=q.aggs, group_by=q.group))
+
+    def queries(step, hand=False):
+        live = _live_lineitem(np, data, alive, inserted)
+        for q in (Q6, Q1):
+            sync()
+            t = time.perf_counter()
+            resp = read(q)           # the first read after a write
+            sync()
+            first_s = time.perf_counter() - t
+            check_answer(q, resp, live, f"htap {step} {q.name}", hand)
+            t = time.perf_counter()
+            for _ in range(HTAP_ITERS):
+                resp = read(q)
+            sync()
+            wall = (time.perf_counter() - t) / HTAP_ITERS
+            check_answer(q, resp, live, f"htap {step} {q.name} warm", hand)
+            stats: dict = {}
+            if profile:
+                problems = profile_route(
+                    torch, hs, f"htap_{step}_{q.name}", card,
+                    len(live["rowid"]), lambda q=q: read(q), HTAP_ITERS,
+                    wall=wall, stats=stats)
+                check(not problems, "; ".join(problems))
+            busy = stats.get("device_busy_ms")
+            print(json.dumps({
+                "htap": step, "query": q.name,
+                "route": "hand (K3)" if hand else "exact",
+                "live_rows": len(live["rowid"]),
+                "ssts": len(tablet.regular.ssts),
+                "memtable_rows": sum(len(m) for m in
+                                     tablet.regular.memtables()),
+                "first_read_s": first_s, "wall_ms": wall * 1e3,
+                "batch_rebuild_s": max(first_s - wall, 0.0),
+                "device_busy_ms": busy,
+                "idle_share": (None if busy is None
+                               else 1.0 - busy / (wall * 1e3)),
+                "card": card}))
+
+    def point_checks(step, before_ht=None, before_deleted=()):
+        """get_row of inserted, deleted and untouched rowids at explicit
+        read points (which never restart); one `htap_checks` line with
+        the reads' count and seconds."""
+        op = tablet._read_op
+        op._allow_restart = False
+        read_ht = tablet.clock.now().value
+        t = time.perf_counter()
+        ins = list(inserted)
+        for r in rng.choice(ins, min(HTAP_CHECK_KEYS, len(ins)),
+                            replace=False):
+            got = op.get_row({"rowid": int(r)}, read_ht)
+            check(got == inserted[int(r)],
+                  f"htap {step}: inserted rowid {r} reads {got}")
+        dels = sorted(deleted)
+        for r in rng.choice(dels, min(HTAP_CHECK_KEYS, len(dels)),
+                            replace=False):
+            got = op.get_row({"rowid": int(r)}, read_ht)
+            check(got is None, f"htap {step}: deleted rowid {r} reads {got}")
+        untouched = rng.integers(0, n, 3 * HTAP_CHECK_KEYS)
+        untouched = [int(r) for r in untouched if alive[r]][:HTAP_CHECK_KEYS]
+        for r in untouched:
+            got = op.get_row({"rowid": r}, read_ht)
+            check(got == {k: data[k][r].item() for k in data},
+                  f"htap {step}: loaded rowid {r} reads {got}")
+        for r in list(before_deleted)[:HTAP_CHECK_KEYS]:
+            got = op.get_row({"rowid": int(r)}, before_ht)
+            check(got == {k: data[k][r].item() for k in data},
+                  f"htap {step}: rowid {r} before RF2 reads {got}")
+        reads = (min(HTAP_CHECK_KEYS, len(ins))
+                 + min(HTAP_CHECK_KEYS, len(dels)) + len(untouched)
+                 + len(list(before_deleted)[:HTAP_CHECK_KEYS]))
+        print(json.dumps({"htap_checks": step, "get_rows": reads,
+                          "s": time.perf_counter() - t, "card": card}))
+
+    def refresh(rnd):
+        """One RF1/RF2 pair through apply_write; returns the read point
+        taken before RF2 and the rowids RF2 deleted."""
+        t = time.perf_counter()
+        rows = 0
+        for order in tpch.refresh_inserts(SF, n + 1_000_000 * rnd,
+                                          seed=seed + 100 + rnd):
+            phys.advance_micros(10)
+            batch = tpch.column_rows(order)
+            tablet.apply_write(WriteRequest("lineitem", [
+                RowOp("upsert", r) for r in batch]))
+            for r in batch:
+                inserted[r["rowid"]] = r
+            rows += len(batch)
+        rf1_s = time.perf_counter() - t
+        phys.advance_micros(10)
+        before_ht = tablet.clock.now().value
+        t = time.perf_counter()
+        gone = []
+        for ids in tpch.refresh_deletes(SF, n, seed=seed + 200 + rnd):
+            phys.advance_micros(10)
+            tablet.apply_write(WriteRequest("lineitem", [
+                RowOp("delete", {"rowid": int(r)}) for r in ids]))
+            gone += [int(r) for r in ids if alive[r]]
+            alive[ids] = False
+            deleted.update(int(r) for r in ids)
+        print(json.dumps({"htap_refresh": rnd, "rf1_rows": rows,
+                          "rf1_s": rf1_s, "rf2_rows": len(gone),
+                          "rf2_s": time.perf_counter() - t, "card": card}))
+        phys.advance_micros(10)
+        return before_ht, gone
+
+    def flush(label):
+        rows = sum(len(m) for m in tablet.regular.memtables())
+        t = time.perf_counter()
+        path = tablet.flush()
+        s = time.perf_counter() - t
+        check(path is not None and tablet.regular.memtable_empty(),
+              f"flush {label} left a memtable")
+        print(json.dumps({"flush": label, "rows": rows,
+                          "bytes": os.path.getsize(path), "s": s,
+                          "card": card}))
+
+    with flags.overridden("device_float_dtype", "auto"), \
+            flags.overridden("hand_scan_enabled", False):
+        before_ht, gone = refresh(1)
+        point_checks("rf1", before_ht, gone)
+        queries("sst+memtable")
+        flush("round 1")
+        point_checks("flush 1", before_ht, gone)
+        before_ht, gone = refresh(2)
+        point_checks("rf2", before_ht, gone)
+        queries("2ssts+memtable")
+        flush("round 2")
+        point_checks("flush 2", before_ht, gone)
+        # the history cutoff past every write: the compaction drops the
+        # deleted rows' tombstones and versions
+        phys.advance_micros(
+            (flags.get("history_retention_interval_sec") + 60) * 1_000_000)
+        t = time.perf_counter()
+        inputs = len(tablet.regular.ssts)
+        path = tablet.compact()
+        sync()
+        check(len(tablet.regular.ssts) == 1 and path is not None,
+              "htap compaction left several SSTs")
+        print(json.dumps({"htap_compaction": {
+            "inputs": inputs, "s": time.perf_counter() - t,
+            "output_bytes": os.path.getsize(path), "card": card}}))
+        point_checks("compacted")
+        queries("compacted")
+        with flags.overridden("hand_scan_enabled", True):
+            k3 = hs.LAUNCHES["generic_scan"]
+            queries("compacted", hand=True)
+            check(not cuda or hs.LAUNCHES["generic_scan"] > k3,
+                  "htap: K3 did not serve the compacted tablet")
+    k3_after = k3_launches_by_query(shared_kernel(device))
+    shutil.rmtree(root, ignore_errors=True)
+    return {k: v - k3_before.get(k, 0) for k, v in k3_after.items()}
+
+
+def ycsb_job(seed: int, root: str, card: str, device: str = "cuda",
+             rows: int = YCSB_ROWS, ops: int = YCSB_OPS,
+             ttl_upserts: int = YCSB_TTL_UPSERTS) -> None:
+    """Phase 11 (b), in a process of its own after (a): BASELINE.json
+    config 1 — YCSB core workloads A, B, C (1 and 32 clients) and E on
+    one usertable tablet of `rows` x 10 fields x 100 bytes, the flush on
+    the apply path at an 8 MiB memtable; every updated key reads back
+    its update; then `ttl_upserts` upserts with a row TTL (half expire
+    before the history cutoff), flush(), and Tablet.compact() through
+    _compact_rows with merge_gc_split on `device`, its output against
+    the CPU feed (the baseline backend on a copy) entry for entry.
+    Prints `point`, `flush_apply` and `row_compaction` lines and writes
+    its numbers to root/run.json."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from yugabyte_db_tpu_torch.docdb import compaction as pcomp
+    from yugabyte_db_tpu_torch.docdb.operations import RowOp, WriteRequest
+    from yugabyte_db_tpu_torch.models import ycsb
+    from yugabyte_db_tpu_torch.ops import compaction as pops
+    from yugabyte_db_tpu_torch.storage.lsm import LsmStore
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.tablet import tablet as ptablet
+    from yugabyte_db_tpu_torch.utils import flags
+    from yugabyte_db_tpu_torch.utils.hybrid_time import (HybridClock,
+                                                         MockPhysicalClock)
+    cuda = torch.device(device).type == "cuda"
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    flags.set_flag("memstore_flush_threshold_bytes", YCSB_FLUSH_BYTES)
+    phys = MockPhysicalClock(WRITE_BASE_US)
+    tablet = Tablet("ycsb", ycsb.usertable_info(), os.path.join(root, "t"),
+                    clock=HybridClock(phys), device=device)
+    work = ycsb.YcsbTabletWorkload(tablet, rows, seed=seed + 1)
+    out: dict = {"points": []}
+    t = time.perf_counter()
+    work.load()
+    out["load_s"] = time.perf_counter() - t
+    print(json.dumps({"ycsb_load": {"rows": rows, "s": out["load_s"],
+                                    "card": card}}))
+    for wl, clients in (("a", 1), ("b", 1), ("c", 1), ("c", 32), ("e", 1)):
+        phys.advance_micros(1000)
+        r = work.run(wl, ops, clients=clients)
+        line = {"point": wl, "clients": clients, "ops": r.ops,
+                "ops_per_s": r.ops_per_sec,
+                "p50_us": float(np.percentile(r.lat_us, 50)),
+                "p99_us": float(np.percentile(r.lat_us, 99)),
+                "ssts": len(tablet.regular.ssts), "card": card}
+        out["points"].append(line)
+        print(json.dumps(line))
+    steps: dict = {}            # host seconds of the checks between runs
+    t_step = [time.perf_counter()]
+
+    def step(label):
+        now = time.perf_counter()
+        steps[label] = now - t_step[0]
+        t_step[0] = now
+    tablet.flush()
+    upd = sorted(work.updated_keys)
+    got = tablet.multi_read("usertable", [{"ycsb_key": k} for k in upd])
+    bad = [k for k, g in zip(upd, got)
+           if g is None or any(g[f"field{i}"] != "u" * 100
+                               for i in range(10))]
+    check(not bad, f"ycsb: {len(bad)} updated keys lost their update, "
+          f"e.g. {bad[:5]}")
+    check(len(upd) > 0, "ycsb: no update ran")
+    step("flush_and_read_back_updates")
+    print(json.dumps({"flush_apply": dict(ptablet.FLUSH_APPLY_STATS),
+                      "card": card}))
+    # YCQL USING TTL: half the upserts expire before the history cutoff
+    rng = np.random.default_rng(seed + 2)
+    keys = rng.integers(0, rows, ttl_upserts)
+    short = rng.random(ttl_upserts) < 0.5
+    last: dict = {}
+    t = time.perf_counter()
+    for i, (k, s) in enumerate(zip(keys.tolist(), short.tolist())):
+        if i % 1000 == 0:
+            phys.advance_micros(1000)
+        ttl_ms = 1_000 if s else 10_000_000
+        val = f"{i:09d}" + "t" * 91
+        tablet.apply_write(WriteRequest("usertable", [RowOp(
+            "upsert", {"ycsb_key": k,
+                       **{f"field{j}": val for j in range(10)}},
+            ttl_ms=ttl_ms)]))
+        last[k] = (val, tablet.clock.now().value, ttl_ms)
+    ttl_s = time.perf_counter() - t
+    step("ttl_upserts")
+    tablet.flush()
+    # the cutoff: past every short TTL, before every long one
+    phys.advance_micros(
+        (flags.get("history_retention_interval_sec") + 3_600) * 1_000_000)
+    cutoff = tablet.history_cutoff()
+    copy = os.path.join(root, "baseline")
+    shutil.copytree(tablet.regular.dir, copy)
+    inputs = sum(r.num_entries for r in tablet.regular.ssts)
+    step("flush_and_copy")
+    captured: dict = {}
+    orig_runs = pcomp.compact_runs
+
+    def capture(runs, cut, device):
+        captured["runs"], captured["cutoff"] = runs, cut
+        return orig_runs(runs, cut, device=device)
+    calls = pops.MERGE_GC_STATS["calls"]
+    pcomp.compact_runs = capture
+    try:
+        t = time.perf_counter()
+        tablet.compact()
+        if cuda:
+            torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t
+    finally:
+        pcomp.compact_runs = orig_runs
+    step("compact")
+    launches = pops.MERGE_GC_STATS["calls"] - calls
+    check(launches == 1 and "runs" in captured,
+          f"ycsb: Tablet.compact ran merge_gc_split {launches} times")
+    codec = tablet.codec
+    base = LsmStore(copy, name="regular",
+                    columnar_builder=codec.columnar_builder,
+                    row_decoder=codec.row_decoder,
+                    key_builder=codec.derive_keys)
+    t = time.perf_counter()
+    pcomp.tpu_compact(base, codec, cutoff, backend="baseline",
+                      device="cpu")
+    baseline_s = time.perf_counter() - t
+    step("cpu_feed")
+    got = list(tablet.regular.iterate())
+    want = list(base.iterate())
+    check(got == want, "ycsb: _compact_rows and the CPU feed disagree "
+          f"({len(got)} against {len(want)} entries)")
+    step("compare_entries")
+    # every key's last TTL'd write: the long ones read back, the short
+    # ones are gone unless an older version is still visible
+    now = tablet.clock.now().value
+    sample = sorted(last)[:2000]
+    rows_back = tablet.multi_read("usertable",
+                                  [{"ycsb_key": k} for k in sample],
+                                  read_ht=now)
+    for k, r in zip(sample, rows_back):
+        val, _, ttl_ms = last[k]
+        if ttl_ms > 1_000:
+            check(r is not None and r["field0"] == val,
+                  f"ycsb: TTL'd key {k} lost its write")
+        else:
+            check(r is None, f"ycsb: key {k} outlived its TTL: {r}")
+    step("read_back_ttl")
+    # merge_gc_split on the card at this compaction's shape, against its
+    # CPU run and its byte bound
+    dk, ht, wid, tomb = pops.concat_runs(captured["runs"])
+    words = pops.keys_to_words(dk)
+    n = len(ht)
+    order_c, keep_c = pops.run_merge_gc(words, ht, wid, tomb,
+                                        captured["cutoff"], device="cpu")
+    order_g, keep_g = pops.run_merge_gc(words, ht, wid, tomb,
+                                        captured["cutoff"], device=device)
+    check(np.array_equal(order_g, order_c) and np.array_equal(keep_g, keep_c),
+          "ycsb: merge_gc_split on the card disagrees with its CPU run")
+    step("merge_gc_split_against_cpu")
+    line = {"row_compaction": "ycsb", "entries_in": inputs,
+            "entries_out": len(got), "ttl_upserts": ttl_upserts,
+            "ttl_upserts_s": ttl_s, "compact_s": compact_s,
+            "baseline_s": baseline_s, "dk_words": int(words.shape[1]),
+            "order_keep_equal_cpu": True, "launches": launches,
+            "card": card}
+    if cuda:
+        pad = pops._pad_rows(n)
+        valid = np.zeros(pad, bool)
+        valid[:n] = True
+
+        def padded(a, dt):
+            o = np.zeros((pad,) + a.shape[1:], dt)
+            o[:n] = a
+            return o
+        lanes = pops.to_device_lanes(padded(words, np.uint64),
+                                     padded(ht, np.uint64),
+                                     padded(wid, np.uint32),
+                                     padded(tomb, bool), valid,
+                                     torch.device(device))
+        cut = captured["cutoff"]
+        line["ms"] = cuda_ms(torch, lambda: pops.merge_gc_split_kernel(
+            *lanes, cut), 5)
+        # what the function needs for this run's n entries (the padding
+        # rows are not its work): each key word and ht read once as 8
+        # bytes, the u32 write id, the tombstone byte; order (int32, as
+        # run_merge_gc returns it) and keep written once
+        moved = n * (8 * words.shape[1] + 8 + 4 + 1 + 4 + 1)
+        line["bound_ms"], line["bound_by"] = bound(moved, 0)
+        line["rows"], line["rows_padded"] = n, pad
+        step("merge_gc_split_timing")
+    line["steps_s"] = steps
+    out["row_compaction"] = line
+    print(json.dumps(line))
+    out["flush_apply"] = dict(ptablet.FLUSH_APPLY_STATS)
+    with open(os.path.join(root, "run.json"), "w") as f:
+        json.dump(out, f)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3064,7 +3548,32 @@ def main(argv=None) -> int:
         shutil.rmtree(hnsw_root, ignore_errors=True)
         shutil.rmtree(tablet_root, ignore_errors=True)
 
-    # --- phase 11: report ------------------------------------------------
+    # --- phase 11: the write path -----------------------------------------
+    # (a) HTAP, then (b) YCSB in a process of its own (its flags stay
+    # there): one after the other, so that neither half's host work is
+    # timed under the other's
+    written = htap_phase(torch, np, hs, data, card,
+                         os.path.join(here, "build", "htap_smoke"),
+                         seed=args.seed)
+    phase_time("11a htap")
+    ycsb_root = os.path.join(here, "build", "ycsb_smoke")
+    ycsb_proc = multiprocessing.get_context("spawn").Process(
+        target=ycsb_job, args=(args.seed, ycsb_root, card), daemon=True)
+    ycsb_proc.start()
+    try:
+        ycsb_proc.join(timeout=900)
+        check(ycsb_proc.exitcode == 0,
+              f"the YCSB process failed (exit code {ycsb_proc.exitcode})")
+        with open(os.path.join(ycsb_root, "run.json")) as f:
+            ycsb_run = json.load(f)
+    finally:
+        if ycsb_proc.is_alive():
+            ycsb_proc.terminate()
+        ycsb_proc.join(timeout=30)
+        shutil.rmtree(ycsb_root, ignore_errors=True)
+    phase_time("11b ycsb")
+
+    # --- phase 12: report ------------------------------------------------
     for k in kernels:
         scan_path = launches.get(k["name"], per_query.get(k["name"], 0))
         k["launches_by_path"] = {"scan": scan_path,
@@ -3072,7 +3581,8 @@ def main(argv=None) -> int:
                                  "join": joined.get(k["name"], 0),
                                  "rows_windows": rowed["hand"].get(
                                      k["name"], 0),
-                                 "vectors": vector_hand.get(k["name"], 0)}
+                                 "vectors": vector_hand.get(k["name"], 0),
+                                 "write_path": written.get(k["name"], 0)}
         k["launches"] = sum(k["launches_by_path"].values())
         check(k["launches"] > 0, f"{k['name']} launched 0 times")
     keys = ("name", "route", "source", "replaces", "launches",
@@ -3096,7 +3606,10 @@ def main(argv=None) -> int:
                  "launches": meshed["distributed_scan"]},
                 {"name": "sharded_exact_search", "path": "mesh",
                  "source": "yugabyte_db_tpu_torch/parallel/vector.py",
-                 "launches": meshed["sharded_exact_search"]}]
+                 "launches": meshed["sharded_exact_search"]},
+                {"name": "merge_gc_split", "path": "write_path",
+                 "source": "yugabyte_db_tpu_torch/ops/compaction.py",
+                 "launches": ycsb_run["row_compaction"]["launches"]}]
     check(all(p["launches"] > 0 for p in programs),
           f"a program of the new paths never ran: {programs}")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}

@@ -5,7 +5,10 @@ scalar GC cases through it (against the reference's whole-input
 program), the
 whole engine (docdb/compaction.py tpu_compact, device backend on the CPU
 and the baseline backend) byte for byte against the reference's on equal
-stores, and every typed refusal."""
+stores, the row routes both packages take where the columnar engines
+refuse (row-format inputs, keys without the hybrid-time suffix, a block
+that turns ineligible mid-stream, the store's own feed compaction) and
+the typed refusals that remain."""
 import os
 
 import numpy as np
@@ -325,6 +328,27 @@ def _equal_stores(tmp_path, table: str, n_ssts: int = 8,
     return (js, jc), (ps, pc), sorted(hts)
 
 
+def _with_row_codecs(js, jc, ps, pc):
+    """Bind each codec's columnar builder and row decoder to its store
+    and the store's readers, as a tablet's store has them (the row
+    routes read columnar-only blocks back as KV entries)."""
+    for store, codec in ((js, jc), (ps, pc)):
+        store.columnar_builder = codec.columnar_builder
+        store.row_decoder = codec.row_decoder
+        for r in store.ssts:
+            r.row_decoder = codec.row_decoder
+
+
+def _same_store_files(js, ps):
+    assert [os.path.basename(r.path) for r in js.ssts] == \
+        [os.path.basename(r.path) for r in ps.ssts]
+    for a, b in zip(js.ssts, ps.ssts):
+        assert open(a.path, "rb").read() == open(b.path, "rb").read(), \
+            (a.path, b.path)
+    assert open(js._manifest_path, "rb").read() == \
+        open(ps._manifest_path, "rb").read()
+
+
 def _cutoff(hts, where):
     return {"below": hts[0] - 1, "middle": hts[len(hts) // 2],
             "above": hts[-1] + 1}[where]
@@ -432,58 +456,80 @@ def test_refuses_native_backend(tmp_path):
 
 @pytest.mark.parametrize("backend", ["device", "baseline"])
 def test_refuses_row_format_inputs(tmp_path, backend):
-    """A reference SST of row KV blocks (no columnar sidecar) in the
-    store: the reference compacts it through its row path."""
-    from yugabyte_db_tpu.storage.sst import SstWriter as JWriter
-    (_, _), (ps, pc), hts = _equal_stores(tmp_path, "lineitem", n_ssts=2)
-    path = ps._new_sst_path()
-    w = JWriter(path)
-    w.add(b"\x08\x00\x01k\x04\x05" + b"\x00" * 12, b"\x21row")
-    w.finish()
-    rows = pcomp.SstReader(path)
-    with pytest.raises(NotPortedError) as e:
-        pcomp.tpu_compact(ps, pc, hts[-1], inputs=ps.ssts + [rows],
-                          backend=backend, device="cpu")
-    assert "item 9" in _reason(e)
-    assert len(ps.ssts) == 3
+    """An SST of row KV blocks (no columnar sidecar: its one value does
+    not unpack) in the store: both packages compact through their row
+    route (``_compact_rows`` for the device backend, the CPU feed for
+    the baseline) into the same file."""
+    (js, jc), (ps, pc), hts = _equal_stores(tmp_path, "lineitem", n_ssts=2)
+    _with_row_codecs(js, jc, ps, pc)
+    kv = (b"\x08\x00\x01k\x04\x05" + b"\x00" * 12, b"\x21row")
+    for store in (js, ps):
+        store.ingest_sst(lambda w: w.add(*kv))
+    _same_store_files(js, ps)
+    assert ps.ssts[0].columnar_block(0) is None
+    jp = jcomp.tpu_compact(js, jc, hts[-1], backend=backend)
+    pp = pcomp.tpu_compact(ps, pc, hts[-1], backend=backend, device="cpu")
+    assert os.path.basename(jp) == os.path.basename(pp)
+    _same_store_files(js, ps)
+    assert len(ps.ssts) == 1
+    assert ps.get(kv[0]) == kv[1]
 
 
 @pytest.mark.parametrize("backend", ["device", "baseline"])
 def test_refuses_keys_without_hybrid_time_suffix(tmp_path, backend,
                                                  monkeypatch):
-    """A corrupt key matrix: the reference degrades to its CPU feed."""
-    (_, _), (ps, pc), hts = _equal_stores(tmp_path, "lineitem", n_ssts=2)
+    """A corrupt key matrix: both packages degrade to the CPU feed and
+    write the same file."""
+    (js, jc), (ps, pc), hts = _equal_stores(tmp_path, "lineitem", n_ssts=2)
+    _with_row_codecs(js, jc, ps, pc)
+    from yugabyte_db_tpu.storage import sst as jsst
     from yugabyte_db_tpu_torch.storage import sst as psst
-    for name in ("read_columnar", "columnar_block"):
-        orig = getattr(psst.SstReader, name)
+    for mod in (jsst, psst):
+        for name in ("read_columnar", "columnar_block"):
+            orig = getattr(mod.SstReader, name)
 
-        def corrupt(self, i, _orig=orig):
-            blk = _orig(self, i)
-            k = blk.keys.copy()
-            k[:, -13] = 0
-            blk.keys = k
-            return blk
-        monkeypatch.setattr(psst.SstReader, name, corrupt)
-    with pytest.raises(NotPortedError) as e:
-        pcomp.tpu_compact(ps, pc, hts[-1], backend=backend, device="cpu")
-    assert "hybrid-time suffix" in _reason(e)
-    assert isinstance(e.value.__cause__, pops.KeySuffixError)
-    assert len(ps.ssts) == 3
+            def corrupt(self, i, _orig=orig):
+                blk = _orig(self, i)
+                k = blk.keys.copy()
+                k[:, -13] = 0
+                blk.keys = k
+                return blk
+            monkeypatch.setattr(mod.SstReader, name, corrupt)
+    with pytest.raises(pops.KeySuffixError):
+        pcomp._compact_columnar(ps, pc, [ps.ssts[0].read_columnar(0)],
+                                ps.ssts, hts[-1], 700, np.zeros(1, np.int64))
+    jp = jcomp.tpu_compact(js, jc, hts[-1], backend=backend)
+    pp = pcomp.tpu_compact(ps, pc, hts[-1], backend=backend, device="cpu")
+    assert os.path.basename(jp) == os.path.basename(pp)
+    _same_store_files(js, ps)
+    assert len(ps.ssts) == 1
     assert not [f for f in os.listdir(ps.dir) if f.endswith(".tmp")]
 
 
 def test_refuses_mixed_schema_versions_mid_stream(tmp_path):
-    (_, _), (ps, pc), hts = _equal_stores(tmp_path, "lineitem", n_ssts=2)
+    """Blocks of a schema version the codec does not know: the chunked
+    engine aborts mid-stream and both packages take the row route,
+    which cannot decode them either — the same error, the store
+    untouched and no partial file left."""
+    (js, jc), (ps, pc), hts = _equal_stores(tmp_path, "lineitem", n_ssts=2)
+    _with_row_codecs(js, jc, ps, pc)
     data = tpch.generate_lineitem(0.0005, seed=1)
-    blocks = list(pc.bulk_blocks_iter(data, HybridTime.from_micros(
-        COMPACT_BASE_US + 10_000), block_rows=512))
-    for b in blocks:
+    ht = COMPACT_BASE_US + 10_000
+    jblocks = list(jc.bulk_blocks_iter(data, JHT.from_micros(ht),
+                                       block_rows=512))
+    pblocks = list(pc.bulk_blocks_iter(data, HybridTime.from_micros(ht),
+                                       block_rows=512))
+    for b in jblocks + pblocks:
         b.schema_version = 2
-    ps.ingest_sst(lambda w: [w.add_columnar_block(b) for b in blocks])
-    with pytest.raises(NotPortedError) as e:
+    js.ingest_sst(lambda w: [w.add_columnar_block(b) for b in jblocks])
+    ps.ingest_sst(lambda w: [w.add_columnar_block(b) for b in pblocks])
+    with pytest.raises(KeyError) as je:
+        jcomp.tpu_compact(js, jc, hts[-1])
+    with pytest.raises(KeyError) as pe:
         pcomp.tpu_compact(ps, pc, hts[-1], device="cpu")
-    assert "schema version" in _reason(e)
+    assert pe.value.args == je.value.args == (2,)
     assert len(ps.ssts) == 4
+    _same_store_files(js, ps)
     assert not [f for f in os.listdir(ps.dir) if f.endswith(".tmp")]
 
 
@@ -504,9 +550,11 @@ def test_refuses_shredding_and_encryption(tmp_path):
     with pytest.raises(NotPortedError) as e:
         store.ingest_sst(lambda w: None)
     assert "shredding" in _reason(e)
-    (_, _), (ps, pc), hts = _equal_stores(tmp_path, "lineitem", n_ssts=2)
-    with pytest.raises(NotPortedError):
-        ps.compact()
+    # the store's own feed compaction (no GC) is ported: the same file
+    (js, jc), (ps, pc), hts = _equal_stores(tmp_path, "lineitem", n_ssts=2)
+    _with_row_codecs(js, jc, ps, pc)
+    assert os.path.basename(js.compact()) == os.path.basename(ps.compact())
+    _same_store_files(js, ps)
     # a tablet holding an encrypted SST (the reference's envelope) does
     # not open, so it never reaches a compaction
     with open(ps.ssts[-1].path, "r+b") as f:

@@ -875,3 +875,111 @@ def test_cuda_bypass_mesh_one_card_per_shard(cuda_device, tmp_path):
             np.testing.assert_allclose(np.asarray(a, np.float64),
                                        np.asarray(b, np.float64),
                                        rtol=1e-9, atol=0)
+
+
+# --- the write path on the card ----------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [(24,), (21, 33, 24)])
+def test_cuda_merge_gc_split_matches_cpu(cuda_device, widths):
+    """The whole-input merge + GC program (ops/compaction.py
+    merge_gc_split_kernel through compact_runs) on the card: order and
+    keep bit for bit with its CPU run, mixed key widths and bucket
+    padding included."""
+    from yugabyte_db_tpu_torch.ops import compaction as pops
+    rng = np.random.default_rng(3)
+    runs = []
+    for w in widths:
+        n = 5000
+        dk = rng.integers(0, 4, (n, w - 13)).astype(np.uint8)
+        dk[:, 0] = 8
+        ht = rng.integers(1, 60, n).astype(np.uint64) << np.uint64(12)
+        wid = rng.integers(0, 3, n).astype(np.uint32)
+        suf = np.concatenate(
+            [np.full((n, 1), 5, np.uint8),
+             (~ht).astype(">u8").view(np.uint8).reshape(n, 8),
+             (~wid).astype(">u4").view(np.uint8).reshape(n, 4)], axis=1)
+        runs.append((np.concatenate([dk, suf], axis=1),
+                     rng.random(n) < 0.2))
+    for cut in (0, 30 << 12, (1 << 64) - 1):
+        c0 = pops.MERGE_GC_STATS["calls"]
+        go, gk = pops.compact_runs(runs, cut, device=cuda_device)
+        assert pops.MERGE_GC_STATS["calls"] == c0 + 1
+        wo, wk = pops.compact_runs(runs, cut, device="cpu")
+        assert np.array_equal(go, wo) and np.array_equal(gk, wk)
+
+
+def _written_tablets(tmp_path, cuda_device):
+    """A lineitem tablet on the card and its twin on the CPU: one bulk
+    load, then the same RF1 inserts and RF2 deletes through apply_write
+    at fixed hybrid times (SST + memtable)."""
+    from yugabyte_db_tpu_torch.docdb.operations import RowOp, WriteRequest
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    data = tpch.generate_lineitem(0.005, seed=5)
+    n = len(data["rowid"])
+    tablets = {}
+    for dev in (cuda_device, "cpu"):
+        t = Tablet("t", tpch.lineitem_info(), str(tmp_path / str(dev)),
+                   device=dev)
+        t.bulk_load(data, ht=HybridTime(1 << 40), block_rows=8192)
+        ht = (1 << 40) + (1 << 20)
+        for order in tpch.refresh_inserts(0.005, n, seed=1):
+            t.apply_write(WriteRequest("lineitem", [
+                RowOp("upsert", r) for r in tpch.column_rows(order)]),
+                ht=HybridTime(ht))
+            ht += 1 << 12
+        t.apply_write(WriteRequest("lineitem", [
+            RowOp("delete", {"rowid": int(r)})
+            for r in np.concatenate(
+                tpch.refresh_deletes(0.005, n, seed=1))]),
+            ht=HybridTime(ht))
+        tablets[str(dev)] = t
+    return tablets, (1 << 41)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streamed", [True, False])
+def test_cuda_dedup_read_over_memtable_matches_cpu(cuda_device, tmp_path,
+                                                   streamed):
+    """Q6 and Q1 over SST + memtable (the memtable's columnar block, MVCC
+    mode dedup) on the card equal the CPU run bit for bit, and a
+    major compaction on the card leaves one SST that K3 then reads
+    (MVCC mode visible) within its tolerance of the plain version."""
+    from yugabyte_db_tpu_torch.docdb.operations import ReadRequest
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.utils import flags
+    tablets, read_ht = _written_tablets(tmp_path, cuda_device)
+    gpu, cpu = tablets[str(cuda_device)], tablets["cpu"]
+    assert not gpu.regular.memtable_empty()
+
+    def read(t, q):
+        return t.read(ReadRequest("lineitem", where=q.where,
+                                  aggregates=q.aggs, group_by=q.group,
+                                  read_ht=read_ht))
+
+    with flags.overridden("device_float_dtype", "float32"), \
+            flags.overridden("streaming_chunk_rows", 16384), \
+            flags.overridden("streaming_scan_enabled", streamed):
+        for q in (tpch.TPCH_Q6, tpch.TPCH_Q1):
+            got, want = read(gpu, q), read(cpu, q)
+            assert got.backend == want.backend == "tpu"
+            assert np.array_equal(got.group_counts, want.group_counts)
+            for g, w in zip(got.agg_values, want.agg_values):
+                assert np.asarray(g).tobytes() == np.asarray(w).tobytes()
+        with flags.overridden("tpu_compaction_enabled", True):
+            assert gpu.compact() is not None
+        assert len(gpu.regular.ssts) == 1 and gpu.regular.memtable_empty()
+        for q in (tpch.TPCH_Q6, tpch.TPCH_Q1):
+            want = read(cpu, q)
+            got = read(gpu, q)
+            assert np.array_equal(got.group_counts, want.group_counts)
+            for g, w in zip(got.agg_values, want.agg_values):
+                assert np.asarray(g).tobytes() == np.asarray(w).tobytes()
+            with flags.overridden("hand_scan_enabled", True):
+                before = hs.LAUNCHES["generic_scan"]
+                hand = read(gpu, q)
+                assert hs.LAUNCHES["generic_scan"] > before
+            assert np.array_equal(hand.group_counts, want.group_counts)
+            for a, g, w in zip(q.aggs, hand.agg_values, want.agg_values):
+                assert_partials(g, w, a.op)

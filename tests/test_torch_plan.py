@@ -7,9 +7,9 @@ bypass route, dangling and NULL FKs, an empty build side, NULL payloads,
 dictionary-coded string keys, float build keys, WHERE and aggregate
 constants that must not collide, chunk-straddling probes and growth
 inside a bucket that adds no cache entry.  Where the reference answers
-on its interpreted join (``backend == "cpu"``) the port raises
-NotPortedError naming ROADMAP.md queue 1 item 9a.  Tolerance: none —
-every answer compares bit for bit (the same dtype and bits)."""
+on its interpreted join (``backend == "cpu"``) the port does too, with
+the same answer.  Tolerance: none — every answer compares bit for bit
+(the same dtype and bits)."""
 import numpy as np
 import pytest
 
@@ -18,14 +18,14 @@ from yugabyte_db_tpu.bypass import BypassSession as JSession
 from yugabyte_db_tpu.ops import plan_fusion as jpf
 from yugabyte_db_tpu.ops.device_batch import bucket_rows as jbucket
 from yugabyte_db_tpu_torch.bypass import BypassIneligible, BypassSession
-from yugabyte_db_tpu_torch.errors import NotPortedError
 from yugabyte_db_tpu_torch.ops import join_scan as pjs
 from yugabyte_db_tpu_torch.ops import plan_fusion as ppf
 from yugabyte_db_tpu_torch.ops.expr import Expr
 from yugabyte_db_tpu_torch.ops.grouped_scan import DictGroupSpec
 from yugabyte_db_tpu_torch.ops.scan import AggSpec, HashGroupSpec
 from tests.torch_parity import (BID, JOIN_READ_HT, assert_bitwise,
-                                assert_same_answer, assert_same_response,
+                                assert_same_answer, assert_same_cpu_response,
+                                assert_same_response,
                                 build_side, by_key, flags_set,
                                 isolate_reference_plan_kernel,
                                 join_requests, port_blocks_from,
@@ -255,12 +255,11 @@ def test_duplicate_build_keys_are_refused_where_the_reference_interprets(
                       {BID: (np.array(["A", "B", "A"], object), None)})
     f0 = pjs.JOIN_STATS["fallbacks"]
     jreq, preq = join_requests("probe", WHERE, AGGS, GROUP, joins)
-    with pytest.raises(NotPortedError) as e:
-        pt.read(preq)
-    assert jt.read(jreq).backend == "cpu"
-    assert "item 9a" in str(e.value)
-    assert pjs.REASON_DUPLICATE_KEY in str(e.value)
+    presp = pt.read(preq)
     assert pjs.JOIN_STATS["fallbacks"] == f0 + 1
+    assert_same_cpu_response(presp, jt.read(jreq), "duplicate keys")
+    # both build rows of key 0 match: groups A (twice) and B
+    assert sorted(presp.group_values[0]) == ["A", "B"]
 
 
 def test_float_build_keys_never_truncate(int_tablets):
@@ -268,9 +267,9 @@ def test_float_build_keys_never_truncate(int_tablets):
     frac = wire_pair(1, np.array([2.0, 3.5]),
                      {BID: (np.array(["X", "Y"], object), None)})
     jreq, preq = join_requests("probe", WHERE, AGGS, GROUP, frac)
-    assert jt.read(jreq).backend == "cpu"
-    with pytest.raises(NotPortedError, match="join_key_type"):
-        pt.read(preq)
+    f0 = pjs.JOIN_STATS["fallbacks"]
+    assert_same_cpu_response(pt.read(preq), jt.read(jreq), "float keys")
+    assert pjs.JOIN_STATS["fallbacks"] == f0 + 1
     # integer-VALUED float keys are exact and served on the device
     whole = wire_pair(1, np.arange(500).astype(np.float64),
                       {BID: (np.array([f"P{i % 5}" for i in range(500)],
@@ -296,9 +295,8 @@ def test_interpreted_join_shapes_are_refused(int_tablets, case):
     l0 = ppf.PLAN_STATS["launches"]
     jreq, preq = join_requests("probe", where, AGGS, group, build_side())
     with _both(**flags):
-        assert jt.read(jreq).backend == "cpu"
-        with pytest.raises(NotPortedError, match="item 9a"):
-            pt.read(preq)
+        jresp, presp = jt.read(jreq), pt.read(preq)
+    assert_same_cpu_response(presp, jresp, case)
     assert ppf.PLAN_STATS["launches"] == l0
 
 

@@ -7,8 +7,8 @@ rows in order with their values and Python types, ``backend``,
 ``window_served`` and ``window_reason``.  Every row shape the reference
 answers on its CPU path (``backend == "cpu"``: enumerated MultiGets on
 the hash key, no WHERE, a paging state, pushdown off, small scans, a
-predicate the device cannot run) raises NotPortedError naming its
-ROADMAP.md item."""
+predicate the device cannot run) the port answers alike on its
+interpreted path."""
 import numpy as np
 import pytest
 
@@ -18,14 +18,13 @@ from yugabyte_db_tpu.ops import window_scan as jws
 from yugabyte_db_tpu.utils import hybrid_time as jht
 from yugabyte_db_tpu_torch.docdb import operations as pops
 from yugabyte_db_tpu_torch.docdb.operations import ReadRequest
-from yugabyte_db_tpu_torch.errors import NotPortedError
 from yugabyte_db_tpu_torch.models import tpch
 from yugabyte_db_tpu_torch.ops import stream_scan as pss
 from yugabyte_db_tpu_torch.ops import window_scan as pws
 from yugabyte_db_tpu_torch.ops.expr import Expr
 from yugabyte_db_tpu_torch.utils import hybrid_time as pht
-from tests.torch_parity import (TABLET_BASE_US, flags_set, lineitem_data,
-                                tablet_pair)
+from tests.torch_parity import (TABLET_BASE_US, assert_same_cpu_response,
+                                flags_set, lineitem_data, tablet_pair)
 
 C = Expr.col
 Q, P, D, S, R, L = (tpch.QTY, tpch.EXTPRICE, tpch.DISCOUNT, tpch.SHIPDATE,
@@ -275,9 +274,8 @@ def test_enumerated_reads_are_refused(tablets, shape, windowed):
     (jt,), (pt,) = tablets["hash"]
     jreq, preq = _requests("lineitem", **kw)
     with _flags():
-        assert jt.read(jreq).backend == "cpu"
-        with pytest.raises(NotPortedError, match="item 9a .point"):
-            pt.read(preq)
+        jresp, presp = jt.read(jreq), pt.read(preq)
+    assert_same_cpu_response(presp, jresp, shape)
 
 
 def test_past_the_enumeration_cap_takes_the_filter_route(tablets):
@@ -317,19 +315,18 @@ def test_cpu_row_shapes_are_refused(tablets, shape):
     (jt,), (pt,) = tablets["hash"]
     jreq, preq = _requests("lineitem", **kw)
     with _flags(**fl):
-        assert jt.read(jreq).backend == "cpu"
-        with pytest.raises(NotPortedError, match="item 9a .the interpreted"):
-            pt.read(preq)
+        jresp, presp = jt.read(jreq), pt.read(preq)
+    assert_same_cpu_response(presp, jresp, shape)
+    assert presp.rows
 
 
 @pytest.mark.parametrize("route", ["streamed", "monolithic"])
 def test_unrewritable_string_predicate_is_refused(tablets, route):
-    """Two dictionary columns compared: the reference's filter route
-    falls to its row loop; the port refuses."""
+    """Two dictionary columns compared: the filter route of both
+    packages falls to the interpreted row loop, with the same rows."""
     kw = dict(where=("cmp", "eq", ("col", R), ("col", L)))
     (jt,), (pt,) = tablets["str"]
     jreq, preq = _requests("lineitem_s", **kw)
     with _flags(streamed=route == "streamed"):
-        assert jt.read(jreq).backend == "cpu"
-        with pytest.raises(NotPortedError, match="rewritable"):
-            pt.read(preq)
+        jresp, presp = jt.read(jreq), pt.read(preq)
+    assert_same_cpu_response(presp, jresp, route)

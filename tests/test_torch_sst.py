@@ -3,8 +3,10 @@ the header codec against msgpack, lane encodings, block serialization
 (bulk and string-keyed lineitem, tombstones and NULLs: v2 written by
 both packages, v1 written by the reference and read by both), SST files
 from the streamed and buffered writers, each package reading the other's
-bytes, the host library against its numpy twins, the LSM store's
-manifest, and the typed refusals of what is not ported."""
+bytes, row KV blocks with their columnar sidecars (written, iterated,
+sought and point-read alike), the host library against its numpy twins,
+the LSM store's manifest, and the typed refusals of what is not
+ported."""
 import os
 import random
 import struct
@@ -383,17 +385,48 @@ def test_sst_writer_checks_and_abort(tmp_path):
 
 
 def test_row_paths_and_encryption_are_refused(tmp_path):
-    _, pb, _, _ = _blocks("lineitem")
-    path = str(tmp_path / "r.sst")
-    with pytest.raises(NotPortedError):
-        psst.SstWriter(path).add(b"k", b"v")
-    _write(psst, path, pb, 2, True, None, {})
-    r = psst.SstReader(path)
-    for call in (lambda: r.iterate(), lambda: r.seek(b""),
-                 lambda: r.point_find(b"k", 0), lambda: r.point_reader(None)):
-        with pytest.raises(NotPortedError) as e:
-            call()
-        assert "item 9" in str(e.value)
+    """Row KV blocks: both packages write one file from the same entries
+    (a row region and a columnar sidecar per block), and read it alike —
+    iterate, seek, point_find at several read points and the restart
+    window; the native point reader and encrypted files stay refused."""
+    jb, pb, jc, pc = _blocks("lineitem")
+    entries = pc.row_decoder(pb[0]) + pc.row_decoder(pb[1])
+    assert entries == jc.row_decoder(jb[0]) + jc.row_decoder(jb[1])
+    entries.sort()
+    files = {}
+    for name, mod, codec in (("j", jsst, jc), ("p", psst, pc)):
+        path = str(tmp_path / f"{name}.sst")
+        w = mod.SstWriter(path, block_rows=700,
+                          columnar_builder=codec.columnar_builder)
+        for k, v in entries:
+            w.add(k, v)
+        w.set_frontier(op_id=[1, 2])
+        w.finish()
+        files[name] = open(path, "rb").read()
+    assert files["j"] == files["p"]
+    r = psst.SstReader(str(tmp_path / "p.sst"), row_decoder=pc.row_decoder)
+    jr = jsst.SstReader(str(tmp_path / "j.sst"), row_decoder=jc.row_decoder)
+    assert r.index[0].length > 0 and r.index[0].col_offset > 0
+    assert list(r.iterate()) == list(jr.iterate()) == entries
+    mid = entries[len(entries) // 2][0]
+    assert list(r.seek(mid)) == list(jr.seek(mid))
+    assert list(r.iterate(lower=entries[5][0], upper=mid)) == \
+        list(jr.iterate(lower=entries[5][0], upper=mid))
+    for k, _ in entries[::97]:
+        prefix = k[:-13]
+        for read_ht, hi in ((HT, None), (HT - 1, None), (HT - 1, HT)):
+            got = r.point_find(prefix, read_ht, hi)
+            want = jr.point_find(prefix, read_ht, hi)
+            assert (got is None) == (want is None), (prefix, read_ht)
+            if got is not None:
+                assert got[:4] == want[:4]
+    with pytest.raises(NotPortedError) as e:
+        r.point_reader(pc)
+    assert "item 9a" in str(e.value)
+    w = psst.SstWriter(str(tmp_path / "z.sst"))
+    w.add(b"k", b"v")
+    with pytest.raises(ValueError):
+        w.add(b"a", b"v")                         # out of order
     enc = str(tmp_path / "e.sst")
     for magic in (b"YBTPUENC", b"YBTPUEN2"):      # the reference's envelopes
         with open(enc, "wb") as f:

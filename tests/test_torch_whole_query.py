@@ -3,7 +3,8 @@ chains through Tablet.read against the reference tablet's device answer
 (dangling and NULL FKs dropping at their own stage, dict-coded string
 payloads), the TPC-H chains (Q3, Q5, Q10) and the Q3-ish join against
 their numpy answers and the reference, the per-stage typed refusals (the
-whole query refused, the stage named), growth that never adds a plan
+device refuses the whole query, naming the stage, and both packages
+answer it on their interpreted join), growth that never adds a plan
 cache entry, and the 22-query registry against the reference's, name by
 name.  The reference's own tests pass each request through
 docdb/wire.py, which the port does not have yet (ROADMAP.md queue 1 item
@@ -15,14 +16,15 @@ import pytest
 
 from yugabyte_db_tpu.models import tpch as jtpch
 from yugabyte_db_tpu.ops import join_scan as jjs
-from yugabyte_db_tpu_torch.errors import NotPortedError
 from yugabyte_db_tpu_torch.models import tpch
 from yugabyte_db_tpu_torch.ops import join_scan as pjs
 from yugabyte_db_tpu_torch.ops import plan_fusion as ppf
 from yugabyte_db_tpu_torch.ops.expr import Expr
 from yugabyte_db_tpu_torch.ops.grouped_scan import DictGroupSpec
 from yugabyte_db_tpu_torch.ops.scan import AggSpec
-from tests.torch_parity import (BID, assert_bitwise, assert_same_response,
+from tests.torch_parity import (BID, assert_bitwise,
+                                assert_same_cpu_response,
+                                assert_same_response,
                                 by_key, flags_set,
                                 isolate_reference_plan_kernel,
                                 join_requests, lineitem_data, probe_data,
@@ -278,14 +280,15 @@ def test_stage1_refusal_refuses_the_whole_query(probe):
     cust["ck"][5] = cust["ck"][4]
     joins = _chain(mid, cust)
     f0 = pjs.JOIN_STATS["fallbacks"]
+    with pytest.raises(pjs.JoinIneligible) as e:
+        pjs.make_join_runtimes(joins[1], {}, device="cpu")
+    assert e.value.stage == 1
     with _both(tpu_min_rows_for_pushdown=0):
         jreq, preq = join_requests("probe", WHERE, AGGS,
                                    DictGroupSpec(cols=(SEG,)), joins)
-        assert jt.read(jreq).backend == "cpu"
-        with pytest.raises(NotPortedError) as e:
-            pt.read(preq)
-    assert "item 9a" in str(e.value) and "stage 1" in str(e.value)
-    assert pjs.JOIN_STATS["fallbacks"] == f0 + 1
+        presp = pt.read(preq)
+        assert pjs.JOIN_STATS["fallbacks"] == f0 + 1
+        assert_same_cpu_response(presp, jt.read(jreq), "stage 1 refused")
 
 
 def test_stage_budget_typed_then_whole_query_intact(probe):
@@ -299,9 +302,8 @@ def test_stage_budget_typed_then_whole_query_intact(probe):
     with _both(tpu_min_rows_for_pushdown=0):
         with _both(multi_join_max_stages=1):
             jreq, preq = join_requests("probe", WHERE, AGGS, group, joins)
-            assert jt.read(jreq).backend == "cpu"
-            with pytest.raises(NotPortedError, match="join_stage_count"):
-                pt.read(preq)
+            assert_same_cpu_response(pt.read(preq), jt.read(jreq),
+                                     "stage budget")
         jreq, preq = join_requests("probe", WHERE, AGGS, group, joins)
         presp, jresp = pt.read(preq), jt.read(jreq)
     assert_same_response(presp, jresp)

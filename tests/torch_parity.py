@@ -686,6 +686,32 @@ def assert_same_answer(pvals, pcounts, jvals, jcounts, pgv=None, jgv=None,
         assert_same_value(a, b, f"{what} group values {i}")
 
 
+def assert_same_rows_exact(prows, jrows, what=""):
+    """Row dicts equal in order, column order, values and Python types
+    (floats by their bits)."""
+    assert len(prows) == len(jrows), (what, len(prows), len(jrows))
+    for i, (p, j) in enumerate(zip(prows, jrows)):
+        assert list(p) == list(j), (what, i, p, j)
+        assert [_canon(v) for v in p.values()] == \
+            [_canon(v) for v in j.values()], (what, i, p, j)
+
+
+def assert_same_cpu_response(presp, jresp, what=""):
+    """Both answered on the interpreted path: rows, paging state,
+    aggregate values, counts and group values equal."""
+    assert presp.backend == jresp.backend == "cpu", \
+        (what, presp.backend, jresp.backend)
+    assert_same_rows_exact(presp.rows, jresp.rows, what)
+    assert presp.paging_state == jresp.paging_state, what
+    assert (presp.agg_values is None) == (jresp.agg_values is None), what
+    if jresp.agg_values is not None:
+        assert_same_answer(presp.agg_values, presp.group_counts,
+                           jresp.agg_values, jresp.group_counts,
+                           presp.group_values, jresp.group_values, what)
+    assert (presp.window_served, presp.window_reason) == \
+        (jresp.window_served, jresp.window_reason), what
+
+
 def assert_same_response(presp, jresp, what=""):
     assert jresp.backend == "tpu" and presp.backend == "tpu", \
         (what, jresp.backend)
@@ -952,3 +978,96 @@ WINDOW_ITEMS = (("row_number", 0, None, "rn"), ("rank", 0, None, "rk"),
                 ("lag", 1, "price", "prev_price"),
                 ("lead", 1, "price", "next_price"),
                 ("lead", 2, "disc", "next_disc"))
+
+
+# --- the write path: small tables, writes in both packages ---------------------
+WRITE_BASE_US = 1_000_000      # mock clocks of the write-path tests
+
+
+def kv_infos(kind: str = "hash"):
+    """(reference TableInfo, port TableInfo) of a small table: 'hash'
+    (k int64 hashed; v float64, s string, n int32 value columns) or
+    'range' (h int64 hashed, r int32 range, then the same values:
+    prefix scans) or 'rangepk' (a range-sharded (a int64, b int32)
+    key: skip-scan segments)."""
+    from yugabyte_db_tpu.docdb.table_codec import TableInfo as JInfo
+    from yugabyte_db_tpu.dockv import packed_row as jpr
+    from yugabyte_db_tpu.dockv.partition import PartitionSchema as JPS
+    from yugabyte_db_tpu_torch.docdb.table_codec import TableInfo as PInfo
+    from yugabyte_db_tpu_torch.dockv import packed_row as ppr
+    from yugabyte_db_tpu_torch.dockv.partition import PartitionSchema as PPS
+
+    def cols(pr):
+        C, T = pr.ColumnSchema, pr.ColumnType
+        if kind == "hash":
+            key = (C(0, "k", T.INT64, is_hash_key=True),)
+        elif kind == "range":
+            key = (C(0, "k", T.INT64, is_hash_key=True),
+                   C(4, "r", T.INT32, is_range_key=True))
+        else:
+            key = (C(0, "k", T.INT64, is_range_key=True),
+                   C(4, "r", T.INT32, is_range_key=True))
+        return key + (C(1, "v", T.FLOAT64), C(2, "s", T.STRING),
+                      C(3, "n", T.INT32))
+
+    part = "range" if kind == "rangepk" else "hash"
+    nh = 0 if kind == "rangepk" else 1
+    return (JInfo("t1", "kv", jpr.TableSchema(cols(jpr), 1), JPS(part, nh)),
+            PInfo("t1", "kv", ppr.TableSchema(cols(ppr), 1), PPS(part, nh)))
+
+
+def kv_tablet_pair(root, kind: str = "hash"):
+    """Reference and port tablets (the port's on the CPU) of
+    :func:`kv_infos`, each on its own mock clock at WRITE_BASE_US;
+    returns (jt, pt, jclock, pclock) — advance both clocks alike."""
+    import os
+
+    from yugabyte_db_tpu.tablet import Tablet as JTablet
+    from yugabyte_db_tpu.utils import hybrid_time as jht
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import hybrid_time as pht
+    jinfo, pinfo = kv_infos(kind)
+    jphys = jht.MockPhysicalClock(WRITE_BASE_US)
+    pphys = pht.MockPhysicalClock(WRITE_BASE_US)
+    jt = JTablet("w", jinfo, os.path.join(root, "j"),
+                 clock=jht.HybridClock(jphys))
+    pt = Tablet("w", pinfo, os.path.join(root, "p"),
+                clock=pht.HybridClock(pphys), device="cpu")
+    return jt, pt, jphys, pphys
+
+
+def kv_row(rng, k: int, kind: str = "hash", null_frac: float = 0.2):
+    """One seeded row of :func:`kv_infos`; value columns NULL with
+    probability `null_frac`."""
+    row = {"k": int(k)}
+    if kind != "hash":
+        row["r"] = int(rng.integers(-3, 4))
+    row["v"] = None if rng.random() < null_frac else \
+        float(rng.integers(-500, 500)) / 4
+    row["s"] = None if rng.random() < null_frac else \
+        "s" + "x" * int(rng.integers(0, 12)) + str(int(rng.integers(0, 99)))
+    row["n"] = None if rng.random() < null_frac else int(rng.integers(-9, 9))
+    return row
+
+
+def write_both(jt, pt, ops, ttl_ms=None, op_id=None):
+    """Apply the same row ops [(kind, row)] as ONE WriteRequest to both
+    tablets (each at its own clock's time); returns the two
+    WriteResponses."""
+    from yugabyte_db_tpu.docdb.operations import RowOp as JOp
+    from yugabyte_db_tpu.docdb.operations import WriteRequest as JW
+    from yugabyte_db_tpu_torch.docdb.operations import RowOp, WriteRequest
+    jr = jt.apply_write(JW("t1", [JOp(k, dict(r), ttl_ms)
+                                  for k, r in ops]), op_id=op_id)
+    pr = pt.apply_write(WriteRequest("t1", [RowOp(k, dict(r), ttl_ms)
+                                            for k, r in ops]), op_id=op_id)
+    return jr, pr
+
+
+def store_files(store) -> dict:
+    """{file name: bytes} of a store's live SSTs and manifest."""
+    import os
+    out = {os.path.basename(r.path): open(r.path, "rb").read()
+           for r in store.ssts}
+    out["MANIFEST"] = open(store._manifest_path, "rb").read()
+    return out

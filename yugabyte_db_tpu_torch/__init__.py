@@ -16,10 +16,15 @@ of ``ops.hand_scan`` -> host-combined partials; the tablet read seam
 aggregate requests through ``docdb.operations.DocReadOperation`` with
 zone-map pruning and read restarts; ``models.tpch.LineitemTable``
 over several tablets; the analytics bypass reader ``bypass.
-BypassSession`` over pinned SSTs); and the LSM compaction merge over
+BypassSession`` over pinned SSTs); the LSM compaction merge over
 columnar SSTs (``docdb.compaction.tpu_compact``: the pipelined chunked
 engine with the merge + MVCC GC on the card, or the monolithic host
-baseline) with the SST tier it runs on.
+baseline) with the SST tier it runs on; and the write path
+(``Tablet.apply_write`` through ``DocWriteOperation`` into the
+memtable, the flush on the apply path to row SSTs with columnar
+sidecars, point, prefix and enumerated reads, the interpreted row path
+and join, row-path compaction with the merge + GC on the card, and
+aggregates on the card over SST + memtable).
 
 Device rule: every entry point takes ``device=`` and defaults to
 ``"cuda"``; asking for CUDA where there is none raises
@@ -30,23 +35,28 @@ passes ``device="cpu"``.  Shapes not ported yet raise
 Package layout:
   device.py   device resolution and validation
   errors.py   the typed NotPortedError refusal
-  utils/      flags (only those the ported paths read), hybrid times
-  dockv/      column schemas, key and value type bytes, partitioning,
-              bulk encoders
+  utils/      flags (only those the ported paths read), hybrid times,
+              the memtable's sorted map
+  dockv/      column schemas and packed rows, doc key encoding, values
+              and TTL envelopes, partitioning, bulk encoders
   storage/    ColumnarBlock (struct-of-arrays rows, string lanes, v1/v2
               serialization, zone maps), lane and dictionary coding
               (lane_codec), the MessagePack header codec (wire_pack),
-              columnar SST files (sst), the LSM store's manifest and
-              SST set and reader leases (lsm), the host library
+              SST files of row and columnar blocks (sst), the memtable,
+              the k-way merge, the LSM store (lsm: writes, flush,
+              manifest, reader leases, feed compaction), the host library
               (native_lib, csrc/host_native.cpp), the stage pipeline
-  docdb/      TableInfo + TableCodec (bulk blocks and ingest, key
-              derivation), read requests and DocReadOperation with the
-              string predicate rewrite (operations), compaction
-              engines (compaction)
-  tablet/     Tablet: one shard's store, codec, reads and compaction
+  docdb/      TableInfo + TableCodec (row encode/decode, flush
+              sidecars, bulk blocks and ingest, key derivation), write
+              and read requests with DocWriteOperation and
+              DocReadOperation (operations), compaction engines and the
+              CPU feed (compaction)
+  tablet/     Tablet: one shard's store, codec, writes, reads, flush and
+              compaction
   bypass/     snapshot pinner, SST-direct scan with the near-data
               prefilter, BypassSession
-  models/     TPC-H lineitem generator, Q6/Q1 and their numpy answers
+  models/     TPC-H lineitem generator and refresh functions, Q6/Q1 and
+              their numpy answers; the YCSB usertable workload
   ops/        expression compiler, device batches and cache, scan
               kernel with the shard combine and zone pruning, dictionary
               GROUP BY (grouped_scan), streaming scan (stream_scan),

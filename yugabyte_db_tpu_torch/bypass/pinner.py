@@ -10,8 +10,7 @@ in the pinned SST files, because
      a larger hybrid time and MVCC filtering hides it;
   2. the memtable is flushed until empty, and the pin itself
      (``LsmStore.pin_ssts(require_empty_memtable=True)``) checks that
-     under the store's lock (the port's store has no memtable, so the
-     first attempt pins);
+     under the lock that installs flush output;
   3. the lease refcounts the files against the store's GC: a compaction
      replaces the live set, but the unlink of pinned inputs waits for
      the release.

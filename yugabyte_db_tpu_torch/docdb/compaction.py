@@ -22,15 +22,19 @@ rocksdb/db/compaction_job.cc:665):
 ``backend="baseline"`` is the reference's monolithic whole-input merge
 on the host (the host library's k-way merge, then the same vectorized
 retention rule): the CPU comparison point a compaction speedup is
-stated against.  It is a backend the caller chooses, never a fallback.
+stated against.
 
-Where the reference leaves these two engines — the row paths and the
-streaming CPU feed (row-format or mixed-width inputs, keys without the
-hybrid-time suffix, blocks that turn ineligible mid-stream) and the
-``native`` backend — the port raises ``NotPortedError`` naming ROADMAP.md
-queue 1 item 9.  Columnar inputs are TTL-free by construction (the
-reference never builds a columnar sidecar for a TTL'd value), so no TTL
-term is needed here."""
+Inputs outside the columnar engines — row blocks (a TTL'd value never
+gets a columnar sidecar), mixed key widths, blocks that turn ineligible
+mid-stream — take the reference's row routes: ``_compact_rows`` for the
+device backend (every entry materialized, the whole-input merge + GC
+program ops/compaction.py ``merge_gc_split_kernel`` on the card, with
+the TTL-expiry retention term), the streaming CPU feed
+(``DocDbCompactionFeed`` through ``LsmStore.compact``) for the
+baseline, and the CPU feed for keys without the hybrid-time suffix.
+The reference's ``native`` backend raises ``NotPortedError`` (ROADMAP.md
+queue 1 item 9a).  Columnar inputs are TTL-free by construction, so the
+columnar engines need no TTL term."""
 from __future__ import annotations
 
 import os
@@ -47,18 +51,56 @@ from ..ops.compaction import (KeySuffixError, _pad_rows, check_ht_suffix,
                               kernel_cache_stats, keys_to_words,
                               merge_frontier, split_ht_suffix)
 from ..storage import native_lib
+from ..dockv.value import ValueKind, unwrap_ttl
+from ..ops.compaction import compact_runs
 from ..storage.columnar import ColumnarBlock
-from ..storage.lsm import LsmStore
+from ..storage.lsm import CompactionFeed, LsmStore
 from ..storage.sst import SstReader, SstWriter
 from ..utils import flags
-from ..utils.hybrid_time import ENCODED_SIZE
+from ..utils.hybrid_time import ENCODED_SIZE, DocHybridTime
 from .table_codec import TableCodec
 
 _HT_SUFFIX = ENCODED_SIZE + 1
-_ROW_ITEM = "ROADMAP.md queue 1 item 9 (row KV blocks and feeds)"
 
 #: stage/shape counters of the most recent chunked compaction
 LAST_COMPACTION_STATS: dict = {}
+
+
+class DocDbCompactionFeed(CompactionFeed):
+    """Streaming MVCC GC for the CPU compaction path (reference:
+    docdb/docdb_compaction_context.cc:783 DocDBCompactionFeed): drop
+    exact duplicates and overwritten versions at or below the history
+    cutoff, a latest-at-cutoff tombstone, and a latest-at-cutoff row
+    whose TTL expired at or before the cutoff."""
+
+    def __init__(self, history_cutoff: int):
+        self.cutoff = history_cutoff
+        self._cur_prefix: Optional[bytes] = None
+        self._seen_leq = False
+        self._last_dht: Optional[tuple] = None
+
+    def feed(self, key: bytes, value: bytes):
+        prefix = key[:-_HT_SUFFIX]
+        dht = DocHybridTime.decode_desc(key[-ENCODED_SIZE:])
+        if prefix != self._cur_prefix:
+            self._cur_prefix = prefix
+            self._seen_leq = False
+            self._last_dht = None
+        ident = (dht.ht.value, dht.write_id)
+        if self._last_dht == ident:
+            return []                      # exact duplicate (replay)
+        self._last_dht = ident
+        if dht.ht.value > self.cutoff:
+            return [(key, value)]          # within retention window
+        if self._seen_leq:
+            return []                      # overwritten history
+        self._seen_leq = True
+        if value and value[0] == ValueKind.kTombstone:
+            return []                      # latest <= cutoff is a delete
+        _, expire = unwrap_ttl(value)
+        if expire is not None and expire <= self.cutoff:
+            return []                      # TTL-expired beyond retention
+        return [(key, value)]
 
 
 def native_merge_gc(keys: np.ndarray, run_starts: np.ndarray,
@@ -99,15 +141,17 @@ def tpu_compact(store: LsmStore, codec: TableCodec, history_cutoff: int,
     backend="baseline": the monolithic whole-input host merge.
 
     Returns the new SST path, or None when there was nothing to do.
-    Inputs outside the columnar engines (row blocks, mixed key widths,
-    keys without the hybrid-time suffix, mixed schema versions) raise
-    NotPortedError, as does backend="native"."""
+    Inputs outside the columnar engines fall back as the reference's
+    do: the device backend to ``_compact_rows`` (row blocks, mixed key
+    widths, a block the chunked engine refuses mid-stream), the baseline
+    to the streaming CPU feed, keys without the hybrid-time suffix to
+    the CPU feed.  backend="native" raises NotPortedError."""
     dev = resolve_device(device)
     if backend == "native":
         raise NotPortedError(
             "tpu_compact(backend='native') (the chunked engine with the "
             "host k-way merge per chunk)",
-            "ROADMAP.md queue 1 item 9 (native compaction backend)")
+            "ROADMAP.md queue 1 item 9a (native compaction backend)")
     if backend not in ("device", "baseline"):
         raise ValueError(f"unknown compaction backend {backend!r}")
     if inputs is None:
@@ -116,25 +160,28 @@ def tpu_compact(store: LsmStore, codec: TableCodec, history_cutoff: int,
     if not inputs:
         return None
     try:
-        if backend == "device":
-            if not _chunked_eligible(inputs):
-                raise NotPortedError(
-                    "compacting inputs with row blocks or mixed key "
-                    "widths (the reference's row path)", _ROW_ITEM)
-            return _compact_columnar_chunked(
+        if backend == "device" and _chunked_eligible(inputs):
+            path = _compact_columnar_chunked(
                 store, codec, inputs, history_cutoff, block_rows, dev)
-        got = _collect_monolithic(inputs)
-        if got is None:
-            raise NotPortedError(
-                "baseline compaction of inputs that are not uniformly "
-                "columnar (the reference's streaming CPU feed)", _ROW_ITEM)
-        col_sources, run_starts = got
-        return _compact_columnar(store, codec, col_sources, inputs,
-                                 history_cutoff, block_rows, run_starts)
-    except KeySuffixError as e:
-        raise NotPortedError(
-            f"compacting keys without the hybrid-time suffix ({e}; the "
-            "reference degrades to its CPU feed)", _ROW_ITEM) from e
+            if path is not None:
+                return path
+        if backend == "baseline":
+            got = _collect_monolithic(inputs)
+            if got is not None:
+                col_sources, run_starts = got
+                return _compact_columnar(store, codec, col_sources, inputs,
+                                         history_cutoff, block_rows,
+                                         run_starts)
+            # non-columnar inputs on the host backend: the streaming GC
+            # feed, TTL expiry included
+            return store.compact(inputs=inputs,
+                                 feed=DocDbCompactionFeed(history_cutoff))
+        return _compact_rows(store, codec, inputs, history_cutoff, dev)
+    except KeySuffixError:
+        # a corrupt or mixed key layout: the CPU feed (row at a time, no
+        # fixed-suffix assumption)
+        return store.compact(inputs=inputs,
+                             feed=DocDbCompactionFeed(history_cutoff))
 
 
 def _chunked_eligible(inputs: Sequence[SstReader]) -> bool:
@@ -288,8 +335,8 @@ def _compact_columnar(store, codec, blocks: List[ColumnarBlock],
 # ---------------------------------------------------------------------------
 class _ChunkFallback(Exception):
     """An input block turned out ineligible mid-stream (no keys matrix,
-    unexpected width/schema); the engine aborts and tpu_compact raises
-    NotPortedError where the reference falls back to its row path."""
+    unexpected width/schema); the engine aborts and tpu_compact takes
+    the row path, as the reference does."""
 
 
 def _abort_pipeline(encode_pool, enc_q, cutter: "_BlockCutter",
@@ -904,11 +951,9 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
             cutter.finish()
         w.set_frontier(**_merge_frontier(inputs))
         w.finish()
-    except _ChunkFallback as e:
+    except _ChunkFallback:
         _abort_pipeline(encode_pool, enc_q, cutter, w)
-        raise NotPortedError(
-            f"compacting a block the chunked engine refuses ({e}; the "
-            "reference falls back to its row path)", _ROW_ITEM) from e
+        return None       # tpu_compact takes the row path
     except BaseException:
         _abort_pipeline(encode_pool, enc_q, cutter, w)
         raise
@@ -943,3 +988,57 @@ def _merge_frontier(inputs) -> dict:
                                or op > frontier["op_id"]):
             frontier["op_id"] = op
     return frontier
+
+
+def _compact_rows(store, codec, inputs, cutoff: int, device) -> str:
+    """The row route: every entry materialized, merge + GC on `device`
+    (ops/compaction.py merge_gc_split_kernel), the kept rows written
+    through the codec's columnar builder.  TTL-wrapped values
+    (kMergeFlags) never get a columnar sidecar, so every TTL'd row
+    compacts here, and this path carries the CPU feed's TTL-expiry
+    retention term: the surviving first-version-at-or-below-cutoff row
+    is still dropped when its expiry is at or before the cutoff."""
+    entries: List[Tuple[bytes, bytes]] = []
+    for r in inputs:
+        entries.extend(r.iterate())
+    if not entries:
+        path = store._new_sst_path()
+        SstWriter(path, columnar_builder=codec.columnar_builder,
+                  shred_cols=codec.shred_cols).finish()
+        store.replace_ssts(inputs, path)
+        return path
+    lens = [len(k) for k, _ in entries]
+    tomb = np.fromiter((v[0] == ValueKind.kTombstone for _, v in entries),
+                       bool, len(entries))
+    expire = np.fromiter(((unwrap_ttl(v)[1] or 0) for _, v in entries),
+                         np.uint64, len(entries))
+    if len(set(lens)) == 1:
+        keys_mat = np.frombuffer(b"".join(k for k, _ in entries),
+                                 np.uint8).reshape(len(entries), lens[0])
+        runs = [(keys_mat, tomb)]
+    else:
+        runs = [(np.frombuffer(k, np.uint8)[None, :], tomb[i:i + 1])
+                for i, (k, _) in enumerate(entries)]
+    order, keep = compact_runs(runs, cutoff, device=device)
+    sel = order[keep]
+    if len(sel) and expire.any():
+        # TTL-expiry retention term, decoding the hybrid time only of
+        # kept rows whose envelope expired at or before the cutoff
+        exp_sel = expire[sel]
+        maybe = (exp_sel != 0) & (exp_sel <= np.uint64(cutoff))
+        if maybe.any():
+            ht_sel = np.fromiter(
+                (DocHybridTime.decode_desc(
+                    entries[int(i)][0][-ENCODED_SIZE:]).ht.value
+                 if m else 0
+                 for i, m in zip(sel, maybe)), np.uint64, len(sel))
+            sel = sel[~(maybe & (ht_sel <= np.uint64(cutoff)))]
+    path = store._new_sst_path()
+    w = SstWriter(path, columnar_builder=codec.columnar_builder,
+                  shred_cols=codec.shred_cols)
+    for i in sel:
+        w.add(*entries[int(i)])
+    w.set_frontier(**_merge_frontier(inputs))
+    w.finish()
+    store.replace_ssts(inputs, path)
+    return path

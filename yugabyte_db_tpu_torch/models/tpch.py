@@ -13,7 +13,7 @@ reference, so both packages load identical tables."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -108,6 +108,43 @@ def generate_lineitem(sf: float, seed: int = 0) -> Dict[str, np.ndarray]:
         "l_returnflag": rng.integers(0, 3, n).astype(np.int32),
         "l_linestatus": rng.integers(0, 2, n).astype(np.int32),
     }
+
+
+def refresh_inserts(sf: float, first_rowid: int, seed: int = 0
+                    ) -> List[Dict[str, np.ndarray]]:
+    """TPC-H RF1 (spec v3.0.1 §2.26.2) on this lineitem: SF x 1500 new
+    orders, each of 1-7 lineitems drawn like :func:`generate_lineitem`'s
+    rows, with rowids from `first_rowid` up.  One column dict per order
+    (one write request each)."""
+    rng = np.random.default_rng(seed)
+    n_orders = max(1, int(round(1500 * sf)))
+    sizes = rng.integers(1, 8, n_orders)
+    rows = generate_lineitem(int(sizes.sum()) / ROWS_PER_SF, seed=seed + 1)
+    rows["rowid"] = rows["rowid"] + np.int64(first_rowid)
+    ends = np.cumsum(sizes)
+    return [{k: v[e - n:e] for k, v in rows.items()}
+            for n, e in zip(sizes, ends)]
+
+
+def refresh_deletes(sf: float, n_rows: int, seed: int = 0
+                    ) -> List[np.ndarray]:
+    """TPC-H RF2 (spec v3.0.1 §2.26.3) on this lineitem, whose orders
+    are runs of consecutive rowids: the lineitems of SF x 1500 existing
+    orders, each a run of 1-7 rowids at a seeded start below `n_rows`.
+    One int64 rowid array per order (one delete request each)."""
+    rng = np.random.default_rng(seed)
+    n_orders = max(1, int(round(1500 * sf)))
+    starts = rng.integers(0, max(1, n_rows - 7), n_orders)
+    sizes = rng.integers(1, 8, n_orders)
+    return [np.arange(s, s + n, dtype=np.int64)
+            for s, n in zip(starts, sizes)]
+
+
+def column_rows(cols: Dict[str, np.ndarray]) -> List[Dict[str, object]]:
+    """Column arrays -> row dicts of Python scalars (write requests)."""
+    names = list(cols)
+    return [dict(zip(names, vals))
+            for vals in zip(*(cols[n].tolist() for n in names))]
 
 
 # TPC-H Q6: SELECT sum(l_extendedprice * l_discount) FROM lineitem WHERE

@@ -31,9 +31,13 @@ permutation so far: rows tied on every key keep their frontier order,
 as in the reference.  Nothing here reads a value back to the host: the
 program enqueues on the current stream and returns device tensors.
 
-The reference's whole-input program (``merge_gc_split_kernel``) and its
-drivers have no caller in the port yet; they come with the row path and
-``Tablet.compact`` (ROADMAP.md queue 1 item 9)."""
+The reference's whole-input program (``merge_gc_split_kernel``, also a
+jitted XLA program) is the same sort and retention rule without the
+emit bound and the carry; its drivers (``run_merge_gc``,
+``compact_runs``, ``compact_entry_arrays``) serve the row compaction
+path (docdb/compaction.py ``_compact_rows``), with the run concatenation
+helpers (``concat_runs``, ``pad_key_matrices``) that split each run's
+hybrid-time suffix before zero-padding its doc keys."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -94,6 +98,45 @@ def check_ht_suffix(keys: np.ndarray) -> None:
     ok = keys[:, -_HT_SUFFIX] == ValueType.kHybridTime
     if not ok.all():
         raise KeySuffixError(int((~ok).sum()), keys.shape[0])
+
+
+def compact_entry_arrays(keys: np.ndarray, tombstone: np.ndarray,
+                         history_cutoff: int, device: DeviceLike = "cuda"
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """Full SubDocKey matrix [N, L] -> (sorted order, keep mask in
+    sorted order): one run through :func:`compact_runs`."""
+    return compact_runs([(keys, tombstone)], history_cutoff, device=device)
+
+
+def pad_key_matrices(mats: Sequence[np.ndarray]) -> np.ndarray:
+    """Stack [Ni, Li] key matrices into one [sum Ni, max Li] matrix,
+    right-padded with zeros (order-safe: doc-key encodings are
+    prefix-free).  Split hybrid-time suffixes BEFORE padding
+    (:func:`concat_runs`)."""
+    w = max(m.shape[1] for m in mats)
+    total = sum(m.shape[0] for m in mats)
+    out = np.zeros((total, w), np.uint8)
+    pos = 0
+    for m in mats:
+        out[pos:pos + m.shape[0], :m.shape[1]] = m
+        pos += m.shape[0]
+    return out
+
+
+def concat_runs(runs: Sequence[Tuple[np.ndarray, np.ndarray]]
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """runs: [(keys [Ni, Li], tombstone [Ni])] -> (dockey_padded, ht,
+    wid, tombstone), each run's hybrid-time suffix split before the
+    padding."""
+    dks, hts, wids, tombs = [], [], [], []
+    for keys, tomb in runs:
+        dk, ht, wid = split_ht_suffix(keys)
+        dks.append(dk)
+        hts.append(ht)
+        wids.append(wid)
+        tombs.append(tomb)
+    return (pad_key_matrices(dks), np.concatenate(hts),
+            np.concatenate(wids), np.concatenate(tombs))
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +258,22 @@ def chunk_merge_kernel(dk_words: torch.Tensor, ht: torch.Tensor,
     return order, emit, keep
 
 
+def merge_gc_split_kernel(dk_words: torch.Tensor, ht: torch.Tensor,
+                          wid: torch.Tensor, tombstone: torch.Tensor,
+                          valid: torch.Tensor, history_cutoff: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole-input merge + MVCC GC: sort by (dockey words asc, ht
+    desc, write id desc, row), then the retention rule over the sorted
+    rows.  Lanes as chunk_merge_kernel takes them (flipped int64 words
+    and ht, int64 write ids, bools); returns (order, keep), both [N],
+    aligned to the sorted rows.  Invalid (padding) rows sort last and
+    are never kept."""
+    order, _, _ = _sorted_lanes(dk_words, ht, wid, valid)
+    return order, _retention(dk_words[order], ht[order], wid[order],
+                             tombstone[order], valid[order],
+                             flipped_i64_scalar(history_cutoff))
+
+
 # ---------------------------------------------------------------------------
 # Host drivers
 # ---------------------------------------------------------------------------
@@ -237,6 +296,48 @@ def to_device_lanes(dk_words: np.ndarray, ht: np.ndarray, wid: np.ndarray,
     return (put(u64_to_flipped_i64(dk_words)), put(u64_to_flipped_i64(ht)),
             put(np.asarray(wid, np.uint32).astype(np.int64)),
             put(np.asarray(tomb, bool)), put(np.asarray(valid, bool)))
+
+
+#: calls of the whole-input program (run_merge_gc), by device type
+MERGE_GC_STATS = {"calls": 0, "rows": 0}
+
+
+def run_merge_gc(dk_words: np.ndarray, ht: np.ndarray, wid: np.ndarray,
+                 tomb: np.ndarray, history_cutoff: int,
+                 device: DeviceLike = "cuda"
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Bucket-padded driver of merge_gc_split_kernel on `device`:
+    padding rows carry valid=False, sort last and are never kept; the
+    returned host (order, keep) are cut back to the true row count."""
+    dev = resolve_device(device)
+    n = dk_words.shape[0]
+    padded = _pad_rows(n)
+    if padded != n:
+        dk_words = np.concatenate(
+            [dk_words, np.zeros((padded - n, dk_words.shape[1]), np.uint64)])
+        ht = np.concatenate([ht, np.zeros(padded - n, np.uint64)])
+        wid = np.concatenate([wid, np.zeros(padded - n, np.uint32)])
+        tomb = np.concatenate([tomb, np.zeros(padded - n, bool)])
+    valid = np.zeros(padded, bool)
+    valid[:n] = True
+    MERGE_GC_STATS["calls"] += 1
+    MERGE_GC_STATS["rows"] += n
+    order, keep = merge_gc_split_kernel(
+        *to_device_lanes(dk_words, ht, wid, tomb, valid, dev),
+        history_cutoff)
+    return (order[:n].to(torch.int32).cpu().numpy(),
+            keep[:n].cpu().numpy())
+
+
+def compact_runs(runs: Sequence[Tuple[np.ndarray, np.ndarray]],
+                 history_cutoff: int, device: DeviceLike = "cuda"
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Merge + GC across sorted runs of differing key widths: (order,
+    keep), `order` indexing the concatenation of the runs in the given
+    order."""
+    dk_padded, ht, wid, tomb = concat_runs(runs)
+    return run_merge_gc(keys_to_words(dk_padded), ht, wid, tomb,
+                        history_cutoff, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..errors import NotPortedError
-from . import lane_codec, wire_pack
+from . import lane_codec, native_lib, wire_pack
 
 #: newest block format this build can read, and the one it writes;
 #: deserialize rejects anything newer with a clear error instead of
@@ -152,6 +152,95 @@ class ColumnarBlock:
         self._vdict_cache: Dict[tuple, object] = {}
         if keys is not None:
             self.keys = keys
+
+    @classmethod
+    def from_packed_entries(
+            cls, packing,
+            keys,                               # encoded DocKeys (no HT
+                                                # suffix): bytes, or an
+                                                # [N, L] uint8 matrix
+            hts: np.ndarray, write_ids: np.ndarray,
+            values: Sequence[bytes],            # KV values (kPackedRowV2 or
+                                                # kTombstone)
+            ) -> "ColumnarBlock":
+        """Build from packed-row KV entries (flush/compaction path;
+        `packing` is a dockv.packed_row.SchemaPacking).
+
+        The fixed-stride prefix of the packed format means all rows'
+        prefixes stack into one [N, stride] matrix whose column slices
+        reinterpret as lanes; each varlen column's values gather from the
+        rows' heaps segment by segment (the host library's memcpy loop).
+        """
+        from ..dockv.packed_row import ColumnType
+        from ..dockv.value import ValueKind
+        n = len(values)
+        tomb = np.zeros(n, bool)
+        hdr_len = _varint_len(packing.schema_version)
+        plen = hdr_len + packing.prefix_size
+        prefix_parts = []
+        pad = b"\x00" * plen
+        for i, v in enumerate(values):
+            if v[0] == ValueKind.kTombstone:
+                tomb[i] = True
+                prefix_parts.append(pad)
+            elif v[0] == ValueKind.kPackedRowV2:
+                prefix_parts.append(v[1:1 + plen])
+            else:
+                raise ValueError("columnar block needs packed or tombstone values")
+        mat = np.frombuffer(b"".join(prefix_parts), np.uint8).reshape(n, plen)
+        body = mat[:, hdr_len:]
+        blk = cls(
+            n=n, schema_version=packing.schema_version,
+            key_hash=(fnv64_rows(keys) if isinstance(keys, np.ndarray)
+                      else fnv64_keys(keys)),
+            ht=np.asarray(hts, np.uint64),
+            write_id=np.asarray(write_ids, np.uint32),
+            tombstone=tomb,
+        )
+        # null bitmap -> per-column masks
+        bitmap = body[:, :packing.bitmap_size]
+        for i, c in enumerate(packing.all_columns):
+            byte, bit = i // 8, i % 8
+            mask = (bitmap[:, byte] >> bit) & 1
+            null = mask.astype(bool) | tomb
+            if ColumnType.is_fixed(c.type):
+                off = packing.bitmap_size + packing.fixed_offsets[c.id]
+                w = ColumnType.FIXED_WIDTHS[c.type]
+                dt = ColumnType.NUMPY_DTYPES[c.type]
+                vals = np.ascontiguousarray(
+                    body[:, off:off + w]).view(dt).reshape(n)
+                blk.fixed[c.id] = (vals.copy(), null)
+        # varlen columns: each row's heap follows its prefix
+        if packing.varlen_columns:
+            voff0 = packing.bitmap_size + packing.fixed_size
+            nvar = len(packing.varlen_columns)
+            ends_mat = np.ascontiguousarray(
+                body[:, voff0:voff0 + 4 * nvar]
+            ).view("<u4").reshape(n, nvar).astype(np.int64)
+            heaps = [v[1 + plen:] if not tomb[i] else b""
+                     for i, v in enumerate(values)]
+            hlen = np.fromiter(map(len, heaps), np.int64, n)
+            base = np.cumsum(hlen) - hlen
+            allheap = np.frombuffer(b"".join(heaps), np.uint8)
+            for vi, c in enumerate(packing.varlen_columns):
+                i_ = len(packing.fixed_columns) + vi
+                null = ((bitmap[:, i_ // 8] >> (i_ % 8)) & 1).astype(bool) | tomb
+                starts = ends_mat[:, vi - 1] if vi else np.zeros(n, np.int64)
+                # a Python slice heap[s:e] of each row, clamped alike
+                lo = np.minimum(starts, hlen)
+                ln = np.where(null, 0,
+                              np.maximum(np.minimum(ends_mat[:, vi], hlen)
+                                         - lo, 0))
+                out_ends = np.cumsum(ln)
+                heap = np.empty(int(out_ends[-1]) if n else 0, np.uint8)
+                args = (allheap, np.ascontiguousarray(base + lo),
+                        np.ascontiguousarray(out_ends - ln),
+                        np.ascontiguousarray(ln), heap)
+                if not native_lib.gather_heap(*args):
+                    native_lib.gather_heap_fallback(*args)
+                blk.varlen[c.id] = (out_ends.astype(np.uint32),
+                                    heap.tobytes(), null)
+        return blk
 
     @classmethod
     def from_arrays(cls, schema_version: int,
@@ -463,11 +552,14 @@ class ColumnarBlock:
         ends = np.cumsum(row_lens).astype(np.uint32)
         total = int(row_lens.sum())
         if total:
-            hb = np.frombuffer(uheap, np.uint8)
-            starts_out = ends.astype(np.int64) - row_lens
-            off = np.arange(total, dtype=np.int64) - \
-                np.repeat(starts_out, row_lens)
-            heap = hb[np.repeat(u_starts[codes], row_lens) + off].tobytes()
+            out = np.empty(total, np.uint8)
+            args = (np.frombuffer(uheap, np.uint8),
+                    np.ascontiguousarray(u_starts[codes]),
+                    np.ascontiguousarray(ends.astype(np.int64) - row_lens),
+                    np.ascontiguousarray(row_lens), out)
+            if not native_lib.gather_heap(*args):
+                native_lib.gather_heap_fallback(*args)
+            heap = out.tobytes()
         else:
             heap = b""
         return ends, heap, (ulens, uheap, codes)
@@ -656,3 +748,11 @@ class ColumnarBlock:
                 np.concatenate(ends_all).astype(np.uint32),
                 b"".join(heaps), np.concatenate(nulls))
         return out
+
+
+def _varint_len(v: int) -> int:
+    n = 1
+    while v >= 0x80:
+        v >>= 7
+        n += 1
+    return n

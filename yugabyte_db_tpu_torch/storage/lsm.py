@@ -1,28 +1,72 @@
-"""Per-tablet LSM store, the part compaction runs on: the manifest, the
-live SST set, bulk ingest and the atomic swap of compaction inputs for
-their output.
+"""Per-tablet LSM store: memtable + SSTs + flush + compaction.
 
 Counterpart of ``yugabyte_db_tpu/storage/lsm.py`` (reference analog:
 the forked RocksDB DB instance per tablet, src/yb/rocksdb/db/db_impl.cc)
-cut to ``__init__``, the manifest (load, write, the open-time sweep of
-unmanifested files), ``ingest_sst``, ``_new_sst_path``, ``ssts``,
-``approximate_size``, ``replace_ssts`` and the out-of-band reader
-leases (``SstLease``, ``pin_ssts``) that let the bypass reader scan a
-tablet's files while a compaction replaces them.  The manifest is the
-reference's JSON, so either package opens a directory the other wrote.
-The memtable, flush, checkpoints and the row-feed ``compact`` come with
-the row paths (ROADMAP.md queue 1 item 9): the port's store has no
-memtable, so it is always empty."""
+with the YB traits kept: no WAL of its own (the Raft log is the WAL),
+consensus frontiers persisted in SST files and the manifest, and the
+streaming ``CompactionFeed`` seam (reference:
+src/yb/rocksdb/compaction_filter.h).  Writes land in the active
+memtable; a flush freezes it (a pointer swap) and writes the oldest
+frozen memtable to an SST under the flush IO lock, so installs stay
+oldest-first.  Reads merge the memtables and SSTs newest-first.  The
+out-of-band reader leases (``SstLease``, ``pin_ssts``) let the bypass
+reader scan a tablet's files while a compaction replaces them.  The
+manifest is the reference's JSON, so either package opens a directory
+the other wrote.  Truncate and checkpoints are not ported (ROADMAP.md
+queue 1 item 9a)."""
 from __future__ import annotations
 
 import json
 import os
 import re
 import threading
-from typing import Callable, Dict, List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
-from ..errors import NotPortedError
+from ..utils import flags
+from .memtable import MemTable
+from .merge import merging_iterator
 from .sst import SstReader, SstWriter
+
+
+@dataclass
+class WriteBatch:
+    """Ordered KV puts applied atomically to the memtable.  Deletes are
+    tombstone values written by the docdb layer; storage does not
+    interpret values."""
+    entries: List[Tuple[bytes, bytes]] = field(default_factory=list)
+    # Raft op id (term, index) that produced this batch; becomes the
+    # flushed frontier when the memtable holding it is flushed
+    op_id: Optional[Tuple[int, int]] = None
+
+    def put(self, key: bytes, value: bytes) -> "WriteBatch":
+        self.entries.append((key, value))
+        return self
+
+    def __len__(self):
+        return len(self.entries)
+
+
+class CompactionFeed:
+    """Streaming compaction hook (reference: rocksdb/compaction_filter.h
+    CompactionFeed).  Subclasses see the merged, sorted entry stream and
+    decide what survives into the output SST: ``feed`` returns entries
+    to emit now, ``flush`` emits any held-back tail, ``feed_block``
+    takes whole sorted runs at once (by default per-row ``feed``)."""
+
+    def feed(self, key: bytes, value: bytes) -> List[Tuple[bytes, bytes]]:
+        return [(key, value)]
+
+    def feed_block(self, entries: Sequence[Tuple[bytes, bytes]]
+                   ) -> List[Tuple[bytes, bytes]]:
+        out: List[Tuple[bytes, bytes]] = []
+        for k, v in entries:
+            out.extend(self.feed(k, v))
+        return out
+
+    def flush(self) -> List[Tuple[bytes, bytes]]:
+        return []
 
 
 class SstLease:
@@ -59,10 +103,15 @@ class SstLease:
 
 
 class LsmStore:
-    def __init__(self, directory: str, name: str = "db", key_builder=None,
-                 shred_cols=None):
+    def __init__(self, directory: str, name: str = "db",
+                 columnar_builder=None, row_decoder=None,
+                 key_builder=None, shred_cols=None):
         self.dir = directory
         self.name = name
+        # a flushed row block's columnar sidecar, and a columnar-only
+        # block's KV entries (the codec's callables)
+        self.columnar_builder = columnar_builder
+        self.row_decoder = row_decoder
         # v2 keyless-block support: rebuilds a block's key matrix from
         # its pk + MVCC lanes (the codec's derive_keys); writers verify
         # key drops against it, readers re-derive lazily through it
@@ -71,9 +120,22 @@ class LsmStore:
         self.shred_cols = tuple(shred_cols or ())
         os.makedirs(directory, exist_ok=True)
         self._lock = threading.RLock()
+        # serializes the file-writing half of flushes (the background
+        # executor against an inline drain): frozen memtables must reach
+        # disk oldest-first or the newest-first SST order and the
+        # flushed frontier would both break
+        self._flush_io_lock = threading.Lock()
+        self._mem = MemTable()
+        self._frozen: List[MemTable] = []
+        # id(frozen memtable) -> the _mem_frontier captured at freeze
+        self._frozen_frontiers: Dict[int, dict] = {}
         self._ssts: List[SstReader] = []       # newest first
         self._next_file = 0
         self._flushed_frontier: dict = {}
+        self._write_gen = 0
+        self._struct_gen = 0           # bumps on flush/compact/replace
+        self._snap = None              # cached (gen key, (mems, ssts))
+        self._mem_frontier: dict = {}
         # reader leases: path -> refcount; paths dropped while pinned
         # wait in _deferred until the last lease goes
         self._pins: Dict[str, int] = {}
@@ -87,7 +149,8 @@ class LsmStore:
         return os.path.join(self.dir, f"{self.name}.MANIFEST")
 
     def _reader(self, path: str) -> SstReader:
-        return SstReader(path, key_builder=self.key_builder)
+        return SstReader(path, row_decoder=self.row_decoder,
+                         key_builder=self.key_builder)
 
     def _load_manifest(self) -> None:
         if not os.path.exists(self._manifest_path):
@@ -131,8 +194,10 @@ class LsmStore:
                  ) -> Optional[SstLease]:
         """Lease the current live SST set against file GC.  With
         ``require_empty_memtable`` the pin succeeds only while no
-        memtable holds rows (None otherwise, for the caller to retry
-        after a flush); the port's store has none, so it always does."""
+        memtable (active or frozen) holds rows — checked under the lock
+        that installs flush output, so the leased files are a complete
+        image of everything applied before the pin; None otherwise, for
+        the caller to retry after a flush."""
         with self._lock:
             if require_empty_memtable and not self.memtable_empty():
                 return None
@@ -178,21 +243,127 @@ class LsmStore:
                                         if c > 0),
                     "deferred_deletes": len(self._deferred)}
 
-    def memtable_empty(self) -> bool:
-        """True: the port's store has no memtable (ROADMAP.md queue 1
-        item 9)."""
+    # --- writes -----------------------------------------------------------
+    def apply(self, batch: WriteBatch) -> None:
+        with self._lock:
+            for k, v in batch.entries:
+                self._mem.put(k, v)
+            self._write_gen += 1
+            if batch.op_id is not None:
+                self._mem_frontier["op_id"] = list(batch.op_id)
+
+    def write_generation(self) -> int:
+        """Monotone counter bumped on every memtable write: device batch
+        cache keys include it, so a cached batch can never hide a newer
+        committed write."""
+        return self._write_gen
+
+    def read_snapshot(self):
+        """Cached ([non-empty memtables], [ssts]) for point reads.  The
+        key covers data writes (_write_gen) and structural changes
+        (_struct_gen), so a snapshot is never served after a write,
+        flush or compaction it does not contain."""
+        key = (self._write_gen, self._struct_gen)
+        snap = self._snap
+        if snap is not None and snap[0] == key:
+            return snap[1]
+        with self._lock:
+            mems = [m for m in [self._mem] + list(self._frozen)
+                    if not m.empty()]
+            val = (mems, list(self._ssts))
+            self._snap = ((self._write_gen, self._struct_gen), val)
+        return val
+
+    def should_flush(self) -> bool:
+        return (self._mem.approximate_bytes()
+                >= flags.get("memstore_flush_threshold_bytes"))
+
+    def freeze_active(self) -> bool:
+        """Freeze the active memtable into the frozen queue — an
+        in-memory pointer swap (the fast half of a flush).  True when a
+        new frozen memtable was produced."""
+        with self._lock:
+            if self._mem.empty():
+                return False
+            mem = self._mem
+            mem.freeze()
+            self._frozen.append(mem)
+            self._frozen_frontiers[id(mem)] = dict(self._mem_frontier)
+            self._mem = MemTable()
+            self._struct_gen += 1
+            self._mem_frontier = {}
         return True
 
-    # --- writes -----------------------------------------------------------
+    def frozen_count(self) -> int:
+        with self._lock:
+            return len(self._frozen)
+
+    def flush_frozen(self, wait: bool = True) -> Optional[str]:
+        """Write the OLDEST frozen memtable to an SST and install it (the
+        slow half of a flush: file write, fsync, manifest), serialized
+        under the flush IO lock so a background flush and an inline
+        drain never install out of order.  ``wait=False`` gives up at
+        once when another flush owns the IO lock.  Returns the new SST
+        path, or None when there was nothing to do or the lock was
+        busy."""
+        if not self._flush_io_lock.acquire(blocking=wait):
+            return None
+        try:
+            with self._lock:
+                if not self._frozen:
+                    return None
+                mem = self._frozen[0]
+                frontier = dict(self._frozen_frontiers.get(id(mem), {}))
+            path = self._new_sst_path()
+            w = SstWriter(path, columnar_builder=self.columnar_builder,
+                          key_builder=self.key_builder,
+                          shred_cols=self.shred_cols)
+            for k, v in mem.iterate():
+                w.add(k, v)
+            w.set_frontier(**frontier)
+            w.finish()
+            with self._lock:
+                self._ssts.insert(0, self._reader(path))
+                self._frozen.remove(mem)
+                self._frozen_frontiers.pop(id(mem), None)
+                self._struct_gen += 1
+                if "op_id" in frontier:
+                    cur = self._flushed_frontier.get("op_id")
+                    if cur is None or frontier["op_id"] > cur:
+                        self._flushed_frontier["op_id"] = frontier["op_id"]
+                self._write_manifest()
+            return path
+        finally:
+            self._flush_io_lock.release()
+
+    def flush(self, wait: bool = True) -> Optional[str]:
+        """Freeze the memtable and drain EVERY frozen memtable to SSTs
+        (helping any in-flight background flush along: the IO lock
+        serializes installs).  ``wait=False`` never blocks behind a
+        foreign flush that owns the IO lock.  Returns the last SST path
+        written (None if nothing flushed)."""
+        self.freeze_active()
+        last = None
+        while True:
+            with self._lock:
+                if not self._frozen:
+                    return last
+            p = self.flush_frozen(wait=wait)
+            if p is not None:
+                last = p
+            elif not wait:
+                return last     # a foreign flush owns the IO lock
+
     def ingest_sst(self, build: Callable[[SstWriter], None],
                    frontier: Optional[dict] = None,
                    stream: bool = False) -> str:
-        """Bulk load: the caller fills a writer with columnar blocks.
+        """Bulk load: the caller fills a writer (rows or columnar blocks).
         ``stream=True`` opens the writer in stream-columnar mode: each
         add_columnar_block hits the file immediately, so a pipelined
         builder overlaps its gathers with the IO."""
         path = self._new_sst_path()
-        w = SstWriter(path, stream_columnar=stream,
+        w = SstWriter(path, columnar_builder=self.columnar_builder,
+                      stream_columnar=stream,
                       sync_every_bytes=(64 << 20) if stream else None,
                       key_builder=self.key_builder,
                       shred_cols=self.shred_cols)
@@ -206,6 +377,7 @@ class LsmStore:
         w.finish()
         with self._lock:
             self._ssts.insert(0, self._reader(path))
+            self._struct_gen += 1
             self._write_manifest()
         return path
 
@@ -216,21 +388,100 @@ class LsmStore:
         return os.path.join(self.dir, f"{self.name}.{n:06d}.sst")
 
     # --- reads ------------------------------------------------------------
+    def iterate(self, lower: Optional[bytes] = None,
+                upper: Optional[bytes] = None
+                ) -> Iterator[Tuple[bytes, bytes]]:
+        """Merged view, ascending; the newest source wins on exact-key
+        ties."""
+        with self._lock:
+            sources = [self._mem.iterate(lower, upper)]
+            sources += [m.iterate(lower, upper)
+                        for m in reversed(self._frozen)]
+            sources += [r.iterate(lower, upper) for r in self._ssts]
+        return merging_iterator(sources)
+
+    def seek(self, key: bytes) -> Iterator[Tuple[bytes, bytes]]:
+        return self.iterate(lower=key)
+
+    def get(self, key: bytes) -> Optional[bytes]:
+        """Exact-key point get."""
+        for k, v in self.iterate(lower=key):
+            return v if k == key else None
+        return None
+
     @property
     def ssts(self) -> List[SstReader]:
         with self._lock:
             return list(self._ssts)
 
-    def approximate_size(self) -> int:
-        """Bytes of the live SST files (the port has no memtable)."""
+    def memtable_empty(self) -> bool:
+        return self._mem.empty() and not self._frozen
+
+    def memtables(self) -> List[MemTable]:
+        """The active memtable, then the frozen ones oldest first."""
         with self._lock:
-            return sum(r.file_size for r in self._ssts)
+            return [self._mem] + list(self._frozen)
+
+    def flushed_frontier(self) -> dict:
+        return dict(self._flushed_frontier)
+
+    def approximate_size(self) -> int:
+        with self._lock:
+            return (sum(r.file_size for r in self._ssts)
+                    + self._mem.approximate_bytes())
 
     # --- compaction -------------------------------------------------------
-    def compact(self, inputs=None, feed=None, is_major: bool = False):
-        raise NotPortedError(
-            "LsmStore.compact (the streaming row-feed compaction)",
-            "ROADMAP.md queue 1 item 9 (row KV blocks and feeds)")
+    def pick_compaction(self, max_files: int = 8) -> List[SstReader]:
+        """The OLDEST contiguous run (universal compaction picks
+        age-adjacent runs): contiguity in age lets the output go after
+        every kept (newer) SST without breaking the newest-source-wins
+        merge."""
+        with self._lock:
+            if len(self._ssts) < 4:
+                return []
+            return list(self._ssts[-max_files:])   # newest-first list tail
+
+    def compact(self, inputs: Optional[Sequence[SstReader]] = None,
+                feed: Optional[CompactionFeed] = None,
+                is_major: bool = False) -> Optional[str]:
+        """Merge `inputs` (default: every SST, a major compaction)
+        through the feed into one output SST, in chunks of 4096 merged
+        entries (``feed_block``)."""
+        with self._lock:
+            if inputs is None:
+                inputs = list(self._ssts)
+                is_major = True
+            inputs = list(inputs)
+        if not inputs:
+            return None
+        feed = feed or CompactionFeed()
+        path = self._new_sst_path()
+        w = SstWriter(path, columnar_builder=self.columnar_builder,
+                      key_builder=self.key_builder,
+                      shred_cols=self.shred_cols)
+        merged = merging_iterator([r.iterate() for r in inputs])
+        batch: List[Tuple[bytes, bytes]] = []
+        for kv in merged:
+            batch.append(kv)
+            if len(batch) >= 4096:
+                for ok, ov in feed.feed_block(batch):
+                    w.add(ok, ov)
+                batch = []
+        if batch:
+            for ok, ov in feed.feed_block(batch):
+                w.add(ok, ov)
+        for ok, ov in feed.flush():
+            w.add(ok, ov)
+        frontier = {}
+        for r in inputs:
+            if "op_id" in r.frontier:
+                op = r.frontier["op_id"]
+                if "op_id" not in frontier or op > frontier["op_id"]:
+                    frontier["op_id"] = op
+        w.set_frontier(**frontier)
+        w.finish()
+        self.replace_ssts(inputs, path)
+        return path
 
     def replace_ssts(self, old: Sequence[SstReader], new_path: str) -> None:
         """Install a compaction's output in place of its inputs: the
@@ -251,6 +502,7 @@ class LsmStore:
             new_reader = self._reader(new_path)
             kept = [r for r in self._ssts if id(r) not in old_set]
             self._ssts = kept + [new_reader]
+            self._struct_gen += 1
             self._write_manifest()
         for r in old:
             self._gc_file(r.path)

@@ -1,8 +1,8 @@
 """Runtime flags read by the ported paths.
 
 Counterpart of ``yugabyte_db_tpu/utils/flags.py``, cut to the flags the
-ported scan, tablet read, bypass, join and compaction paths read, with the
-reference's defaults.
+ported scan, tablet read and write, bypass, join and compaction paths
+read, with the reference's defaults.
 The registry keeps the reference's get/set_flag surface so call sites
 read the same; unknown names raise KeyError."""
 from __future__ import annotations
@@ -102,13 +102,11 @@ REGISTRY.define(
     "tpu_pushdown_enabled", True,
     "Route scan/filter/aggregate pushdown to the device execution "
     "backend (the yb_enable_tpu_pushdown analog).  Off, a tablet read "
-    "would take the interpreted row path, which the port refuses "
-    "(NotPortedError, ROADMAP.md queue 1 item 9).")
+    "takes the interpreted row path on the host.")
 REGISTRY.define(
     "tpu_min_rows_for_pushdown", 4096,
-    "Scans smaller than this stay on the interpreted row path (refused "
-    "by the port, as above): point reads must never pay a device "
-    "round-trip.")
+    "Scans smaller than this stay on the interpreted row path: point "
+    "reads must never pay a device round-trip.")
 REGISTRY.define(
     "streaming_scan_enabled", True,
     "Stream cold aggregate scans as pow2-bucket chunks through the "
@@ -149,8 +147,7 @@ REGISTRY.define(
     "a pow2-bucket open-addressed table, the probe runs inside the fused "
     "plan (ops/plan_fusion.py), and build-side payload columns gather by "
     "match index.  Off, or any shape the device join cannot serve "
-    "exactly, is the reference's interpreted join, which the port "
-    "refuses (NotPortedError, ROADMAP.md queue 1 item 9a).")
+    "exactly, is the interpreted row-at-a-time join on the host.")
 REGISTRY.define(
     "join_max_build_slots", 65536,
     "Pow2 cap on the device hash-join build table (slots = smallest pow2 "
@@ -174,6 +171,20 @@ REGISTRY.define(
 REGISTRY.define(
     "hash_scan_enumerate_max", 1024,
     "Max enumerable key-target count for answering a short range/IN scan "
-    "over a single-integer-hash-PK table by batched point gets (the "
-    "reference's MultiGet route, which the port refuses: ROADMAP.md queue "
-    "1 item 9a).")
+    "over a single-integer-hash-PK table by batched point gets (hash "
+    "sharding cannot seek key ranges; a small target set is a MultiGet).")
+REGISTRY.define(
+    "memstore_flush_threshold_bytes", 64 * 1024 * 1024,
+    "Memtable size that triggers a flush.")
+REGISTRY.define(
+    "async_flush_enabled", True,
+    "Memtable flushes run on a background flush executor: the apply "
+    "thread freezes the active memtable (an in-memory pointer swap) and "
+    "returns at once, so an apply never stalls behind an SST write + "
+    "fsync.  Off reverts to the inline flush on the apply path "
+    "(byte-identical on-disk state either way).")
+REGISTRY.define(
+    "max_frozen_memtables", 2,
+    "Backpressure bound for async flush: once this many frozen "
+    "memtables await the background flush executor, the apply thread "
+    "drains one inline instead of freezing another (bounded memory).")
