@@ -170,11 +170,31 @@ Phases (any failed check raises and the script exits non-zero):
      the baseline backend's CPU feed on a copy and merge_gc_split's
      order and keep equal to its CPU run; `ycsb_load`, `point` (ops/s,
      p50 and p99 µs), `flush_apply` and `row_compaction` lines;
-  12. print the kernels line (launches per path: phase 3's scan, phase
-     6's tablet reads, phase 7's joins, phases 8, 9 and 11; and the new
-     paths' plain programs: window program launches, device searches,
-     the mesh's slot programs, merge_gc_split), then the device line
-     last.
+  12. the tablet's vector index and the grouped spill tail
+     (vector_tablet_phase, spill_phase): (a) BASELINE.json config 5
+     (1,000,000 x 768, ivfflat, 1024 lists, 2 k-means iterations,
+     bench.py:2990-2992) in one hash tablet through Tablet.bulk_load,
+     build_vector_index, 64 single-query vector_search calls (k 10,
+     nprobe 256; each the index's own search, recall@10 against
+     exact_search on the card), 2,000 inserts, 1,000 upserts and 500
+     deletes through apply_write (each written vector its own top hit,
+     no deleted id returned, recall within 0.02, no rebuild due),
+     flush, a new Tablet and bootstrap_vector_indexes (the index
+     loaded, not rebuilt: full size, the writes in delta and dead;
+     every answer as before the restart); a 5,000 x 128 tablet: the
+     no-index fallback, HNSW (m 16, ef_construction 100), and a rebuild
+     that folds 600 upserts; one `vector_tablet` line per tablet; (b)
+     the string Q1 over the string-flag lineitem (SF 0.2: the
+     interpreted tail's rows are cut) in one tablet with a 4-slot
+     DictGroupSpec (6 groups: 3 spill) on the streamed and the
+     monolithic route, against numpy, one spill merge each (one `spill`
+     line per route: wall, rows on the interpreted tail);
+  13. print the kernels line (launches per path: phase 3's scan, phase
+     6's tablet reads, phase 7's joins, phases 8, 9, 11 and 12; and the
+     new paths' plain programs: window program launches, device
+     searches, the mesh's slot programs, merge_gc_split, the vector
+     tablet's searches and the spill tail's dict-grouped programs),
+     then the device line last.
 
 It imports nothing of JAX: the port stands alone.
 """
@@ -199,6 +219,9 @@ PROFILE_MARGIN_S = 0.05          # host time between a profiling window's
                                  # edges and the route's first/last launch
 MARKER_KERNEL = "spin_kernel"    # torch.cuda._sleep's kernel: bounds the
 MARKER_CYCLES = 1000             # counted span of a profiling window
+PROFILE_TRIES = 3                # windows a route may take: a window
+#                                  whose record lost a marker or an
+#                                  activity is taken again
 QUEUE_AHEAD_CYCLES_PER_CALL = 400_000   # the least spin per timed call
                                         # (cuda_ms): the host enqueues ahead
 SPIN_CYCLES_PER_S = 1.98e9       # H100 SXM's top SM clock: a spin of c
@@ -370,9 +393,11 @@ def profile_route(torch, hs, name, card, rows, run, iters,
     caller to fail on: a marker missing, no device activity, a hand
     kernel recorded fewer or more times than its launch count rose, or
     a device activity recorded a number of times that is not a whole
-    multiple of the queries run (each query launches the same work).
-    `stats`, when given, receives the device activities and busy ms
-    per query."""
+    multiple of the queries run (each query launches the same work).  A
+    window with such a problem is taken again, up to PROFILE_TRIES
+    windows; the earlier windows' problems are printed as
+    `retried_window_problems`.  `stats`, when given, receives the device
+    activities and busy ms per query."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t_call = time.perf_counter()
@@ -384,56 +409,68 @@ def profile_route(torch, hs, name, card, rows, run, iters,
             run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_MARGIN_S)
-        run()                               # leading query: not counted
-        torch.cuda.synchronize()
-        torch.cuda._sleep(MARKER_CYCLES)
-        before = dict(hs.LAUNCHES)
-        for _ in range(iters):
-            run()
-            # one query at a time: a streamed query's worker copies while
-            # the previous one drains otherwise
+
+    def window():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            run()                       # leading query: not counted
             torch.cuda.synchronize()
-        launched = {k: v - before[k] for k, v in hs.LAUNCHES.items()}
-        torch.cuda._sleep(MARKER_CYCLES)
-        run()                               # trailing query: not counted
-        torch.cuda.synchronize()
-        time.sleep(PROFILE_MARGIN_S)
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    marks = sorted((e for e in device if MARKER_KERNEL in e.name),
-                   key=lambda e: e.time_range.start)
-    problems = []
-    if len(marks) != 2:
-        problems.append(f"{len(marks)} marker kernels recorded, not 2")
-        lo, hi = float("-inf"), float("inf")
-    else:
-        lo, hi = marks[0].time_range.end, marks[1].time_range.start
-    per_name: dict = {}
-    for e in device:
-        if MARKER_KERNEL in e.name or not lo <= e.time_range.start < hi:
-            continue
-        us_count = per_name.setdefault(e.name, [0.0, 0])
-        us_count[0] += e.time_range.elapsed_us()
-        us_count[1] += 1
-    recorded = {k: 0 for k in launched}
-    top, busy_us = [], 0.0
-    for key, (us, count) in per_name.items():
-        busy_us += us
-        top.append((us / iters, key, count / iters))
-        if count % iters:
-            problems.append(f"{key[:60]} recorded {count} times "
-                            f"over {iters} queries")
-        for k, device_names in HAND_KERNEL_NAMES.items():
-            # CUDA C++ kernels show as (de)mangled signatures, e.g.
-            # "void (anonymous namespace)::join_probe_kernel<long>(...)"
-            if any(d in key for d in device_names):
-                recorded[k] += count
-    if busy_us <= 0:
-        problems.append("no device activity recorded")
-    if recorded != launched:
-        problems.append(f"hand kernels recorded {recorded}, launched "
-                        f"{launched}")
+            torch.cuda._sleep(MARKER_CYCLES)
+            before = dict(hs.LAUNCHES)
+            for _ in range(iters):
+                run()
+                # one query at a time: a streamed query's worker copies
+                # while the previous one drains otherwise
+                torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in hs.LAUNCHES.items()}
+            torch.cuda._sleep(MARKER_CYCLES)
+            run()                       # trailing query: not counted
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        marks = sorted((e for e in device if MARKER_KERNEL in e.name),
+                       key=lambda e: e.time_range.start)
+        problems = []
+        if len(marks) != 2:
+            problems.append(f"{len(marks)} marker kernels recorded, not 2")
+            lo, hi = float("-inf"), float("inf")
+        else:
+            lo, hi = marks[0].time_range.end, marks[1].time_range.start
+        per_name: dict = {}
+        for e in device:
+            if MARKER_KERNEL in e.name or not lo <= e.time_range.start < hi:
+                continue
+            us_count = per_name.setdefault(e.name, [0.0, 0])
+            us_count[0] += e.time_range.elapsed_us()
+            us_count[1] += 1
+        recorded = {k: 0 for k in launched}
+        top, busy_us = [], 0.0
+        for key, (us, count) in per_name.items():
+            busy_us += us
+            top.append((us / iters, key, count / iters))
+            if count % iters:
+                problems.append(f"{key[:60]} recorded {count} times "
+                                f"over {iters} queries")
+            for k, device_names in HAND_KERNEL_NAMES.items():
+                # CUDA C++ kernels show as (de)mangled signatures, e.g.
+                # "void (anonymous namespace)::join_probe_kernel<long>(..)"
+                if any(d in key for d in device_names):
+                    recorded[k] += count
+        if busy_us <= 0:
+            problems.append("no device activity recorded")
+        if recorded != launched:
+            problems.append(f"hand kernels recorded {recorded}, launched "
+                            f"{launched}")
+        return problems, per_name, top, busy_us
+
+    retried = []
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            retried += problems
+        problems, per_name, top, busy_us = window()
+        if not problems:
+            break
     top.sort(reverse=True)
     busy = busy_us / iters / 1e6
     if stats is not None:
@@ -449,6 +486,7 @@ def profile_route(torch, hs, name, card, rows, run, iters,
                            "launches_per_query": c}
                           for us, k, c in top[:6]],
                       "window_problems": problems,
+                      "retried_window_problems": retried,
                       "profile_s": time.perf_counter() - t_call}))
     return [f"profile {name}: {p}" for p in problems]
 
@@ -3139,6 +3177,511 @@ def ycsb_job(seed: int, root: str, card: str, device: str = "cuda",
         json.dump(out, f)
 
 
+#: phase 12: BASELINE.json config 5 ("YSQL pgvector: ivfflat build +
+#: L2-distance scan over 1M x 768 embeddings"; bench.py:2990-2992: 1024
+#: lists, 2 k-means iterations) in one tablet, and a small tablet
+VT_CONFIG5 = {"name": "config5", "n": 1_000_000, "dim": 768,
+              "nlists": 1024, "iters": 2, "nprobe": 256}
+VT_SMALL = {"name": "small", "n": 5_000, "dim": 128, "nlists": 64,
+            "iters": 10, "nprobe": 64}
+VT_WRITES = (2_000, 1_000, 500)  # inserts, upserts, deletes (frozen ids)
+VT_QUERIES = 64                  # single-query searches: base[:64] + 0.001
+VT_WRITE_BATCH = 100             # row ops per write request
+VT_SMALL_CHURN = 600             # upserts: churn 1,200 >= 5,000 // 5
+SPILL_SF = 0.2                   # the string lineitem of dict_q1_str, cut
+#                                  from SF1: the interpreted tail takes
+#                                  about 12 µs a spilled row, 36 s a route
+#                                  at SF1 (3M rows), past phase 12's budget
+SPILL_SLOTS = 4                  # 6 (returnflag, linestatus) groups
+SPILL_CHUNK_ROWS = 262_144       # streaming_chunk_rows of the streamed
+#                                  route: a chunk a block, so SF 0.2's
+#                                  five blocks stream (it needs 3 chunks)
+
+
+def vector_table_info():
+    """`(id int64 hashed, emb vector)`: the pgvector table of config 5."""
+    from yugabyte_db_tpu_torch.docdb.table_codec import TableInfo
+    from yugabyte_db_tpu_torch.dockv import packed_row as pr
+    from yugabyte_db_tpu_torch.dockv.partition import PartitionSchema
+    C, T = pr.ColumnSchema, pr.ColumnType
+    return TableInfo("vt", "vt", pr.TableSchema(
+        (C(0, "id", T.INT64, is_hash_key=True), C(1, "emb", T.VECTOR)), 1),
+        PartitionSchema("hash", 1))
+
+
+def _timed_methods(obj, names):
+    """Wrap `obj`'s bound methods `names` to add up their host seconds
+    (and note when each was first entered); returns (seconds, entered)."""
+    spent = {n: 0.0 for n in names}
+    entered: dict = {}
+    for name in names:
+        fn = getattr(obj, name)
+
+        def wrapper(*a, _fn=fn, _name=name, **k):
+            t0 = time.perf_counter()
+            entered.setdefault(_name, t0)
+            try:
+                return _fn(*a, **k)
+            finally:
+                spent[_name] += time.perf_counter() - t0
+        setattr(obj, name, wrapper)
+    return spent, entered
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def vector_tablet_phase(torch, np, card, seed, root, device="cuda",
+                        config=VT_CONFIG5, writes=VT_WRITES,
+                        small=VT_SMALL) -> dict:
+    """Phase 12a: config 5 in one tablet through the user's entry points
+    on `device`: Tablet.bulk_load of the seeded base; build_vector_index
+    (ivfflat; the scan, the ANN build on the card and the persist,
+    timed apart); VT_QUERIES single-query vector_search calls, each equal
+    to the index's own search mapped through pks, recall@10 against
+    exact_search over the base on the card; writes through apply_write
+    (inserts, upserts and deletes of frozen ids), each written vector
+    its own top hit, no deleted id returned, recall against an exact
+    search over the live set no more than 0.02 lower, no rebuild due;
+    flush, a new Tablet on the directory and bootstrap_vector_indexes:
+    the index LOADED (full size, the writes in delta and dead), every
+    query answering as before.  Then the small tablet: the no-index
+    fallback, HNSW, and a rebuild that folds an outgrown delta.  One
+    `vector_tablet` line per tablet; returns the device programs run."""
+    import gc
+    import shutil
+    from yugabyte_db_tpu_torch.docdb.operations import RowOp, WriteRequest
+    from yugabyte_db_tpu_torch.ops import vector as pv
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.vector import ivf as pivf
+    cuda = torch.device(device).type == "cuda"
+    dev = torch.device(device)
+    info = vector_table_info()
+    k = VECTOR_K
+    exact_calls = [0]
+    plain_exact = pv.exact_search
+
+    def counted_exact(*a, **kw):
+        exact_calls[0] += 1
+        return plain_exact(*a, **kw)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def ids_of(hits):
+        return [p["id"] for p, _ in hits]
+
+    def recall(got, ref):
+        return float(np.mean([len(set(g) & set(r)) / k
+                              for g, r in zip(got, ref)]))
+
+    def base_of(cfg):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        base_d = torch.randn(cfg["n"], cfg["dim"], generator=gen,
+                             device=dev)
+        return base_d, base_d.cpu().numpy()
+
+    def load(path, base):
+        t = Tablet("vt", info, path, device=dev)
+        t0 = time.perf_counter()
+        n = t.bulk_load({"id": np.arange(len(base), dtype=np.int64),
+                         "emb": base})
+        check(n == len(base), f"bulk_load wrote {n} of {len(base)} rows")
+        return t, time.perf_counter() - t0
+
+    def search_all(t, qs, nprobe):
+        """(ids per query, host ms per call)."""
+        out, ms = [], []
+        for q in qs:
+            t0 = time.perf_counter()
+            h = t.vector_search("emb", q, k=k, nprobe=nprobe)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(ids_of(h))
+        return out, ms
+
+    if os.path.exists(root):
+        shutil.rmtree(root)
+    os.makedirs(root)
+    pivf.reset_kernel_stats()
+    pv.exact_search = counted_exact
+    try:
+        # ---- config 5 --------------------------------------------------
+        cfg = config
+        n, d, nprobe = cfg["n"], cfg["dim"], cfg["nprobe"]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t_phase = time.perf_counter()
+        base_d, base = base_of(cfg)
+        path = os.path.join(root, cfg["name"])
+        t, load_s = load(path, base)
+        sst_mb = t.approximate_size() / 2 ** 20
+        cid = info.schema.column_by_name("emb").id
+        spent, _ = _timed_methods(t, ("_scan_vectors", "_build_ann",
+                                      "_persist_vector_index"))
+        t0 = time.perf_counter()
+        rows = t.build_vector_index("emb", nlists=cfg["nlists"],
+                                    method="ivfflat",
+                                    options={"iters": cfg["iters"]})
+        sync()
+        build_s = time.perf_counter() - t0
+        check(rows == n, f"{cfg['name']}: indexed {rows} of {n} rows")
+        vdir = t._vecidx_dir(cid)
+        for f in ("index.npz", "meta.json", "tablet_meta.msgpack"):
+            check(os.path.isfile(os.path.join(vdir, f)),
+                  f"{cfg['name']}: the persisted index lacks {f}")
+        persist_bytes = _dir_bytes(vdir)
+        st = t.vector_indexes[cid]
+        idx = st.idx
+        pk_ids = np.asarray([p["id"] for p in st.pks], np.int64)
+        # (c) single-query searches, each the index's own answer; the
+        # first search makes the index's device twin (the bf16 base)
+        qs = base[:VT_QUERIES] + 0.001
+        t0 = time.perf_counter()
+        t.vector_search("emb", qs[0], k=k, nprobe=nprobe)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        before, lat = search_all(t, qs, nprobe)
+        for i, q in enumerate(qs):
+            _, own = idx.search(q, k=k, nprobe=nprobe)
+            check(before[i] == [int(pk_ids[j]) for j in own[0] if j >= 0],
+                  f"{cfg['name']}: vector_search {i} is not the index's "
+                  f"own search")
+        search_s = sum(lat) / 1e3
+        q_d = torch.from_numpy(qs).to(dev)
+        _, ref = plain_exact(q_d, base_d, k)
+        recall_before = recall(before, ref.cpu().numpy())
+        # beside it, against the f32 answer (phase 9's reference)
+        dist = ((q_d * q_d).sum(1)[:, None] + pv.sq_norms(base_d)[None, :]
+                - 2.0 * pv.mm_f32(q_d, base_d))
+        recall_f32 = recall(before, torch.topk(-dist, k, dim=1)
+                            .indices.cpu().numpy())
+        del dist
+        dv = idx._device_arrays()
+        k_eff, pool = idx.device_plan(k, nprobe)
+        q1 = q_d[:1]
+        dev_ms = cuda_ms(torch, lambda: pivf.two_stage_search(
+            q1, dv["cent"], dv["row_list"], dv["vecs"], dv["norms"], k_eff,
+            nprobe, pool), 5, warmup=2, rounds=3) if cuda else None
+        search_bound_ms = (dv["vecs"].numel() * dv["vecs"].element_size()
+                           + 8 * n + 4 * d) / HBM_BYTES_PER_S * 1e3
+        # (d) writes through apply_write
+        n_ins, n_up, n_del = writes
+        rng = np.random.default_rng(seed + 12)
+        ins_ids = np.arange(n, n + n_ins, dtype=np.int64)
+        ins_vecs = rng.normal(size=(n_ins, d)).astype(np.float32)
+        touched = rng.permutation(np.arange(VT_QUERIES, n))[:n_up + n_del]
+        up_ids, del_ids = touched[:n_up], touched[n_up:]
+        up_vecs = rng.normal(size=(n_up, d)).astype(np.float32)
+        ops = ([RowOp("insert", {"id": int(i), "emb": v.tobytes()})
+                for i, v in zip(ins_ids, ins_vecs)]
+               + [RowOp("upsert", {"id": int(i), "emb": v.tobytes()})
+                  for i, v in zip(up_ids, up_vecs)]
+               + [RowOp("delete", {"id": int(i)}) for i in del_ids])
+        t0 = time.perf_counter()
+        for b in range(0, len(ops), VT_WRITE_BATCH):
+            t.apply_write(WriteRequest("vt", ops[b:b + VT_WRITE_BATCH]))
+        apply_s = time.perf_counter() - t0
+        want_delta = {(int(i),) for i in np.concatenate([ins_ids, up_ids])}
+        want_dead = {(int(i),) for i in np.concatenate([up_ids, del_ids])}
+        check(set(st.delta) == want_delta and st.dead == want_dead,
+              f"{cfg['name']}: delta/dead after the writes "
+              f"{len(st.delta)}/{len(st.dead)}")
+        deleted = set(int(i) for i in del_ids)
+        self_q = np.concatenate([ins_vecs, up_vecs])
+        self_ids = np.concatenate([ins_ids, up_ids])
+        t0 = time.perf_counter()
+        self_hits, self_lat = search_all(t, self_q, nprobe)
+        self_s = time.perf_counter() - t0
+        for i, h in zip(self_ids, self_hits):
+            check(h[0] == int(i), f"{cfg['name']}: written id {i} is not "
+                  f"its own top hit ({h[:3]})")
+            check(not deleted & set(h), f"{cfg['name']}: a deleted id "
+                  f"was returned")
+        after, _ = search_all(t, qs, nprobe)
+        check(not any(deleted & set(h) for h in after),
+              f"{cfg['name']}: a deleted id was returned")
+        live = base_d.clone()
+        live[torch.from_numpy(up_ids).to(dev)] = \
+            torch.from_numpy(up_vecs).to(dev)
+        keep = np.ones(n, bool)
+        keep[del_ids] = False
+        live = torch.cat([live[torch.from_numpy(keep).to(dev)],
+                          torch.from_numpy(ins_vecs).to(dev)])
+        live_ids = np.concatenate([np.nonzero(keep)[0], ins_ids])
+        _, ref2 = plain_exact(q_d, live, k)
+        del live
+        recall_after = recall(after, live_ids[ref2.cpu().numpy()])
+        check(recall_after >= recall_before - 0.02,
+              f"{cfg['name']}: recall after the writes {recall_after} vs "
+              f"{recall_before}")
+        check(t.maybe_rebuild_vector_indexes() == 0,
+              f"{cfg['name']}: a rebuild ran below the churn threshold")
+        # (e) restart: flush, a new Tablet on the directory, bootstrap
+        t0 = time.perf_counter()
+        t.flush()
+        flush_s = time.perf_counter() - t0
+        del t, st, idx, dv, q1
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        t = Tablet("vt", info, path, device=dev)
+        spent2, entered2 = _timed_methods(t, ("_scan_vectors",))
+        t0 = time.perf_counter()
+        restored = t.bootstrap_vector_indexes()
+        boot_s = time.perf_counter() - t0
+        boot_load_s = entered2.get("_scan_vectors", t0 + boot_s) - t0
+        check(restored == 1, f"{cfg['name']}: bootstrap restored "
+              f"{restored}")
+        st = t.vector_indexes[cid]
+        check(st.idx.size == n and len(st.pks) == n,
+              f"{cfg['name']}: the index was rebuilt, not loaded "
+              f"(size {st.idx.size})")
+        check(set(st.delta) == want_delta and st.dead == want_dead,
+              f"{cfg['name']}: delta/dead after the restart "
+              f"{len(st.delta)}/{len(st.dead)}")
+        again, _ = search_all(t, qs, nprobe)
+        check(again == after, f"{cfg['name']}: answers moved across the "
+              f"restart")
+        self_again, _ = search_all(t, self_q, nprobe)
+        check(self_again == self_hits, f"{cfg['name']}: the written "
+              f"vectors' answers moved across the restart")
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        lat_all = np.asarray(lat)
+        print(json.dumps({
+            "vector_tablet": cfg["name"], "card": card, "rows": n,
+            "dim": d, "method": "ivfflat", "nlists": cfg["nlists"],
+            "iters": cfg["iters"], "nprobe": nprobe, "k": k,
+            "load_s": load_s, "sst_mb": sst_mb,
+            "build_s": build_s, "scan_s": spent["_scan_vectors"],
+            "ann_build_s": spent["_build_ann"],
+            "persist_s": spent["_persist_vector_index"],
+            "persist_bytes": persist_bytes,
+            "first_search_ms": first_ms,
+            "search_p50_ms": float(np.percentile(lat_all, 50)),
+            "search_p99_ms": float(np.percentile(lat_all, 99)),
+            "search_qps": len(lat) / search_s,
+            "device_ms_per_search": dev_ms,
+            "device_bound_ms": search_bound_ms,
+            "recall_at_10_before": recall_before,
+            "recall_at_10_f32_before": recall_f32,
+            "recall_at_10_after": recall_after,
+            "writes": len(ops), "apply_s": apply_s,
+            "self_queries": len(self_q), "self_queries_s": self_s,
+            "self_p50_ms": float(np.percentile(self_lat, 50)),
+            "flush_s": flush_s, "bootstrap_s": boot_s,
+            "bootstrap_load_s": boot_load_s,
+            "bootstrap_scan_diff_s": boot_s - boot_load_s,
+            "bootstrap_scan_s": spent2["_scan_vectors"],
+            "delta": len(st.delta), "dead": len(st.dead),
+            "peak_device_bytes": peak,
+            "wall_s": time.perf_counter() - t_phase}))
+        del t, st, base_d, base, q_d, ref, ref2
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        shutil.rmtree(path)
+
+        # ---- the small tablet -------------------------------------------
+        cfg = small
+        n, nprobe = cfg["n"], cfg["nprobe"]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t_phase = time.perf_counter()
+        base_d, base = base_of(cfg)
+        t, load_s = load(os.path.join(root, cfg["name"]), base)
+        qs = base[:VT_QUERIES] + 0.001
+        dist = ((qs * qs).sum(1)[:, None] + (base * base).sum(1)[None, :]
+                - 2.0 * qs @ base.T)
+        ref = np.argsort(dist, axis=1)[:, :k]
+        # no index: an exact search over a fresh scan, on the card
+        t0 = time.perf_counter()
+        fallback, _ = search_all(t, qs[:8], nprobe)
+        fallback_ms = (time.perf_counter() - t0) / 8 * 1e3
+        check([h[0] for h in fallback] == list(range(8)),
+              "small: the no-index fallback's top hits")
+        fallback_recall = float(np.mean([len(set(g) & set(r)) / k for g, r
+                                         in zip(fallback, ref[:8])]))
+        # HNSW (m 16, ef_construction 100), on the host
+        t0 = time.perf_counter()
+        t.build_vector_index("emb", method="hnsw",
+                             options={"m": 16, "ef_construction": 100})
+        hnsw_build_s = time.perf_counter() - t0
+        cid = info.schema.column_by_name("emb").id
+        with open(os.path.join(t._vecidx_dir(cid), "meta.json")) as f:
+            hnsw_opts = json.load(f)["options"]
+        check(t.vector_indexes[cid].options == {
+            "m": 16, "ef_construction": 100, "lists": 100}
+              and hnsw_opts == {"m": 16, "ef_construction": 100,
+                                "ef_search": 64},
+              f"small: the HNSW index's persisted options {hnsw_opts}")
+        hnsw, hnsw_lat = search_all(t, qs, nprobe)
+        st = t.vector_indexes[cid]
+        pk_ids = np.asarray([p["id"] for p in st.pks], np.int64)
+        for i, q in enumerate(qs):
+            _, own = st.idx.search(q, k=k)
+            check(hnsw[i] == [int(pk_ids[j]) for j in own[0] if j >= 0],
+                  f"small: HNSW vector_search {i} is not the index's own "
+                  f"search")
+        hnsw_recall = recall(hnsw, ref)
+        # ivfflat, then a rebuild that folds an outgrown delta
+        t0 = time.perf_counter()
+        t.build_vector_index("emb", nlists=cfg["nlists"], method="ivfflat",
+                             options={"iters": cfg["iters"]})
+        sync()
+        ivf_build_s = time.perf_counter() - t0
+        rng = np.random.default_rng(seed + 13)
+        churn = rng.permutation(np.arange(VT_QUERIES, n))[:VT_SMALL_CHURN]
+        churn_vecs = rng.normal(size=(len(churn), cfg["dim"])).astype(
+            np.float32)
+        t.apply_write(WriteRequest("vt", [
+            RowOp("upsert", {"id": int(i), "emb": v.tobytes()})
+            for i, v in zip(churn, churn_vecs)]))
+        probe_q = np.concatenate([qs, churn_vecs])
+        pre, _ = search_all(t, probe_q, nprobe)
+        t0 = time.perf_counter()
+        check(t.maybe_rebuild_vector_indexes() == 1,
+              "small: the outgrown delta was not folded")
+        fold_s = time.perf_counter() - t0
+        st = t.vector_indexes[cid]
+        check(not st.delta and not st.dead and len(st.pks) == n,
+              f"small: after the fold delta {len(st.delta)}, dead "
+              f"{len(st.dead)}, pks {len(st.pks)}")
+        post, post_lat = search_all(t, probe_q, nprobe)
+        # every top hit (a query's own row) stays; below it the answers
+        # may move: before the fold the search over-fetched past 600
+        # dead rows (a 4,096-row pool), after it the pool is 64 rows
+        # picked by bf16 products, and the delta's distances were bf16
+        check([a[0] for a in pre] == [b[0] for b in post],
+              "small: the fold moved a top hit")
+        fold_overlap = float(np.mean([len(set(a) & set(b)) / k
+                                      for a, b in zip(pre, post)]))
+        check([h[0] for h in post[VT_QUERIES:]] == [int(i) for i in churn],
+              "small: an upserted vector is not its own top hit")
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        print(json.dumps({
+            "vector_tablet": cfg["name"], "card": card, "rows": n,
+            "dim": cfg["dim"], "method": "hnsw, ivfflat",
+            "nlists": cfg["nlists"], "nprobe": nprobe, "k": k,
+            "load_s": load_s, "sst_mb": t.approximate_size() / 2 ** 20,
+            "fallback_ms": fallback_ms,
+            "fallback_recall_at_10": fallback_recall,
+            "hnsw_build_s": hnsw_build_s,
+            "hnsw_p50_ms": float(np.percentile(hnsw_lat, 50)),
+            "hnsw_recall_at_10": hnsw_recall,
+            "ivf_build_s": ivf_build_s, "churn": len(churn),
+            "fold_s": fold_s, "fold_top10_overlap": fold_overlap,
+            "ivf_p50_ms": float(np.percentile(post_lat, 50)),
+            "ivf_recall_at_10": recall(post[:VT_QUERIES], ref),
+            "delta": len(st.delta), "dead": len(st.dead),
+            "peak_device_bytes": peak,
+            "wall_s": time.perf_counter() - t_phase}))
+        del t, st, base_d
+        searches = pivf.kernel_cache_stats()["calls"]
+        print(f"[phase 12] vector tablets OK; two-stage searches "
+              f"{searches}, exact searches {exact_calls[0]}")
+        return {"two_stage_search": searches,
+                "exact_search": exact_calls[0]}
+    finally:
+        pv.exact_search = plain_exact
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def spill_phase(torch, np, data, card, root, device="cuda",
+                block_rows=TABLET_BLOCK_ROWS) -> dict:
+    """Phase 12b: the grouped spill tail.  The string-flag lineitem of
+    dict_q1_str in one tablet on `device`; the string Q1 through
+    Tablet.read with a DictGroupSpec of SPILL_SLOTS slots (6 groups need
+    8: 3 spill) on the streamed and the monolithic route, each answer
+    against a numpy group-by of the rows, GROUPED_STATS' spill merges
+    up by one a route and no fallback.  One `spill` line per route;
+    returns the dict-grouped programs run."""
+    import shutil
+    from yugabyte_db_tpu_torch.docdb.operations import (DocReadOperation,
+                                                        ReadRequest)
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops import stream_scan as ss
+    from yugabyte_db_tpu_torch.ops.grouped_scan import (GROUPED_STATS,
+                                                        DictGroupSpec)
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import flags
+    cuda = torch.device(device).type == "cuda"
+    if os.path.exists(root):
+        shutil.rmtree(root)
+    sdata = tpch.lineitem_str_data(data)
+    q = tpch.tpch_q1_str()
+    ref = tpch.numpy_reference(q, sdata)
+    group = DictGroupSpec(cols=q.group.cols, max_slots=SPILL_SLOTS)
+    tail_rows = []
+    plain_tail = DocReadOperation._spill_merge_tail
+
+    def counted_tail(self, req, blocks, sel, *a):
+        tail_rows.append(len(sel))
+        return plain_tail(self, req, blocks, sel, *a)
+
+    launches0 = GROUPED_STATS["launches"]
+    out = {}
+    try:
+        t = Tablet("s", tpch.lineitem_str_info(), root, device=device)
+        t0 = time.perf_counter()
+        t.bulk_load(sdata, block_rows=block_rows)
+        load_s = time.perf_counter() - t0
+        DocReadOperation._spill_merge_tail = counted_tail
+        for route in ("streamed", "monolithic"):
+            merges, fallbacks = (GROUPED_STATS["spill_merges"],
+                                 GROUPED_STATS["spill_fallbacks"])
+            ss.LAST_STREAM_STATS.clear()
+            with flags.overridden("streaming_scan_enabled",
+                                  route == "streamed"), \
+                    flags.overridden("streaming_chunk_rows",
+                                     SPILL_CHUNK_ROWS):
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                resp = t.read(ReadRequest(
+                    "lineitem_s", where=q.where, aggregates=q.aggs,
+                    group_by=group, read_ht=t.clock.now().value))
+                if cuda:
+                    torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            check(resp.backend == "tpu", f"spill {route}: served on "
+                  f"{resp.backend}")
+            chunks = ss.LAST_STREAM_STATS.get("chunks", 0)
+            check((chunks >= 3) == (route == "streamed"),
+                  f"spill {route}: {chunks} streamed chunks")
+            check((GROUPED_STATS["spill_merges"],
+                   GROUPED_STATS["spill_fallbacks"]) ==
+                  (merges + 1, fallbacks),
+                  f"spill {route}: merges/fallbacks "
+                  f"{GROUPED_STATS['spill_merges'] - merges}/"
+                  f"{GROUPED_STATS['spill_fallbacks'] - fallbacks}")
+            got = {(a, b): i for i, (a, b) in
+                   enumerate(zip(*resp.group_values))}
+            check(set(got) == set(ref), f"spill {route}: groups "
+                  f"{sorted(got)}")
+            for key, i in got.items():
+                qsum, psum, cnt = ref[key]
+                check(int(resp.group_counts[i]) == cnt,
+                      f"spill {route}: count of {key}")
+                check(float(resp.agg_values[0][i]) == qsum,
+                      f"spill {route}: l_quantity sum of {key}")
+                check(abs(float(resp.agg_values[1][i]) - psum)
+                      <= 1e-9 * abs(psum),
+                      f"spill {route}: l_extendedprice sum of {key}")
+            out[route] = wall_ms
+            print(json.dumps({
+                "spill": route, "card": card,
+                "rows": len(sdata["rowid"]), "groups": len(got),
+                "slots": SPILL_SLOTS, "chunks": chunks, "wall_ms": wall_ms,
+                "tail_rows": tail_rows[-1], "load_s": load_s}))
+    finally:
+        DocReadOperation._spill_merge_tail = plain_tail
+        shutil.rmtree(root, ignore_errors=True)
+    print("[phase 12] spill tail OK on both routes")
+    return {"dict_group_program": GROUPED_STATS["launches"] - launches0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3573,7 +4116,20 @@ def main(argv=None) -> int:
         shutil.rmtree(ycsb_root, ignore_errors=True)
     phase_time("11b ycsb")
 
-    # --- phase 12: report ------------------------------------------------
+    # --- phase 12: the tablet's vector index, and the grouped spill tail --
+    hand_before = dict(hs.LAUNCHES)
+    vector_tablet = vector_tablet_phase(
+        torch, np, card, args.seed,
+        os.path.join(here, "build", "vector_tablet_smoke"))
+    phase_time("12a vector tablet")
+    spilled = spill_phase(torch, np,
+                          tpch.generate_lineitem(SPILL_SF, seed=args.seed),
+                          card, os.path.join(here, "build", "spill_smoke"))
+    vector_tablet_hand = {k: v - hand_before.get(k, 0)
+                          for k, v in hs.LAUNCHES.items()}
+    phase_time("12b spill tail")
+
+    # --- report ----------------------------------------------------------
     for k in kernels:
         scan_path = launches.get(k["name"], per_query.get(k["name"], 0))
         k["launches_by_path"] = {"scan": scan_path,
@@ -3582,7 +4138,9 @@ def main(argv=None) -> int:
                                  "rows_windows": rowed["hand"].get(
                                      k["name"], 0),
                                  "vectors": vector_hand.get(k["name"], 0),
-                                 "write_path": written.get(k["name"], 0)}
+                                 "write_path": written.get(k["name"], 0),
+                                 "vector_tablet": vector_tablet_hand.get(
+                                     k["name"], 0)}
         k["launches"] = sum(k["launches_by_path"].values())
         check(k["launches"] > 0, f"{k['name']} launched 0 times")
     keys = ("name", "route", "source", "replaces", "launches",
@@ -3609,7 +4167,16 @@ def main(argv=None) -> int:
                  "launches": meshed["sharded_exact_search"]},
                 {"name": "merge_gc_split", "path": "write_path",
                  "source": "yugabyte_db_tpu_torch/ops/compaction.py",
-                 "launches": ycsb_run["row_compaction"]["launches"]}]
+                 "launches": ycsb_run["row_compaction"]["launches"]},
+                {"name": "two_stage_search", "path": "vector_tablet",
+                 "source": "yugabyte_db_tpu_torch/vector/ivf.py",
+                 "launches": vector_tablet["two_stage_search"]},
+                {"name": "exact_search", "path": "vector_tablet",
+                 "source": "yugabyte_db_tpu_torch/ops/vector.py",
+                 "launches": vector_tablet["exact_search"]},
+                {"name": "dict_group_program", "path": "vector_tablet",
+                 "source": "yugabyte_db_tpu_torch/ops/grouped_scan.py",
+                 "launches": spilled["dict_group_program"]}]
     check(all(p["launches"] > 0 for p in programs),
           f"a program of the new paths never ran: {programs}")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}

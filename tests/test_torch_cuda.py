@@ -13,7 +13,8 @@ runs; the distributed scan on a 2-slot mesh of the one card against the
 same mesh on CPU slots, and the sharded exact search against
 exact_search; on a machine with several cards, the mesh with its slots
 spread over every card, and the bypass mesh combine with one card per
-shard.
+shard; a small vector tablet (IVF and HNSW: build, writes, restart) and
+the grouped spill merge on the card against their CPU twins.
 Every test here needs a GPU and skips without one; the file imports
 nothing of JAX, so it runs where JAX is not installed:
 
@@ -983,3 +984,136 @@ def test_cuda_dedup_read_over_memtable_matches_cpu(cuda_device, tmp_path,
             assert np.array_equal(hand.group_counts, want.group_counts)
             for a, g, w in zip(q.aggs, hand.agg_values, want.agg_values):
                 assert_partials(g, w, a.op)
+
+
+# --- the tablet's vector index and the grouped spill tail on the card ---------
+def _vector_table():
+    from yugabyte_db_tpu_torch.docdb.table_codec import TableInfo
+    from yugabyte_db_tpu_torch.dockv import packed_row as pr
+    from yugabyte_db_tpu_torch.dockv.partition import PartitionSchema
+    C, T = pr.ColumnSchema, pr.ColumnType
+    return TableInfo("vt", "vt", pr.TableSchema(
+        (C(0, "id", T.INT64, is_hash_key=True), C(1, "emb", T.VECTOR)), 1),
+        PartitionSchema("hash", 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["ivfflat", "hnsw"])
+def test_cuda_vector_tablet_matches_cpu(cuda_device, tmp_path, method):
+    """A small (id, emb vector(32)) tablet on the card and its twin on the
+    CPU: the same bulk load, index build, writes and restart answer with
+    equal ids.  Every list is probed; the card's IVF re-ranks its bf16
+    copy of the base in f32, so a hit's id is held to the CPU's at every
+    rank whose CPU distance stands apart from its neighbours' by more
+    than that rounding can move it (2^-6 |q|^2), the top hit always; the
+    written vectors lie far from the base (their delta search is bf16 on
+    the card) and are queried for their top hit; the no-index fallback
+    (bf16 on the card) likewise."""
+    from yugabyte_db_tpu_torch.docdb.operations import RowOp, WriteRequest
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    rng = np.random.default_rng(4)
+    n, d, nl = 2000, 32, 16
+    base = rng.normal(size=(n, d)).astype(np.float32)
+    far = rng.normal(size=(30, d)).astype(np.float32) + 20.0
+    info = _vector_table()
+    qs = base[:16] + 0.001
+    tablets = {}
+    for dev in (cuda_device, "cpu"):
+        t = Tablet("v", info, str(tmp_path / str(dev)), device=dev)
+        t.bulk_load({"id": np.arange(n, dtype=np.int64), "emb": base})
+        tablets[str(dev)] = t
+    gpu, cpu = tablets[str(cuda_device)], tablets["cpu"]
+
+    def ids(t, q, k):
+        return [p["id"] for p, _ in t.vector_search("emb", q, k=k,
+                                                    nprobe=nl)]
+
+    def same_hits(q, what):
+        got = ids(gpu, q, 5)
+        want = cpu.vector_search("emb", q, k=6, nprobe=nl)
+        d = [h[1] for h in want]
+        tol = 2.0 ** -6 * float(q @ q)
+        assert got[0] == want[0][0]["id"], what
+        for r in range(1, 5):
+            if d[r] - d[r - 1] > tol and d[r + 1] - d[r] > tol:
+                assert got[r] == want[r][0]["id"], (what, r)
+        return got
+
+    for i, q in enumerate(qs[:4]):          # no index: exact over a scan
+        assert ids(gpu, q, 1) == ids(cpu, q, 1) == [i]
+    opts = {"iters": 5} if method == "ivfflat" else {"m": 16}
+    for t in (gpu, cpu):
+        assert t.build_vector_index("emb", nl, method, opts) == n
+    if method == "ivfflat":
+        (st,) = gpu.vector_indexes.values()
+        assert st.idx.device.type == "cuda"
+    for q in qs:
+        same_hits(q, "after the build")
+    ops = ([RowOp("insert", {"id": 5000 + i, "emb": v.tobytes()})
+            for i, v in enumerate(far[:20])]
+           + [RowOp("upsert", {"id": 100 + i, "emb": v.tobytes()})
+              for i, v in enumerate(far[20:])]
+           + [RowOp("delete", {"id": int(i)}) for i in range(16)])
+    for t in (gpu, cpu):
+        t.apply_write(WriteRequest("vt", ops))
+    want = [5000 + i for i in range(20)] + [100 + i for i in range(10)]
+
+    def check(what):
+        (gs,), (cs,) = gpu.vector_indexes.values(), cpu.vector_indexes.values()
+        assert set(gs.delta) == set(cs.delta) and gs.dead == cs.dead, what
+        for q in qs:
+            got = same_hits(q, what)
+            assert not set(got) & set(range(16)), what
+        for v, i in zip(far, want):
+            assert ids(gpu, v, 1) == ids(cpu, v, 1) == [i], what
+
+    check("after the writes")
+    for t in (gpu, cpu):
+        t.flush()
+    gpu = Tablet("v", info, gpu.dir, device=cuda_device)
+    cpu = Tablet("v", info, cpu.dir, device="cpu")
+    assert gpu.bootstrap_vector_indexes() == cpu.bootstrap_vector_indexes() \
+        == 1
+    (gs,) = gpu.vector_indexes.values()
+    assert gs.idx.size == n and len(gs.delta) == 30 and len(gs.dead) == 26
+    if method == "ivfflat":
+        assert gs.idx.device.type == "cuda"
+    check("after the restart")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streamed", [True, False])
+def test_cuda_spill_merge_matches_cpu(cuda_device, tmp_path, streamed):
+    """The string Q1 with 6 groups in a 4-slot budget, on a tablet on the
+    card and its twin on the CPU: both take the partial-spill merge and
+    answer bit for bit alike under one float dtype."""
+    from yugabyte_db_tpu_torch.docdb.operations import ReadRequest
+    from yugabyte_db_tpu_torch.models import tpch
+    from yugabyte_db_tpu_torch.ops.grouped_scan import (GROUPED_STATS,
+                                                        DictGroupSpec)
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import flags
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    data = tpch.lineitem_str_data(tpch.generate_lineitem(0.02, seed=5))
+    q = tpch.tpch_q1_str()
+    group = DictGroupSpec(cols=q.group.cols, max_slots=4)
+    out = []
+    with flags.overridden("device_float_dtype", "float32"), \
+            flags.overridden("streaming_chunk_rows", 32768), \
+            flags.overridden("streaming_scan_enabled", streamed):
+        for dev in (cuda_device, "cpu"):
+            t = Tablet("s", tpch.lineitem_str_info(),
+                       str(tmp_path / str(dev)), device=dev)
+            t.bulk_load(data, ht=HybridTime(1 << 40), block_rows=8192)
+            merges = GROUPED_STATS["spill_merges"]
+            out.append(t.read(ReadRequest(
+                "lineitem_s", where=q.where, aggregates=q.aggs,
+                group_by=group, read_ht=1 << 41)))
+            assert GROUPED_STATS["spill_merges"] == merges + 1
+    got, want = out
+    assert got.backend == want.backend == "tpu"
+    assert np.array_equal(got.group_counts, want.group_counts)
+    for a, b in zip(got.group_values, want.group_values):
+        assert list(a) == list(b)
+    for g, w in zip(got.agg_values, want.agg_values):
+        assert np.asarray(g).tobytes() == np.asarray(w).tobytes()

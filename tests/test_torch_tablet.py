@@ -3,9 +3,9 @@ docdb/operations.py DocReadOperation, models/tpch.LineitemTable)
 against the JAX reference on the same seeded rows: Tablet.read answers
 bit for bit on the streamed and the monolithic route, under f32 and
 f64, on one, two-SST and eight tablets; where the reference answers on
-its interpreted CPU path the port does too, with the same answer (a
-dictionary GROUP BY past its slot budget, the reference's spill tail,
-stays refused); and both restart reads alike under mock clocks."""
+its interpreted CPU path the port does too, with the same answer; a
+dictionary GROUP BY past its slot budget takes the same partial-spill
+merge; and both restart reads alike under mock clocks."""
 import numpy as np
 import pytest
 
@@ -242,17 +242,32 @@ def test_filter_reads_are_refused(tablets):
 
 @pytest.mark.parametrize("route", ["streamed", "monolithic"])
 def test_dict_group_spill_is_refused(tablets, route):
-    """A dictionary GROUP BY past its slot budget: the reference (with
-    its spill tail off) answers on the CPU, the port refuses."""
+    """A dictionary GROUP BY past its slot budget (6 groups, 4 slots):
+    the partial-spill merge answers as the reference's, bit for bit on
+    the same route; with ``grouped_spill_merge_enabled`` off both fall
+    to the interpreted GROUP BY with the same answer.  (Before the spill
+    tail was ported the port refused this read; the name stays.)"""
+    from yugabyte_db_tpu.ops.grouped_scan import GROUPED_STATS as JSTATS
+    from yugabyte_db_tpu_torch.ops.grouped_scan import GROUPED_STATS
     (jt,), (pt,) = tablets["str"]
     group = DictGroupSpec(cols=(R, L), max_slots=4)
     jreq, preq = requests("lineitem_s", tpch.TPCH_Q1.where,
                           tpch.TPCH_Q1.aggs, group, READ_HT)
-    with _flags("float64", streamed=route == "streamed"), \
-            flags_set({"grouped_spill_merge_enabled": False}, {}):
-        assert jt.read(jreq).backend == "cpu"
-        with pytest.raises(NotPortedError, match="slot budget"):
-            pt.read(preq)
+    merges = GROUPED_STATS["spill_merges"], JSTATS["spill_merges"]
+    with _flags("float64", streamed=route == "streamed"):
+        presp, jresp = pt.read(preq), jt.read(jreq)
+    assert presp.backend == jresp.backend == "tpu"
+    assert_same_response(presp, jresp, f"spill merge {route}")
+    assert len(presp.group_counts) == 6
+    assert (GROUPED_STATS["spill_merges"], JSTATS["spill_merges"]) == \
+        (merges[0] + 1, merges[1] + 1)
+    jreq, preq = requests("lineitem_s", tpch.TPCH_Q1.where,
+                          tpch.TPCH_Q1.aggs, group, READ_HT)
+    with _flags("float64", streamed=route == "streamed",
+                grouped_spill_merge_enabled=False):
+        presp, jresp = pt.read(preq), jt.read(jreq)
+    assert presp.backend == jresp.backend == "cpu"
+    assert_same_cpu_response(presp, jresp, f"spill merge off {route}")
 
 
 # --- restarts --------------------------------------------------------------------

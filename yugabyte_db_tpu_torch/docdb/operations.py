@@ -32,9 +32,12 @@ src/yb/docdb/pgsql_operation.cc):
   window pushdown (``ReadRequest.window``, ops/window_scan.py).
 
 Where a shape the device cannot serve exactly falls to the interpreted
-paths, as in the reference.  Still refused with ``NotPortedError``: a
-dictionary GROUP BY past its slot budget (the reference's spill tail,
-ROADMAP.md queue 1 item 9a) and document-path pushdown (item 9b).
+paths, as in the reference.  A dictionary GROUP BY past its slot budget
+takes the partial-spill merge on either route (``grouped_spill_merge_
+enabled``): the device's in-range slots stay, the spilled rows
+re-aggregate on the interpreted tail, and the two combine by group key.
+Still refused with ``NotPortedError``: document-path pushdown
+(ROADMAP.md queue 1 item 9b).
 
 String columns ride on the device as codes into SORTED scan-global
 dictionaries, so ordering predicates map to code ranges, equality/IN to
@@ -65,7 +68,6 @@ from ..storage.lsm import WriteBatch
 from ..utils import flags
 from ..utils.hybrid_time import ENCODED_SIZE, DocHybridTime, HybridTime
 
-_SPILL_ITEM = "queue 1 item 9a (the grouped spill tail)"
 _DOC_ITEM = "queue 1 item 9b (document shredding)"
 _HT_SUFFIX = ENCODED_SIZE + 1
 
@@ -1370,8 +1372,10 @@ class DocReadOperation:
                                  read_ht: int):
         """The chunked pipelined aggregate (ops/stream_scan.py) for
         scans it serves exactly; None falls through to the monolithic
-        batch; ``_SPILLED`` when a dict-grouped scan overflowed its
-        slot budget."""
+        batch.  A dict-grouped scan that overflowed its slot budget
+        takes the partial-spill merge; ``_SPILLED`` when that cannot
+        run (the monolithic batch would spill alike, so the caller goes
+        straight to the interpreted GROUP BY)."""
         if not flags.get("streaming_scan_enabled"):
             return None
         from ..ops.stream_scan import streaming_scan_aggregate
@@ -1388,6 +1392,20 @@ class DocReadOperation:
         if got is None:
             return None
         if dict_group and grouped_out.get("spill"):
+            # slots BELOW the spill slot hold exact per-group partials;
+            # only the spill slot aggregated an unknown mix of groups
+            from ..ops.grouped_scan import GROUPED_STATS
+            if flags.get("grouped_spill_merge_enabled"):
+                # the restart check over the FULL pre-prune block list,
+                # as on the served route and the interpreted re-scan
+                self._check_restart_window(blocks, read_ht)
+                resp = self._grouped_spill_merge(
+                    req, grouped_out, expanded, minmax, aggs_run, got,
+                    read_ht)
+                if resp is not None:
+                    GROUPED_STATS["spill_merges"] += 1
+                    return resp
+            GROUPED_STATS["spill_fallbacks"] += 1
             return _SPILLED
         # the restart check over the FULL pre-prune block list, once this
         # route serves the read
@@ -1404,6 +1422,136 @@ class DocReadOperation:
                                 group_values=gvals, backend="tpu")
         return ReadResponse(agg_values=outs, group_counts=_np(counts),
                             backend="tpu")
+
+    def _grouped_spill_merge(self, req: ReadRequest, gout: dict,
+                             expanded, minmax, aggs_run, got,
+                             read_ht: int) -> Optional[ReadResponse]:
+        """The streamed route's partial-spill merge: device slots below
+        the spill slot keep their exact partials; rows whose group id
+        landed at or past it re-aggregate on the interpreted tail (the
+        same WHERE and MVCC-visible mask: the streamed route proved the
+        blocks chunk-safe, one visible version per doc key).  The two
+        partials are disjoint (a group's id is either in range or
+        spilled), so the combine is a union.  None when the merge
+        cannot run."""
+        plan = gout.get("plan")
+        blocks = gout.get("blocks")
+        if plan is None or not blocks:
+            return None
+        from ..ops.grouped_scan import decode_slot_groups
+        spec = req.group_by
+        dicts = gout["dicts"]
+        spill_slot = gout["num_slots"] - 1
+        outs, counts = got
+        counts_hot = _np(counts).copy()
+        counts_hot[spill_slot:] = 0
+        # dict-code MIN/MAX lanes decode to strings BEFORE the combine:
+        # the interpreted tail's partials are strings
+        dev_outs = dict_minmax_decode(
+            tuple(aggs_run), [_np(o) for o in outs], dicts)
+        dev_part = decode_slot_groups(spec, dicts, dev_outs, counts_hot)
+        # replay the device's group-id encoding over the same remapped
+        # codes to find the rows that spilled
+        gid = None
+        gnull = None
+        stride = 1
+        for cid in spec.cols:
+            codes = np.concatenate(
+                [plan.block_codes(cid, b) for b in blocks])
+            nl = np.concatenate(
+                [np.asarray(b.varlen[cid][2], bool) for b in blocks])
+            gid = (codes.astype(np.int64) * stride if gid is None
+                   else gid + codes.astype(np.int64) * stride)
+            gnull = nl if gnull is None else (gnull | nl)
+            stride *= max(len(dicts[cid]), 1)
+        ht = np.concatenate([b.ht for b in blocks])
+        tomb = np.concatenate([b.tombstone for b in blocks])
+        vis = (ht <= np.uint64(read_ht)) & ~tomb
+        sel = np.flatnonzero(vis & ~gnull & (gid >= spill_slot))
+        return self._spill_merge_tail(req, blocks, sel, aggs_run,
+                                      expanded, minmax, dev_part)
+
+    def _spill_merge_tail(self, req: ReadRequest, blocks, sel,
+                          aggs_run, expanded, minmax, dev_part
+                          ) -> Optional[ReadResponse]:
+        """The spill merge's shared tail (streamed and monolithic):
+        gather the spilled rows from the columnar blocks, re-aggregate
+        them on the interpreted fold (the same WHERE), and union them
+        with the device's partials through the group-keyed combine.
+        None when the gather cannot run.  (The caller has run the
+        restart check over the full pre-prune block list.)"""
+        from ..ops.expr import referenced_columns
+        from ..ops.scan import combine_grouped_partials
+        spec = req.group_by
+        schema = self.codec.schema
+        needed = set(spec.cols)
+        if req.where is not None:
+            referenced_columns(req.where, needed)
+        for a in req.aggregates:
+            if a.expr is not None:
+                referenced_columns(a.expr, needed)
+        by_id = {c.id: c for c in schema.columns}
+        if any(c not in by_id for c in needed):
+            return None
+        proj = [by_id[c] for c in sorted(needed)]
+        rows = self._gather_rows(blocks, sel, proj)
+        if rows is None:
+            return None
+        aggs_list = list(aggs_run)
+        dummy_state = [None] * len(aggs_list)
+        group_state: Dict[object, list] = {}
+        name_to_id = {c.name: c.id for c in schema.columns}
+        for row in rows:
+            idrow = {name_to_id[nm]: v for nm, v in row.items()}
+            if req.where is not None and \
+                    eval_expr_py(req.where, idrow) is not True:
+                continue
+            _agg_accumulate(aggs_list, dummy_state, group_state, spec,
+                            idrow)
+        tail = _grouped_cpu_response(aggs_list, group_state, spec)
+        merged_outs, merged_counts, merged_gvals = \
+            combine_grouped_partials(
+                tuple(aggs_run),
+                [dev_part, (tail.agg_values, tail.group_counts,
+                            tail.group_values)])
+        outs_f = _nullify_minmax(expanded, minmax, merged_outs)
+        return ReadResponse(agg_values=outs_f,
+                            group_counts=merged_counts,
+                            group_values=merged_gvals, backend="tpu")
+
+    def _monolithic_spill_merge(self, req: ReadRequest, gspec, batch,
+                                blocks, expanded, minmax, aggs_run,
+                                outs, counts, mask
+                                ) -> Optional[ReadResponse]:
+        """The monolithic route's partial-spill merge: the group
+        columns' codes are already lanes of ``batch.cols`` and the
+        kernel's row mask folds visibility, WHERE and group-key nulls,
+        so the spilled rows are ``mask & (gid >= spill_slot)`` replayed
+        on the host.  Slots below the spill slot keep their exact
+        partials; the spilled rows go through the shared tail."""
+        from ..ops.grouped_scan import decode_slot_groups, resolve_group
+        n = batch.n_rows
+        try:
+            resolved, domains = resolve_group(gspec, batch.dicts)
+        except KeyError:
+            return None
+        spill_slot = resolved.num_slots - 1
+        gid = np.zeros(n, np.int64)
+        stride = 1
+        for cid, dom in zip(gspec.cols, domains):
+            if cid not in batch.cols:
+                return None
+            gid += _np(batch.cols[cid])[:n].astype(np.int64) * stride
+            stride *= dom
+        counts_hot = _np(counts).copy()
+        counts_hot[spill_slot:] = 0
+        dev_outs = dict_minmax_decode(
+            tuple(aggs_run), [_np(o) for o in outs], batch.dicts)
+        dev_part = decode_slot_groups(gspec, batch.dicts, dev_outs,
+                                      counts_hot)
+        sel = np.flatnonzero(_np(mask)[:n] & (gid >= spill_slot))
+        return self._spill_merge_tail(req, blocks, sel, aggs_run,
+                                      expanded, minmax, dev_part)
 
     def _check_restart_window(self, blocks, read_ht: int) -> None:
         """Raise ReadRestartError when any block holds a record inside
@@ -1435,8 +1583,7 @@ class DocReadOperation:
         read_ht = req.read_ht if req.read_ht is not None else _MAX_HT
         resp = self._try_streaming_aggregate(req, blocks, needed, read_ht)
         if resp is _SPILLED:
-            raise NotPortedError("a dictionary GROUP BY past its slot "
-                                 "budget (the spill tail)", _SPILL_ITEM)
+            return None     # over-cardinality: the interpreted GROUP BY
         if resp is not None:
             return resp
         # zone-map pruning ahead of the monolithic batch; the restart
@@ -1483,7 +1630,9 @@ class DocReadOperation:
                 agg_values=_nullify(outs), group_counts=_np(counts),
                 group_values=tuple(_np(g) for g in gvals), backend="tpu")
         if isinstance(req.group_by, DictGroupSpec):
-            from ..ops.grouped_scan import decode_slot_groups, domain_product
+            from ..ops.grouped_scan import (GROUPED_STATS,
+                                            decode_slot_groups,
+                                            domain_product)
             gspec = req.group_by
             if any(c not in batch.dicts for c in gspec.cols) or \
                     domain_product(gspec, batch.dicts) >= 2 ** 31:
@@ -1491,9 +1640,19 @@ class DocReadOperation:
             outs, counts, mask, spill = self.kernel.run(
                 batch, where, aggs_run, gspec, read_ht)
             if int(spill) > 0:
-                raise NotPortedError("a dictionary GROUP BY past its slot "
-                                     "budget (the spill tail)",
-                                     _SPILL_ITEM)
+                # the same partial-spill merge as the streamed route:
+                # the kernel's row mask already folds visibility, WHERE
+                # and group-key nulls, so the spilled rows replay on the
+                # host without a second device pass
+                if flags.get("grouped_spill_merge_enabled"):
+                    resp = self._monolithic_spill_merge(
+                        req, gspec, batch, kept, expanded, minmax,
+                        aggs_run, outs, counts, mask)
+                    if resp is not None:
+                        GROUPED_STATS["spill_merges"] += 1
+                        return resp
+                GROUPED_STATS["spill_fallbacks"] += 1
+                return None     # the interpreted GROUP BY
             outs_c, counts_c, gvals = decode_slot_groups(
                 gspec, batch.dicts, _nullify(outs), _np(counts))
             return ReadResponse(agg_values=outs_c, group_counts=counts_c,

@@ -82,10 +82,6 @@ _BULK_ENC = {
         ValueType.kTimestampDesc if desc else ValueType.kTimestamp),
 }
 
-#: value column types the bulk load stores as varlen lanes
-_VARLEN_TYPES = (ColumnType.STRING, ColumnType.BINARY)
-
-
 class TableCodec:
     def __init__(self, info: TableInfo):
         if info.cotable_id is not None:
@@ -271,16 +267,19 @@ class TableCodec:
         """Turn user column arrays into sorted columnar-only blocks,
         yielded one at a time.
 
-        Every PK component must be fixed-width numeric; value columns
-        are fixed-width or STRING/BINARY (varlen lanes: per-row UTF-8 or
-        raw bytes on one heap).  partition: optional
+        Every PK component must be fixed-width numeric; every other
+        value column is a varlen lane of raw bytes on one heap: a ``str``
+        as UTF-8, anything else as ``bytes(x)`` (a row of a 2-D float32
+        array gives its vector's bytes).  partition: optional
         dockv.partition.Partition — rows outside it are dropped."""
-        for c in self.schema.columns:
-            if not ColumnType.is_fixed(c.type) and (
-                    c.is_key or c.type not in _VARLEN_TYPES):
+        for c in self._pk_cols:
+            if not ColumnType.is_fixed(c.type):
+                # the reference's bulk key encoders (_BULK_ENC) are
+                # fixed-width only as well
                 raise NotImplementedError(
-                    f"{c.type} column {c.name!r} is not ported "
-                    f"(ROADMAP.md queue 1 item 9: storage/LSM copy)")
+                    f"a bulk load keyed by the {c.type} column {c.name!r} "
+                    f"is not ported (ROADMAP.md queue 1 item 9: "
+                    f"storage/LSM copy)")
         n = len(next(iter(columns.values())))
         ps = self.info.partition_schema
         pk_blocks = [_BULK_ENC[c.type](np.asarray(columns[c.name]),

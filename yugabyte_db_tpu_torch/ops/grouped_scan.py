@@ -18,6 +18,8 @@ groups over them:
   each block's codes remapped through an int32 table; row strings are
   never decoded.  The same plan turns string predicates into code
   compares (docdb/operations.py rewrite_where_and_aggs).
+- :func:`grouped_aggregate_cpu` — the numpy twin of the dict-grouped
+  scan, in dense slot form.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve_device
 from ..storage import lane_codec
 from ..storage.columnar import ColumnarBlock
 
@@ -35,9 +38,10 @@ from ..storage.columnar import ColumnarBlock
 #: (informational; written by ops/stream_scan.py)
 LAST_GROUPED_STATS: dict = {}
 
-#: dict-grouped scans run by ScanKernel.run, and fused joins whose dict
-#: group spilled its slot budget (process-wide)
-GROUPED_STATS = {"launches": 0, "spill_fallbacks": 0}
+#: dict-grouped scans run by ScanKernel.run; slot overflows that fell
+#: to the interpreted GROUP BY (``spill_fallbacks``) and those the
+#: partial-spill merge served (``spill_merges``) (process-wide)
+GROUPED_STATS = {"launches": 0, "spill_fallbacks": 0, "spill_merges": 0}
 
 #: slot budgets are powers of two in this band
 _MIN_SLOTS = 4
@@ -249,3 +253,138 @@ def decode_slot_groups(spec: DictGroupSpec, dicts: Dict[int, np.ndarray],
     outs_c = tuple(np.asarray(o)[present] for o in outs)
     return outs_c, counts[present], tuple(gvals)
 
+
+# ---------------------------------------------------------------------------
+# The numpy twin: a host replay of the kernel's accumulation contract
+# ---------------------------------------------------------------------------
+
+def grouped_aggregate_cpu(blocks: Sequence[ColumnarBlock],
+                          columns: Sequence[int],
+                          where: Optional[tuple],
+                          aggs: Sequence,
+                          spec: DictGroupSpec,
+                          read_ht: Optional[int] = None,
+                          plan: Optional[DictPlan] = None,
+                          device: DeviceLike = "cuda"):
+    """Numpy twin of the dict-grouped scan: the same scan-global
+    dictionary plan, dense slot encoding and static int64 fixed-point
+    SUM quantization (ops/scan.py's accumulation contract), with the
+    f64 conversion policy of a batch on `device`, so on an f64 batch
+    the twin equals the kernel bit for bit.  Returns (outs, counts,
+    spilled) in dense slot form (decode with decode_slot_groups)."""
+    from .cpu_scan import eval_expr_np
+    from .device_batch import f64_conversion
+    from .expr import expr_bound
+    from .scan import _expand_avg, _scale_for
+    dev = resolve_device(device)
+    aggs = tuple(_expand_avg(aggs))
+    dcids = dict_cols_needed(blocks, columns)
+    if plan is None:
+        if dcids is None:
+            raise ValueError("columns lack columnar form")
+        plan = make_dict_plan(blocks, set(dcids) | set(spec.cols))
+        if plan is None:
+            raise ValueError("not dictionary-encodable")
+    cols: Dict[int, np.ndarray] = {}
+    nulls: Dict[int, np.ndarray] = {}
+    bounds: Dict[int, Tuple[float, float]] = {}
+    for cid in set(columns) | set(spec.cols):
+        if cid in plan.dicts:
+            cols[cid] = np.concatenate(
+                [plan.block_codes(cid, b) for b in blocks])
+            nulls[cid] = np.concatenate(
+                [np.asarray(b.varlen[cid][2], bool) for b in blocks])
+            continue
+        parts, nparts = [], []
+        for b in blocks:
+            if cid in b.fixed:
+                v, m = b.fixed[cid]
+                parts.append(v)
+                nparts.append(m)
+            else:
+                parts.append(b.pk[cid])
+                nparts.append(np.zeros(b.n, bool))
+        arr = np.concatenate(parts)
+        # the device batch's f64 conversion, so integer-valued f64
+        # columns aggregate exactly, as on the device
+        conv = f64_conversion(parts, dev) \
+            if arr.dtype == np.float64 else None
+        if conv is not None:
+            arr = arr.astype(conv)
+        cols[cid] = arr
+        nulls[cid] = np.concatenate(nparts)
+        if arr.dtype.kind in "fiu" and len(arr):
+            bounds[cid] = (float(arr.min()), float(arr.max()))
+    n = len(next(iter(cols.values())))
+    mask = np.ones(n, bool)
+    if read_ht is not None:
+        ht = np.concatenate([b.ht for b in blocks])
+        tomb = np.concatenate([b.tombstone for b in blocks])
+        mask &= (ht <= np.uint64(read_ht)) & ~tomb
+    if where is not None:
+        wv, wn = eval_expr_np(where, cols, nulls)
+        mask &= wv
+        if wn is not None:
+            mask &= ~wn
+    resolved, domains = resolve_group(spec, plan.dicts)
+    for cid in spec.cols:
+        mask &= ~nulls[cid]
+    gid = np.zeros(n, np.int64)
+    stride = 1
+    for cid, dom in zip(spec.cols, domains):
+        gid += cols[cid].astype(np.int64) * stride
+        stride *= dom
+    S = resolved.num_slots
+    spill_slot = S - 1
+    in_range = gid < spill_slot
+    spilled = int(np.sum(mask & ~in_range))
+    gid_c = np.where(mask & in_range, gid, spill_slot).astype(np.int64)
+    outs = []
+
+    def _exact_count(m):
+        return np.bincount(gid_c[m], minlength=S).astype(np.int64)
+
+    def _exact_sum(q):
+        qs = np.zeros(S, np.int64)
+        np.add.at(qs, gid_c, q)
+        return qs
+
+    for a in aggs:
+        if a.expr is None:
+            outs.append(_exact_count(mask))
+            continue
+        v, vn = eval_expr_np(a.expr, cols, nulls)
+        m = mask if vn is None else mask & ~vn
+        if a.op == "count":
+            outs.append(_exact_count(m))
+        elif a.op == "sum":
+            if np.issubdtype(np.asarray(v).dtype, np.integer) or \
+                    np.asarray(v).dtype == np.bool_:
+                outs.append(_exact_sum(
+                    np.where(m, v, 0).astype(np.int64)))
+                continue
+            b = expr_bound(a.expr, bounds) if bounds else None
+            s = (_scale_for(max(abs(b[0]), abs(b[1])), n)
+                 if b is not None else None)
+            if s is not None:
+                # the kernel's static fixed-point lane, replayed
+                q = np.rint(np.where(m, v, 0) * np.float64(s)
+                            ).astype(np.int64)
+                outs.append(_exact_sum(q).astype(np.float64) / float(s))
+            else:
+                outs.append(np.bincount(gid_c,
+                                        weights=np.where(m, v, 0),
+                                        minlength=S))
+        elif a.op in ("min", "max"):
+            sent = (np.inf if a.op == "min" else -np.inf) \
+                if np.asarray(v).dtype.kind == "f" else \
+                (np.iinfo(np.asarray(v).dtype).max if a.op == "min"
+                 else np.iinfo(np.asarray(v).dtype).min)
+            arr = np.full(S, sent, np.asarray(v).dtype)
+            red = np.minimum if a.op == "min" else np.maximum
+            red.at(arr, gid_c[m], np.asarray(v)[m])
+            outs.append(arr)
+        else:
+            raise ValueError(a.op)
+    counts = np.bincount(gid_c[mask], minlength=S).astype(np.int64)
+    return tuple(outs), counts, spilled

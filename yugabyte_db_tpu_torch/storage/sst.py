@@ -36,6 +36,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..errors import NotPortedError
+from ..utils import flags
 from ..utils.hybrid_time import ENCODED_SIZE, DocHybridTime
 from . import native_lib, wire_pack
 from .columnar import SUPPORTED_FORMAT_VERSION, ColumnarBlock, fnv64_keys
@@ -209,15 +210,16 @@ class SstWriter:
     gathers with the IO) and, with ``sync_every_bytes``, fsyncs from
     the writer's thread as it goes; otherwise blocks are buffered and
     written by ``finish``.  ``shred_cols`` (the codec's JSON value
-    columns) must be empty: the reference's v2 writer shreds them,
-    which is not ported."""
+    columns) must be empty while ``doc_shred_enabled`` is on: the
+    reference's v2 writer shreds them then, which is not ported; with
+    the flag off both write the pre-shred bytes."""
 
     def __init__(self, path: str, block_rows: int = DEFAULT_BLOCK_ROWS,
                  columnar_builder: Optional[ColumnarBuilderFn] = None,
                  stream_columnar: bool = False,
                  sync_every_bytes: Optional[int] = None,
                  key_builder=None, shred_cols=None):
-        if shred_cols:
+        if shred_cols and flags.get("doc_shred_enabled"):
             raise NotPortedError(
                 f"an SST writer shredding JSON columns {list(shred_cols)}",
                 "ROADMAP.md queue 1 item 9 (document shredding)")

@@ -1,5 +1,5 @@
-"""Tablet: one shard of one table — its LSM store, codec, writes, reads
-and compaction.
+"""Tablet: one shard of one table — its LSM store, codec, writes, reads,
+compaction and vector indexes.
 
 Counterpart of ``yugabyte_db_tpu/tablet/tablet.py`` (reference:
 src/yb/tablet/tablet.h:151, tablet.cc:2303 HandlePgsqlReadRequest, :1938
@@ -11,13 +11,26 @@ backpressure past ``max_frozen_memtables``); ``flush``; ``read`` and
 ``bulk_load`` into columnar SSTs; ``compact`` (major, or the oldest run
 that ``pick_compaction`` picks) and the size accessors.  The flush
 thread writes files on the host and makes no CUDA call: a read that
-holds a device batch keeps its tensors alive by reference.  Colocation,
-``alter_table``, truncate, snapshots, the WAL, metrics and trace spans
-and vector indexes are not ported (ROADMAP.md queue 1 items 7 and 9)."""
+holds a device batch keeps its tensors alive by reference.
+
+Vector indexes (the reference's vector-LSM shape): a frozen ANN chunk
+from the index registry (the two-stage IVF on the tablet's device, or
+HNSW on the host) plus a delta of the writes applied since it was
+built, which ``apply_write`` maintains and ``vector_search`` merges by
+an exact search on the tablet's device; ``maybe_rebuild_vector_indexes``
+folds an outgrown delta back in.  Each build persists the chunk under
+``vecidx/<column id>/`` and ``bootstrap_vector_indexes`` loads it on
+restart and reconciles it with the store by a scan-diff.
+
+Colocation, ``alter_table``, truncate, snapshots, the WAL, metrics and
+trace spans are not ported (ROADMAP.md queue 1 item 9)."""
 from __future__ import annotations
 
 import logging
 import os
+import shutil
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from time import perf_counter as _perf_counter
 from typing import Dict, Optional
@@ -32,6 +45,7 @@ from ..docdb.operations import (DocReadOperation, DocWriteOperation,
 from ..docdb.table_codec import TableCodec, TableInfo
 from ..errors import NotPortedError
 from ..ops.device_batch import DeviceBlockCache
+from ..storage import wire_pack
 from ..storage.lsm import LsmStore
 from ..utils import flags
 from ..utils.hybrid_time import HybridClock, HybridTime
@@ -59,6 +73,34 @@ _FLUSH_POOL = ThreadPoolExecutor(max_workers=2,
 #: (``background_flushes``)
 FLUSH_APPLY_STATS = {"handoff_s": 0.0, "inline_s": 0.0, "handoffs": 0,
                      "inline_flushes": 0, "background_flushes": 0}
+
+
+class _VectorIndexState:
+    """One ANN index: a frozen chunk (any registry method) plus a
+    mutable delta, the vector-LSM shape (reference:
+    vector_index/vector_lsm.cc)."""
+
+    def __init__(self, col_name: str, method: str = "ivfflat",
+                 options: Optional[dict] = None):
+        self.col_name = col_name
+        self.method = method
+        self.options = dict(options or {})
+        self.idx = None               # frozen AnnIndex (or None)
+        self.pks: list = []           # row ids aligned with idx vectors
+        self.frozen_keys: set = set()  # pk_keys present in the chunk
+        self.frozen_pos: Dict[tuple, int] = {}   # pk_key -> index id
+        # pk_key -> (pk_row, vector_bytes, expire_at_wall or None)
+        self.delta: Dict[tuple, tuple] = {}
+        self.dead: set = set()        # frozen pk_keys hidden by del/upsert
+        # pk_keys any write touched while a bootstrap scan-diff is in
+        # flight (None otherwise): the merge must not overwrite them —
+        # a DELETE of a non-frozen key leaves no delta/dead trace, and
+        # the scan's pre-delete image would otherwise resurrect the row
+        self.touched: Optional[set] = None
+
+    @property
+    def nlists(self) -> int:
+        return int(self.options.get("lists", 100))
 
 
 class Tablet:
@@ -89,6 +131,10 @@ class Tablet:
         self._read_op = DocReadOperation(
             self.codec, self.regular, device_cache=_DEVICE_CACHE,
             device=self.device)
+        # vector ANN indexes: col_id -> _VectorIndexState
+        self.vector_indexes: Dict[int, _VectorIndexState] = {}
+        self._lock = threading.Lock()
+        self._vector_build_lock = threading.Lock()   # serializes rebuilds
 
     def _codec_for(self, table_id: str) -> TableCodec:
         return self.codecs.get(table_id, self.codec)
@@ -103,6 +149,7 @@ class Tablet:
         batch, n = DocWriteOperation(self._codec_for(req.table_id),
                                      req).apply(ht, op_id=op_id)
         self.regular.apply(batch)
+        self._maintain_vector_indexes(req)
         if self.regular.should_flush():
             self._flush_on_apply()
         return WriteResponse(rows_affected=n)
@@ -238,3 +285,320 @@ class Tablet:
 
     def num_sst_files(self) -> int:
         return len(self.regular.ssts)
+
+    # --- vector indexes (reference: vector_index/vector_lsm.cc,
+    # docdb/doc_vector_index.cc) -------------------------------------------
+    def _pk_names(self) -> tuple:
+        return tuple(c.name for c in self.info.schema.key_columns)
+
+    def _scan_vectors(self, col_name: str):
+        """(pk rows, [N, D] float32 vectors) of every live row at the
+        clock's now, through a WHERE-less row read; rows whose vector is
+        NULL are skipped."""
+        pk_names = self._pk_names()
+        resp = self._read_op.execute(ReadRequest(
+            self.info.table_id, columns=pk_names + (col_name,),
+            read_ht=self.clock.now().value))
+        pks, vecs = [], []
+        for r in resp.rows:
+            v = r.get(col_name)
+            if v is None:
+                continue
+            pks.append({n: r[n] for n in pk_names})
+            vecs.append(np.frombuffer(v, np.float32))
+        return pks, (np.stack(vecs) if vecs
+                     else np.zeros((0, 1), np.float32))
+
+    def build_vector_index(self, col_name: str, nlists: int = 100,
+                           method: str = "ivfflat",
+                           options: Optional[dict] = None) -> int:
+        """(Re)build the frozen ANN chunk through the index registry
+        (``method`` is the DDL's USING clause); returns the rows
+        indexed.  Safe against writes racing a rebuild: delta entries
+        recorded before the scan fold into the chunk and are dropped;
+        entries that arrive during the build carry over into the new
+        state."""
+        cid = self.info.schema.column_by_name(col_name).id
+        options = dict(options or {})
+        options.setdefault("lists", nlists)
+        with self._vector_build_lock:
+            return self._build_vector_index_locked(
+                cid, col_name, method, options)
+
+    def _build_ann(self, method: str, options: dict, vecs):
+        """Registry dispatch with the per-method option mapping (the
+        DDL's WITH options are method-namespaced, like pgvector's).  The
+        IVF alone takes the tablet's device: HNSW keeps its build
+        arguments as its persisted options."""
+        from ..vector import get_index_cls
+        cls = get_index_cls(method)
+        if method in ("ivfflat", "ivf"):
+            # build() itself clamps nlists to the row count
+            return cls.build(
+                vecs, nlists=int(options.get("lists", 100)),
+                iters=int(options.get("iters", 10)), device=self.device)
+        if method == "hnsw":
+            return cls.build(
+                vecs, m=int(options.get("m", 16)),
+                ef_construction=int(options.get("ef_construction", 100)),
+                ef_search=int(options.get("ef_search", 64)))
+        return cls.build(vecs, **options)
+
+    def _build_vector_index_locked(self, cid, col_name, method,
+                                   options) -> int:
+        old = self.vector_indexes.get(cid)
+        with self._lock:
+            pending = dict(old.delta) if old else {}
+            deadsnap = set(old.dead) if old else set()
+        pks, vecs = self._scan_vectors(col_name)
+        pk_names = self._pk_names()
+        state = _VectorIndexState(col_name, method, options)
+        if len(vecs):
+            state.idx = self._build_ann(method, options, vecs)
+            state.pks = pks
+            state.frozen_pos = {tuple(p[n_] for n_ in pk_names): i
+                                for i, p in enumerate(pks)}
+            state.frozen_keys = set(state.frozen_pos)
+        with self._lock:
+            if old is not None:
+                # identity check: keep only the entries written AFTER
+                # the snapshot (a key re-written during the build stays)
+                state.delta = {kk: v for kk, v in old.delta.items()
+                               if pending.get(kk) is not v}
+                state.dead = (old.dead - deadsnap) & state.frozen_keys
+                # rows rewritten DURING the build are in both places;
+                # the delta copy is newer, so the frozen one is hidden
+                state.dead |= set(state.delta) & state.frozen_keys
+            self.vector_indexes[cid] = state
+        self._persist_vector_index(cid, state)
+        return len(pks)
+
+    def _maintain_vector_indexes(self, req: WriteRequest) -> None:
+        """Incremental maintenance (reference: vector_lsm.cc's mutable
+        chunk): writes land in a delta merged at search time; once the
+        delta outgrows the frozen index, a rebuild folds it in."""
+        if not self.vector_indexes or req.table_id != self.info.table_id:
+            return
+        pk_names = self._pk_names()
+        with self._lock:
+            for state in self.vector_indexes.values():
+                for op in req.ops:
+                    try:
+                        pk_key = tuple(op.row[n] for n in pk_names)
+                    except KeyError:
+                        continue
+                    if state.touched is not None:
+                        state.touched.add(pk_key)
+                    if op.kind != "delete" and op.ttl_ms is None:
+                        # WAL-replay idempotence: a re-applied write whose
+                        # vector EQUALS the frozen copy (and that nothing
+                        # newer shadows) must not turn the frozen chunk
+                        # into delta churn on every restart
+                        i = state.frozen_pos.get(pk_key)
+                        v = op.row.get(state.col_name)
+                        if (i is not None and v is not None
+                                and pk_key not in state.dead
+                                and pk_key not in state.delta):
+                            fv = state.idx.vector_of(i)
+                            nv = np.frombuffer(bytes(v), np.float32)
+                            if (nv.shape == fv.shape
+                                    and np.array_equal(nv, fv)):
+                                continue
+                    state.delta.pop(pk_key, None)
+                    # dead hides FROZEN copies only; fresh inserts never
+                    # grow it (it bounds the search's over-fetch)
+                    if pk_key in state.frozen_keys:
+                        state.dead.add(pk_key)
+                    if op.kind != "delete":
+                        v = op.row.get(state.col_name)
+                        if v is None:
+                            continue
+                        # a TTL'd row expires on the wall clock
+                        expire = (None if op.ttl_ms is None else
+                                  time.time() + op.ttl_ms / 1000.0)
+                        state.delta[pk_key] = (
+                            {n: op.row[n] for n in pk_names}, bytes(v),
+                            expire)
+
+    def maybe_rebuild_vector_indexes(self) -> int:
+        """Fold an outgrown delta back into the frozen ANN index (the
+        background-compaction analog); returns the indexes rebuilt."""
+        n = 0
+        for state in list(self.vector_indexes.values()):
+            churn = len(state.delta) + len(state.dead)
+            if churn and churn >= max(64, len(state.pks) // 5):
+                self.build_vector_index(state.col_name, state.nlists,
+                                        state.method, state.options)
+                n += 1
+        return n
+
+    def _exact_hits(self, q: np.ndarray, pks: list, vecs: np.ndarray,
+                    k: int) -> list:
+        """(pk row, distance) of the k nearest of `vecs` by an exact
+        search on the tablet's device, moved to the host once."""
+        from ..ops.vector import exact_search
+        d, ids = exact_search(q, vecs, k=min(k, len(pks)),
+                              device=self.device)
+        d, ids = d[0].cpu().numpy(), ids[0].cpu().numpy()
+        return [(pks[int(i)], float(dist)) for dist, i in zip(d, ids)]
+
+    def vector_search(self, col_name: str, query, k: int = 10,
+                      nprobe: int = 8, ef_search=None):
+        """Top-k (pk row, distance) of this tablet: the frozen ANN index
+        (any registry method) and an exact search over the live delta on
+        the tablet's device, merged; with no index built, an exact
+        search over a fresh scan.  ``nprobe`` drives IVF probing,
+        ``ef_search`` the HNSW beam (the index's build-time option when
+        None)."""
+        cid = self.info.schema.column_by_name(col_name).id
+        pk_names = self._pk_names()
+        q = np.asarray(query, np.float32)[None, :]
+        state = self.vector_indexes.get(cid)
+        if state is None:
+            pks, vecs = self._scan_vectors(col_name)
+            if not pks:
+                return []
+            return self._exact_hits(q, pks, vecs, k)
+        with self._lock:
+            dead = set(state.dead)
+            now = time.time()
+            expired = [kk for kk, (_, _, exp) in state.delta.items()
+                       if exp is not None and exp <= now]
+            for kk in expired:
+                del state.delta[kk]
+            delta = list(state.delta.values())
+        hits = []
+        if state.idx is not None and state.pks:
+            idx, pks = state.idx, state.pks
+            # over-fetch so that dropping dead rows still fills k
+            k_ = min(k + len(dead), len(pks))
+            params = {"nprobe": nprobe,
+                      "ef_search": ef_search
+                      or state.options.get("ef_search")}
+            d, ids = idx.search(q, k=k_, **params)
+            for dist, i in zip(d[0], ids[0]):
+                if int(i) < 0 or not np.isfinite(float(dist)):
+                    continue          # top-k padding, not a real hit
+                pk = pks[int(i)]
+                if tuple(pk[n] for n in pk_names) not in dead:
+                    hits.append((pk, float(dist)))
+        if delta:
+            dvecs = np.stack([np.frombuffer(v, np.float32)
+                              for _, v, _ in delta])
+            hits += self._exact_hits(q, [p for p, _, _ in delta], dvecs, k)
+        hits.sort(key=lambda h: h[1])
+        return hits[:k]
+
+    # --- vector-index persistence: vecidx/<col_id>/ under the tablet
+    # directory (reference: vector_lsm.cc chunk files next to the tablet
+    # data), loaded and scan-diffed on bootstrap -----------------------------
+    def _vecidx_dir(self, cid: int) -> str:
+        return os.path.join(self.dir, "vecidx", str(cid))
+
+    def _persist_vector_index(self, cid: int,
+                              state: _VectorIndexState) -> None:
+        """Best-effort durable copy of the frozen chunk and its pk map:
+        the registry's files and ``tablet_meta.msgpack``.  A failure
+        degrades to a rebuild on bootstrap and never fails the build."""
+        try:
+            if state.idx is None:
+                shutil.rmtree(self._vecidx_dir(cid), ignore_errors=True)
+                return
+            path = self._vecidx_dir(cid)
+            state.idx.save(path)
+            tmp = os.path.join(path, ".tablet_meta.tmp")
+            with open(tmp, "wb") as f:
+                f.write(wire_pack.packb(
+                    {"col_name": state.col_name,
+                     "method": state.method,
+                     "options": state.options,
+                     "pks": state.pks}))
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, os.path.join(path, "tablet_meta.msgpack"))
+        except Exception:   # noqa: BLE001 — persistence is an optimization
+            log.exception("vector index persist failed for %s/%s",
+                          self.tablet_id, cid)
+
+    def bootstrap_vector_indexes(self) -> int:
+        """Load the persisted ANN indexes (IVF onto the tablet's device)
+        and reconcile each with the CURRENT store by a scan-diff: rows
+        written after the last save land in the delta, frozen rows that
+        vanished or changed are hidden.  The state installs BEFORE the
+        scan, so concurrent applies maintain it through the write path,
+        and the merge defers to every key they touched.  A torn payload
+        rebuilds with the recorded method and options; a directory with
+        no readable metadata is ignored.  Returns the indexes restored."""
+        from ..vector.registry import load_index
+        root = os.path.join(self.dir, "vecidx")
+        if not os.path.isdir(root):
+            return 0
+        pk_names = self._pk_names()
+        restored = 0
+        for ent in sorted(os.listdir(root)):
+            path = os.path.join(root, ent)
+            try:
+                with open(os.path.join(path, "tablet_meta.msgpack"),
+                          "rb") as f:
+                    tmeta = wire_pack.unpackb(f.read())
+                cid = self.info.schema.column_by_name(
+                    tmeta["col_name"]).id
+                if str(cid) != ent:
+                    continue        # the schema changed under the index
+            except Exception:   # noqa: BLE001 — no metadata: ignore dir
+                continue
+            idx = load_index(path, self.device)
+            # pks are positional: pks[i] owns index id i
+            pks = [dict(p) for p in tmeta.get("pks", [])]
+            if idx is None or idx.size != len(pks):
+                # torn payload: rebuild from the store with the recorded
+                # shape (the "rebuild" half of the contract)
+                self.build_vector_index(
+                    tmeta["col_name"],
+                    int(tmeta.get("options", {}).get("lists", 100)),
+                    tmeta.get("method", "ivfflat"),
+                    tmeta.get("options"))
+                restored += 1
+                continue
+            state = _VectorIndexState(tmeta["col_name"],
+                                      tmeta.get("method", "ivfflat"),
+                                      tmeta.get("options"))
+            state.idx = idx
+            state.pks = pks
+            state.frozen_pos = {tuple(p[n] for n in pk_names): i
+                                for i, p in enumerate(pks)}
+            state.frozen_keys = set(state.frozen_pos)
+            # install FIRST: concurrent applies maintain the delta from
+            # here on and record every key they touch, so the merge
+            # below defers to them
+            state.touched = set()
+            with self._lock:
+                self.vector_indexes[cid] = state
+            # scan-diff against the live store
+            cur_pks, cur_vecs = self._scan_vectors(state.col_name)
+            frozen = idx.vectors_in_id_order()
+            pos = state.frozen_pos
+            cur_keys = set()
+            diff = []
+            for j, pk in enumerate(cur_pks):
+                key = tuple(pk[n] for n in pk_names)
+                cur_keys.add(key)
+                i = pos.get(key)
+                if i is not None and np.array_equal(cur_vecs[j],
+                                                    frozen[i]):
+                    continue
+                diff.append((key, (pk, cur_vecs[j].tobytes(), None),
+                             i is not None))
+            with self._lock:
+                for key, entry, was_frozen in diff:
+                    if key in state.touched or key in state.delta \
+                            or key in state.dead:
+                        continue    # maintenance got there first
+                    state.delta[key] = entry
+                    if was_frozen:
+                        state.dead.add(key)
+                state.dead |= state.frozen_keys - cur_keys \
+                    - set(state.delta) - state.touched
+                state.touched = None
+            restored += 1
+        return restored

@@ -94,6 +94,13 @@ REGISTRY.define(
     "device (ops/grouped_scan.py); off, streamed dict-grouped scans "
     "decline (streaming_scan_aggregate returns None).")
 REGISTRY.define(
+    "grouped_spill_merge_enabled", True,
+    "Partial-spill merge for a dictionary GROUP BY past its slot budget: "
+    "slots below the spill slot keep their exact device partials, the "
+    "rows that landed in the spill slot re-aggregate on the interpreted "
+    "tail, and the two combine through combine_grouped_partials.  Off "
+    "reverts to the full interpreted GROUP BY.")
+REGISTRY.define(
     "compaction_chunk_rows", 524288,
     "Frontier capacity (rows) of the pipelined chunked compaction "
     "engine; rounded up to a power of two so every chunk of a bucket "
@@ -188,3 +195,9 @@ REGISTRY.define(
     "Backpressure bound for async flush: once this many frozen "
     "memtables await the background flush executor, the apply thread "
     "drains one inline instead of freezing another (bounded memory).")
+REGISTRY.define(
+    "doc_shred_enabled", True,
+    "Shred JSON document paths into derived columnar lanes at SST write "
+    "time (the reference's docstore/).  Shredding is not ported, so an "
+    "SST writer given JSON columns refuses while this is on; off, it "
+    "writes the reference's pre-shred bytes.")
