@@ -876,9 +876,10 @@ def compaction_profile(torch, card, run) -> dict:
 
 def compaction_phase(torch, np, data, card, root) -> None:
     """Phase 5: LSM compaction of a 100-SST SF1 lineitem tablet, device
-    backend on the card against the baseline backend on the host and a
-    numpy oracle; chunk_merge_kernel on a real frontier against its CPU
-    run."""
+    backend on the card against the native backend (the same chunked
+    engine with the host k-way merge per chunk) and the baseline backend
+    on the host and a numpy oracle; chunk_merge_kernel on a real
+    frontier against its CPU run."""
     import shutil
     from yugabyte_db_tpu_torch.docdb import compaction as comp
     from yugabyte_db_tpu_torch.models import tpch
@@ -956,9 +957,9 @@ def compaction_phase(torch, np, data, card, root) -> None:
     print("[phase 5] chunk_merge on the card equals its CPU run, with and "
           "without bound and carry")
 
-    # --- the two backends on copies of one store ---------------------------
+    # --- the three backends on copies of one store -------------------------
     results = {}
-    for backend in ("device", "baseline"):
+    for backend in ("device", "native", "baseline"):
         d = f"{root}/{backend}"
         shutil.copytree(src, d)
         store = LsmStore(d, key_builder=codec.derive_keys)
@@ -981,6 +982,10 @@ def compaction_phase(torch, np, data, card, root) -> None:
         if backend == "device":
             check(calls == st["chunks"] + st["m_growths"] and calls > 0,
                   f"device: {calls} merge calls over {st} ")
+        elif backend == "native":
+            check(calls == 0 and st.get("backend") == "native"
+                  and st["chunks"] > 0,
+                  f"native: {calls} device merge calls, stats {st}")
         else:
             check(calls == 0 and not st, "baseline ran the device merge")
         out = store.ssts[0]
@@ -995,24 +1000,29 @@ def compaction_phase(torch, np, data, card, root) -> None:
                 "stages_s": ({k: st[k] for k in (
                     "decode_wait_s", "dispatch_s", "merge_wait_s",
                     "gather_s", "write_wait_s")} if st else None)}
-        if backend == "device":
+        if backend != "baseline":
             for k in ("m_cap", "m_growths", "frontier_rows", "emitted_rows",
                       "fused_gather_calls", "gather_fallback_calls"):
                 line[k] = st[k]
         print(json.dumps(line))
         # the stage split times the fused host gather, never its numpy
         # twin
-        check(backend != "device" or st["gather_fallback_calls"] == 0,
-              f"device: {st.get('gather_fallback_calls')} gathers fell "
+        check(backend == "baseline" or st["gather_fallback_calls"] == 0,
+              f"{backend}: {st.get('gather_fallback_calls')} gathers fell "
               "back to numpy")
-    dev_rows, base_rows = results["device"][1], results["baseline"][1]
-    check(dev_rows.keys() == base_rows.keys(), "lane sets differ")
-    for k in dev_rows:
-        same = (dev_rows[k] == base_rows[k] if isinstance(dev_rows[k], list)
-                else np.array_equal(dev_rows[k], base_rows[k]))
-        check(same, f"device and baseline outputs differ in {k}")
-    same_bytes = (open(results["device"][0], "rb").read()
-                  == open(results["baseline"][0], "rb").read())
+    dev_rows = results["device"][1]
+    for other in ("native", "baseline"):
+        rows_o = results[other][1]
+        check(dev_rows.keys() == rows_o.keys(), f"lane sets differ "
+              f"(device, {other})")
+        for k in dev_rows:
+            same = (dev_rows[k] == rows_o[k]
+                    if isinstance(dev_rows[k], list)
+                    else np.array_equal(dev_rows[k], rows_o[k]))
+            check(same, f"device and {other} outputs differ in {k}")
+    dev_bytes = open(results["device"][0], "rb").read()
+    same_bytes = all(open(results[b][0], "rb").read() == dev_bytes
+                     for b in ("native", "baseline"))
 
     # --- both against the numpy oracle --------------------------------------
     rid = tpch.ROWID
@@ -1040,10 +1050,10 @@ def compaction_phase(torch, np, data, card, root) -> None:
         check(np.array_equal(got[f"fixed{col}"], want)
               and np.array_equal(got[f"null{col}"], o_tomb),
               f"oracle: column {name}")
-    print(f"[phase 5] compaction OK: device == baseline row for row "
-          f"(files {'byte-identical' if same_bytes else 'differ in bytes'})"
-          f", both == the numpy oracle ({len(o_rowid)} rows kept of "
-          f"{n_in})")
+    print(f"[phase 5] compaction OK: device == native == baseline row for "
+          f"row (files {'byte-identical' if same_bytes else 'differ in '
+          'bytes'}), all == the numpy oracle ({len(o_rowid)} rows kept "
+          f"of {n_in})")
 
     # --- a second device compaction of a fresh copy, under the profiler -----
     d = f"{root}/profiled"
@@ -2737,6 +2747,13 @@ HTAP_ITERS = 5                         # warm queries per htap timing window
 YCSB_ROWS = 1_000_000                  # BASELINE.json config 1's usertable
 YCSB_OPS = 50_000                      # operations per workload
 YCSB_TTL_UPSERTS = 100_000             # YCQL USING TTL upserts
+YCSB_E_REPACKED_OPS = 10_000          # the E pass over the repacked tablet
+MAINT_UPSERTS = 10_000                 # phase 11c: upserts after the ALTER
+MAINT_SAMPLE = 2_000                   # keys each maintenance check reads
+MAINT_FRESH = 5_000                    # rows written after the TRUNCATE
+COLO_ROWS = 100_000                    # the colocated usertable (cut: colocation
+#                                        is for many small tables)
+COLO_SMALL = 10_000                    # the colocated 2-column table
 YCSB_FLUSH_BYTES = 8 << 20             # memstore_flush_threshold_bytes (cut:
 #                                        the reference's default is 64 MiB)
 
@@ -2981,22 +2998,31 @@ def htap_phase(torch, np, hs, data, card, root, seed=0, device="cuda",
 
 def ycsb_job(seed: int, root: str, card: str, device: str = "cuda",
              rows: int = YCSB_ROWS, ops: int = YCSB_OPS,
-             ttl_upserts: int = YCSB_TTL_UPSERTS) -> None:
+             ttl_upserts: int = YCSB_TTL_UPSERTS,
+             maint: tuple = (MAINT_UPSERTS, MAINT_SAMPLE, MAINT_FRESH,
+                             YCSB_E_REPACKED_OPS),
+             colo: tuple = (COLO_ROWS, COLO_SMALL)) -> None:
     """Phase 11 (b), in a process of its own after (a): BASELINE.json
     config 1 — YCSB core workloads A, B, C (1 and 32 clients) and E on
     one usertable tablet of `rows` x 10 fields x 100 bytes, the flush on
-    the apply path at an 8 MiB memtable; every updated key reads back
-    its update; then `ttl_upserts` upserts with a row TTL (half expire
-    before the history cutoff), flush(), and Tablet.compact() through
-    _compact_rows with merge_gc_split on `device`, its output against
-    the CPU feed (the baseline backend on a copy) entry for entry.
-    Prints `point`, `flush_apply` and `row_compaction` lines and writes
-    its numbers to root/run.json."""
+    the apply path at an 8 MiB memtable, the point reads through the
+    host extension's whole-SST readers (route counters on each `point`
+    line), and C once more on the per-key path; every updated key reads
+    back its update; then `ttl_upserts` upserts with a row TTL (half
+    expire before the history cutoff), flush(), and Tablet.compact()
+    through _compact_rows with merge_gc_split on `device`, its output
+    against the CPU feed (the baseline backend on a copy) entry for
+    entry.  Then phase 11 (c), the maintenance steps on the same tablet
+    (maintenance_steps), and the colocated tablet (colocation_steps).
+    Prints `point`, `point_reader`, `flush_apply`, `row_compaction`,
+    `maintenance` and `colocation` lines and writes its numbers to
+    root/run.json."""
     import shutil
 
     import numpy as np
     import torch
     from yugabyte_db_tpu_torch.docdb import compaction as pcomp
+    from yugabyte_db_tpu_torch.docdb.hotpath import POINT_READ_STATS
     from yugabyte_db_tpu_torch.docdb.operations import RowOp, WriteRequest
     from yugabyte_db_tpu_torch.models import ycsb
     from yugabyte_db_tpu_torch.ops import compaction as pops
@@ -3020,16 +3046,60 @@ def ycsb_job(seed: int, root: str, card: str, device: str = "cuda",
     out["load_s"] = time.perf_counter() - t
     print(json.dumps({"ycsb_load": {"rows": rows, "s": out["load_s"],
                                     "card": card}}))
-    for wl, clients in (("a", 1), ("b", 1), ("c", 1), ("c", 32), ("e", 1)):
+    # the loaded SST's whole-SST reader, built before the runs time it
+    t = time.perf_counter()
+    tablet.multi_read("usertable", [{"ycsb_key": 0}])
+    out["reader_warm_s"] = time.perf_counter() - t
+    runs = [("a", 1, "native"), ("b", 1, "native"), ("c", 1, "native"),
+            ("c", 32, "native"), ("e", 1, "native"), ("c", 1, "per_key")]
+    for wl, clients, reader in runs:
         phys.advance_micros(1000)
-        r = work.run(wl, ops, clients=clients)
-        line = {"point": wl, "clients": clients, "ops": r.ops,
-                "ops_per_s": r.ops_per_sec,
+        mems = len(tablet.regular.read_snapshot()[0])
+        if reader == "per_key":
+            for r_ in tablet.regular.ssts:
+                r_._point_readers.clear()
+        before = dict(POINT_READ_STATS)
+        with flags.overridden("native_point_reader_max_rows",
+                              0 if reader == "per_key" else
+                              flags.get("native_point_reader_max_rows")):
+            r = work.run(wl, ops, clients=clients)
+        routes = {k: v - before[k] for k, v in POINT_READ_STATS.items()}
+        if reader == "per_key":
+            for r_ in tablet.regular.ssts:
+                r_._point_readers.clear()        # rebuilt on next use
+        line = {"point": wl, "clients": clients, "reader": reader,
+                "ops": r.ops, "ops_per_s": r.ops_per_sec,
                 "p50_us": float(np.percentile(r.lat_us, 50)),
                 "p99_us": float(np.percentile(r.lat_us, 99)),
-                "ssts": len(tablet.regular.ssts), "card": card}
+                "ssts": len(tablet.regular.ssts), "memtables": mems,
+                "routes": routes, "card": card}
         out["points"].append(line)
         print(json.dumps(line))
+        if reader == "per_key":
+            check(routes["find_many_keys"] == 0
+                  and routes["per_key_keys"] == r.ops,
+                  f"ycsb {wl} per-key run took another route: {routes}")
+        elif wl == "c":
+            # every key's SST part through find_many; the memtable guard
+            # merges unflushed updates (counted), nothing goes per key
+            check(routes["per_key_keys"] == 0
+                  and routes["find_many_keys"] == r.ops,
+                  f"ycsb {wl}/{clients}: not every read was served by "
+                  f"find_many: {routes}")
+        elif wl == "e":
+            # each scan's 11 keys through one range_read call, or through
+            # find_many where the snapshot holds more than one memtable
+            # (a frozen one waiting for its flush)
+            keys = routes["range_read_keys"] + routes["find_many_keys"]
+            check(routes["per_key_keys"] == 0 and keys > 0
+                  and keys % 11 == 0,
+                  f"ycsb e: scans not served by range_read / find_many: "
+                  f"{routes}")
+    out["point_reader"] = {k: POINT_READ_STATS[k] for k in (
+        "readers_built", "reader_build_s", "reader_rows",
+        "reader_heap_bytes", "readers_refused")}
+    out["point_reader"]["warm_s"] = out["reader_warm_s"]
+    print(json.dumps({"point_reader": out["point_reader"], "card": card}))
     steps: dict = {}            # host seconds of the checks between runs
     t_step = [time.perf_counter()]
 
@@ -3173,8 +3243,332 @@ def ycsb_job(seed: int, root: str, card: str, device: str = "cuda",
     out["row_compaction"] = line
     print(json.dumps(line))
     out["flush_apply"] = dict(ptablet.FLUSH_APPLY_STATS)
+    # --- phase 11 (c): maintenance on this tablet, then colocation --------
+    t = time.perf_counter()
+    dead = np.zeros(rows, bool)
+    dead[list(last)] = True           # every TTL'd key expires below
+    out["maintenance"] = maintenance_steps(
+        np, tablet, phys, work, dead, root, card, device, *maint)
+    out["maintenance_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["colocation"] = colocation_steps(np, root, card, device, seed,
+                                         *colo)
+    out["colocation_s"] = time.perf_counter() - t
     with open(os.path.join(root, "run.json"), "w") as f:
         json.dump(out, f)
+
+
+def _card_aggregate(np, tablet, alive, what: str, base: int = 0) -> dict:
+    """count(*), min and max of ycsb_key through Tablet.read: served on
+    the card (backend "tpu") and equal to numpy over the live keys
+    (`alive[i]`: key base + i is live)."""
+    from yugabyte_db_tpu_torch.docdb.operations import ReadRequest
+    from yugabyte_db_tpu_torch.ops.scan import AggSpec
+    t = time.perf_counter()
+    r = tablet.read(ReadRequest("usertable", aggregates=(
+        AggSpec("count"), AggSpec("min", ("col", 0)),
+        AggSpec("max", ("col", 0)))))
+    s = time.perf_counter() - t
+    got = [int(np.asarray(v).reshape(-1)[0]) for v in r.agg_values]
+    live = np.nonzero(alive)[0] + base
+    want = [len(live), int(live[0]), int(live[-1])]
+    check(r.backend == "tpu", f"{what}: the aggregate ran on "
+          f"{r.backend}, not the card")
+    check(got == want, f"{what}: count/min/max {got} != numpy {want}")
+    return {"agg": got, "agg_backend": r.backend, "agg_s": s}
+
+
+def _usertable_v2(history: bool):
+    """The usertable after ALTER TABLE ADD COLUMN field10 (nullable),
+    version 2; with `history`, version 1 as its schema history."""
+    from yugabyte_db_tpu_torch.docdb.table_codec import TableInfo
+    from yugabyte_db_tpu_torch.dockv import packed_row as pr
+    from yugabyte_db_tpu_torch.models import ycsb
+    info = ycsb.usertable_info()
+    cols = info.schema.columns + (
+        pr.ColumnSchema(11, "field10", pr.ColumnType.STRING),)
+    return TableInfo(info.table_id, info.name, pr.TableSchema(cols, 2),
+                     info.partition_schema,
+                     schema_history=(info.schema,) if history else ())
+
+
+def maintenance_steps(np, tablet, phys, work, dead, root, card, device,
+                      n_upserts, n_sample, n_fresh, e_ops) -> list:
+    """Phase 11 (c) on config 1's tablet after its row compaction, each
+    step timed and followed by a count/min/max aggregate on the card
+    against numpy: (0) the clock passes every TTL and Tablet.compact()
+    drops the expired rows (so every block has its columnar sidecar);
+    (1) ALTER TABLE adds a nullable field10, `n_upserts` upserts at
+    version 2, old rows read field10 None and new rows their value;
+    (2) Tablet.compact() repacks through RepackingCompactionFeed (every
+    block at version 2), then an E pass of `e_ops`; (3) create_snapshot
+    and restore_snapshot into a fresh card tablet, `n_sample` keys read
+    alike; (4) trim_above_ht on the restored tablet below step 1's
+    upserts: those keys read their earlier values; (5) TRUNCATE: the
+    sampled keys read None, `n_fresh` fresh rows read back."""
+    from yugabyte_db_tpu_torch.docdb.hotpath import POINT_READ_STATS
+    from yugabyte_db_tpu_torch.docdb.operations import RowOp, WriteRequest
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import flags
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridClock
+    rng = np.random.default_rng(7)
+    rows = len(dead)
+    lines = []
+
+    def done(step, t0, **kw):
+        line = {"maintenance": step, "s": time.perf_counter() - t0, **kw,
+                "card": card}
+        lines.append(line)
+        print(json.dumps(line))
+
+    updated_before = set(work.updated_keys)   # A/B/E's updates
+
+    def expect_old(k):
+        return "u" * 100 if k in updated_before else "x" * 100
+
+    # (0) every TTL expires and the compaction drops the TTL'd rows
+    t0 = time.perf_counter()
+    phys.advance_micros(
+        (10_000 + flags.get("history_retention_interval_sec") + 60)
+        * 1_000_000)
+    tablet.compact()
+    alive = ~dead
+    check(all(r.columnar_block(i) is not None for r in tablet.regular.ssts
+              for i in range(r.num_blocks())),
+          "maintenance: a block kept no columnar sidecar after the TTLs")
+    done("settle_ttl", t0, **_card_aggregate(np, tablet, alive, "settle"),
+         ssts=len(tablet.regular.ssts))
+    # (1) ALTER TABLE ADD COLUMN field10, upserts at version 2
+    t0 = time.perf_counter()
+    before_ht = tablet.clock.now().value
+    alive_before = alive.copy()
+    tablet.alter_table(_usertable_v2(history=False))
+    keys = np.sort(rng.choice(rows, n_upserts, replace=False))
+    for i in range(0, n_upserts, 100):
+        tablet.apply_write(WriteRequest("usertable", [RowOp("upsert", {
+            "ycsb_key": int(k), **{f"field{j}": f"m{int(k):09d}" + "m" * 90
+                                   for j in range(10)},
+            "field10": f"f{int(k)}"}) for k in keys[i:i + 100]]))
+    alive[keys] = True
+    new_s = keys[rng.choice(len(keys), n_sample // 2, replace=False)]
+    old_pool = np.nonzero(alive_before)[0]
+    old_s = np.setdiff1d(old_pool[rng.choice(len(old_pool), n_sample // 2,
+                                             replace=False)], keys)
+    got = tablet.multi_read("usertable",
+                            [{"ycsb_key": int(k)} for k in new_s])
+    check(all(g is not None and g["field10"] == f"f{int(k)}"
+              and g["field0"][:10] == f"m{int(k):09d}"
+              for k, g in zip(new_s, got)),
+          "maintenance: an upsert at version 2 did not read back")
+    got = tablet.multi_read("usertable",
+                            [{"ycsb_key": int(k)} for k in old_s])
+    check(all(g is not None and g["field10"] is None
+              and g["field0"] == expect_old(int(k))
+              for k, g in zip(old_s, got)),
+          "maintenance: a version-1 row read back wrong after the ALTER")
+    done("alter_add_column", t0, upserts=n_upserts,
+         **_card_aggregate(np, tablet, alive, "alter"))
+    # (2) the repacking compaction, then an E pass
+    t0 = time.perf_counter()
+    check(tablet.codec.info.packings.versions() == [1, 2],
+          "maintenance: the ALTER dropped the old packing")
+    tablet.compact()
+    versions = {r.columnar_block(i).schema_version
+                for r in tablet.regular.ssts for i in range(r.num_blocks())}
+    check(versions == {2}, f"maintenance: blocks at versions {versions} "
+          "after the repacking compaction")
+    repack_s = time.perf_counter() - t0
+    work.updated_keys = set()         # the keys this pass updates
+    before = dict(POINT_READ_STATS)
+    r = work.run("e", e_ops)
+    routes = {k: v - before[k] for k, v in POINT_READ_STATS.items()}
+    # compact() flushed: one memtable at most, so the scans take the
+    # fused range read
+    check(routes["range_read_calls"] > 0 and routes["per_key_keys"] == 0,
+          f"maintenance: the E pass was not served by range_read: {routes}")
+    alive[sorted(work.updated_keys)] = True
+    done("repack", t0, repack_s=repack_s, block_versions=sorted(versions),
+         e_routes=routes, e_ops=r.ops, e_ops_per_s=r.ops_per_sec,
+         e_p50_us=float(np.percentile(r.lat_us, 50)),
+         e_p99_us=float(np.percentile(r.lat_us, 99)),
+         **_card_aggregate(np, tablet, alive, "repack"))
+    # (3) snapshot, restore into a fresh card tablet
+    t0 = time.perf_counter()
+    snap = os.path.join(root, "snapshot")
+    tablet.create_snapshot(snap)
+    restored = Tablet.restore_snapshot(
+        "ycsb_restored", _usertable_v2(history=True), snap,
+        os.path.join(root, "restored"), clock=HybridClock(phys),
+        device=device)
+    sample = rng.choice(rows, n_sample, replace=False)
+    probe = [{"ycsb_key": int(k)} for k in sample]
+    now = tablet.clock.now().value
+    check(restored.multi_read("usertable", probe, read_ht=now)
+          == tablet.multi_read("usertable", probe, read_ht=now),
+          "maintenance: the restored tablet reads differently")
+    done("snapshot_restore", t0,
+         **_card_aggregate(np, restored, alive, "restore"))
+    # (4) trim the restored tablet below step 1's upserts
+    t0 = time.perf_counter()
+    dropped = restored.trim_above_ht(before_ht)
+    check(dropped >= n_upserts, f"maintenance: trim dropped {dropped}")
+    got = restored.multi_read("usertable",
+                              [{"ycsb_key": int(k)} for k in new_s])
+    check(all((g is None) if not alive_before[k] else
+              (g is not None and g["field10"] is None
+               and g["field0"] == expect_old(int(k)))
+              for k, g in zip(new_s, got)),
+          "maintenance: a trimmed key did not read its earlier value")
+    done("trim_above_ht", t0, dropped=dropped,
+         **_card_aggregate(np, restored, alive_before, "trim"))
+    # (5) TRUNCATE, then fresh rows
+    t0 = time.perf_counter()
+    removed = tablet.truncate_table("usertable")
+    check(all(g is None for g in tablet.multi_read("usertable", probe)),
+          "maintenance: a key survived the TRUNCATE")
+    fresh = np.arange(rows, rows + n_fresh)
+    for i in range(0, n_fresh, 500):
+        tablet.apply_write(WriteRequest("usertable", [RowOp("upsert", {
+            "ycsb_key": int(k), "field0": f"n{int(k)}"})
+            for k in fresh[i:i + 500]]))
+    tablet.flush()
+    got = tablet.multi_read("usertable", [{"ycsb_key": int(k)}
+                                          for k in fresh[::97]])
+    check(all(g is not None and g["field0"] == f"n{int(k)}"
+              for k, g in zip(fresh[::97], got)),
+          "maintenance: a write after the TRUNCATE did not read back")
+    done("truncate", t0, ssts_removed=removed, fresh_rows=n_fresh,
+         **_card_aggregate(np, tablet, np.ones(n_fresh, bool), "truncate",
+                           base=rows))
+    return lines
+
+
+def colocation_steps(np, root, card, device, seed, n_user, n_small) -> list:
+    """Phase 11 (c), colocation: one colocated card tablet holding the
+    usertable (cut to `n_user` rows: colocation is for many small
+    tables, and colocated SSTs carry no columnar sidecar, so reads take
+    the row path) and a 2-column table of `n_small` rows.  Point and
+    range reads on both; ALTER of the small table, then
+    Tablet.compact() through ColocatedRepackingFeed; TRUNCATE of the
+    small table with the usertable intact."""
+    from yugabyte_db_tpu_torch.docdb.operations import (ReadRequest, RowOp,
+                                                        WriteRequest)
+    from yugabyte_db_tpu_torch.docdb.table_codec import TableInfo
+    from yugabyte_db_tpu_torch.dockv import packed_row as pr
+    from yugabyte_db_tpu_torch.dockv.partition import PartitionSchema
+    from yugabyte_db_tpu_torch.models import ycsb
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils.hybrid_time import (HybridClock,
+                                                         MockPhysicalClock)
+    C, T = pr.ColumnSchema, pr.ColumnType
+    rng = np.random.default_rng(seed + 11)
+    lines = []
+
+    def done(step, t0, **kw):
+        line = {"colocation": step, "s": time.perf_counter() - t0, **kw,
+                "card": card}
+        lines.append(line)
+        print(json.dumps(line))
+
+    def small_info(version):
+        cols = (C(0, "id", T.INT64, is_hash_key=True), C(1, "val", T.INT64))
+        if version > 1:
+            cols += (C(2, "note", T.STRING),)
+        return TableInfo("small", "small", pr.TableSchema(cols, version),
+                         PartitionSchema("hash", 1), cotable_id=2)
+
+    t0 = time.perf_counter()
+    user = ycsb.usertable_info()
+    user = TableInfo(user.table_id, user.name, user.schema,
+                     user.partition_schema, cotable_id=1)
+    parent = TableInfo("parent", "parent", pr.TableSchema(
+        (C(0, "k", T.INT64, is_hash_key=True),), 1),
+        PartitionSchema("hash", 1))
+    phys = MockPhysicalClock(WRITE_BASE_US)
+    t = Tablet("colocated", parent, os.path.join(root, "colocated"),
+               clock=HybridClock(phys), colocated=True, device=device)
+    t.add_table(user)
+    t.add_table(small_info(1))
+    for i in range(0, n_user, 1000):
+        phys.advance_micros(10)
+        t.apply_write(WriteRequest("usertable", [RowOp("upsert", {
+            "ycsb_key": k, **{f"field{j}": f"{k:010d}" + "c" * 90
+                              for j in range(10)}})
+            for k in range(i, min(i + 1000, n_user))]))
+    for i in range(0, n_small, 1000):
+        t.apply_write(WriteRequest("small", [RowOp("upsert", {
+            "id": k, "val": 3 * k}) for k in range(i, min(i + 1000,
+                                                          n_small))]))
+    t.flush()
+    check(all(e.col_offset < 0 for r in t.regular.ssts for e in r.index),
+          "colocation: a colocated SST carries a columnar sidecar")
+    done("load", t0, usertable_rows=n_user, small_rows=n_small,
+         ssts=len(t.regular.ssts), tables=t.tables())
+
+    def reads(step):
+        t0 = time.perf_counter()
+        ks = rng.integers(0, n_user, 500)
+        got = t.multi_read("usertable", [{"ycsb_key": int(k)} for k in ks])
+        check(all(g is not None and g["field3"][:10] == f"{int(k):010d}"
+                  for k, g in zip(ks, got)),
+              f"colocation ({step}): a usertable point read is wrong")
+        lo = int(rng.integers(0, n_user - 20))
+        rng_rows = t.read(ReadRequest("usertable", columns=("ycsb_key",),
+                                      where=("between", ("col", 0),
+                                             ("const", lo),
+                                             ("const", lo + 10)))).rows
+        check(sorted(r["ycsb_key"] for r in rng_rows)
+              == list(range(lo, lo + 11)),
+              f"colocation ({step}): the usertable range read is wrong")
+        ks = rng.integers(0, n_small, 500)
+        got = t.multi_read("small", [{"id": int(k)} for k in ks])
+        small_ok = all(g is not None and g["val"] == 3 * int(k)
+                       for k, g in zip(ks, got))
+        lo = int(rng.integers(0, n_small - 20))
+        small_range = t.read(ReadRequest("small", where=(
+            "between", ("col", 0), ("const", lo), ("const", lo + 10)))).rows
+        return (time.perf_counter() - t0, small_ok,
+                sorted(r["id"] for r in small_range) == list(
+                    range(lo, lo + 11)))
+
+    s, small_ok, small_range_ok = reads("load")
+    check(small_ok and small_range_ok, "colocation: a small-table read "
+          "is wrong")
+    done("reads", time.perf_counter() - s)
+    t0 = time.perf_counter()
+    t.alter_table(small_info(2))
+    for i in range(0, 1000, 500):
+        t.apply_write(WriteRequest("small", [RowOp("upsert", {
+            "id": n_small + k, "val": k, "note": f"n{k}"})
+            for k in range(i, i + 500)]))
+    phys.advance_micros(10)
+    t.compact()
+    codec = t.codecs["small"]
+    prefix = codec.scan_prefix()
+    versions = set()
+    for k, v in t.regular.iterate(lower=prefix):
+        if not k.startswith(prefix):
+            break
+        versions.add(codec.info.packings.version_of(v, 1))
+    check(versions == {2}, f"colocation: the small table's rows are at "
+          f"versions {versions} after the repacking compaction")
+    got = t.multi_read("small", [{"id": 5}, {"id": n_small + 5}])
+    check(got[0]["note"] is None and got[1]["note"] == "n5",
+          "colocation: a row of the altered table read back wrong")
+    s, small_ok, small_range_ok = reads("alter")
+    check(small_ok and small_range_ok, "colocation: a small-table read "
+          "is wrong after the repacking compaction")
+    done("alter_and_repack", t0, ssts=len(t.regular.ssts))
+    t0 = time.perf_counter()
+    phys.advance_micros(10)
+    n = t.truncate_table("small")
+    check(n == n_small + 1000, f"colocation: TRUNCATE tombstoned {n} rows")
+    check(t.read(ReadRequest("small")).rows == [],
+          "colocation: the truncated table still has rows")
+    reads_after = reads("truncate")
+    check(not reads_after[1], "colocation: a small-table key survived")
+    done("truncate_one_table", t0, tombstoned=n)
+    return lines
 
 
 #: phase 12: BASELINE.json config 5 ("YSQL pgvector: ivfflat build +
@@ -3721,9 +4115,23 @@ def main(argv=None) -> int:
         t_phase[0] = now
 
     # --- phase 1: build --------------------------------------------------
+    # the point-read path's host extension (g++, Python's headers)
+    # builds beside the kernels' nvcc runs
+    from concurrent.futures import ThreadPoolExecutor
+
+    from yugabyte_db_tpu_torch.docdb import hotpath
+
+    def build_host_hot():
+        t = time.perf_counter()
+        hotpath.load()
+        return time.perf_counter() - t
     t0 = time.perf_counter()
-    hs.build_cuda_kernels(verbose=True)
-    print(f"[build] nvcc K1+K2+join_probe {time.perf_counter() - t0:.3f} s")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host_hot = pool.submit(build_host_hot)
+        hs.build_cuda_kernels(verbose=True)
+        host_hot_s = host_hot.result()
+    print(f"[build] nvcc K1+K2+join_probe {time.perf_counter() - t0:.3f} s; "
+          f"host_hot (g++) {host_hot_s:.3f} s, {hotpath.library_path()}")
     card = card_line()
     print(card)
     phase_time("1 build")
@@ -4114,7 +4522,16 @@ def main(argv=None) -> int:
             ycsb_proc.terminate()
         ycsb_proc.join(timeout=30)
         shutil.rmtree(ycsb_root, ignore_errors=True)
-    phase_time("11b ycsb")
+    # the process ran (b), then (c) maintenance, then the colocated
+    # tablet, one after the other: one phase_s line each
+    now = time.perf_counter()
+    maint_s, colo_s = ycsb_run["maintenance_s"], ycsb_run["colocation_s"]
+    for label, sec in (("11b ycsb", now - t_phase[0] - maint_s - colo_s),
+                       ("11c maintenance", maint_s),
+                       ("11d colocation", colo_s)):
+        print(json.dumps({"phase_s": label, "s": sec,
+                          "total_s": now - t_start}))
+    t_phase[0] = now
 
     # --- phase 12: the tablet's vector index, and the grouped spill tail --
     hand_before = dict(hs.LAUNCHES)

@@ -23,6 +23,11 @@ calls):
   dict_varlen     ColumnarBlock.deserialize of those blocks (ten
                   dictionary-coded fields each): the host library's
                   memcpy loop against its numpy twin
+  repack          the repacking compaction's repack of those rows after
+                  ALTER TABLE ADD COLUMN field10 (phase 11 (c)): one
+                  numpy pass per 4,096-entry block (docdb/compaction.py
+                  _repack_block, dockv/packed_row.py repack_values)
+                  against the per-row unpack + pack (_repack_entry)
 Host work only: it runs with or without a card.  Every line names the
 card (nvidia-smi) where there is one, and the host's core count.
 """
@@ -211,6 +216,27 @@ def main(argv=None) -> int:
     with patched(sst, "_shared_prefixes", sst._shared_prefixes_loop):
         loop_s, loop = timed(encode, args.reps)
     report("encode_block", f"{len(rows)} usertable entries in "
+           f"{ENCODE_BLOCK_ROWS}-entry blocks", fast_s, loop_s, fast == loop)
+    del fast, loop
+
+    # repack: the usertable at version 2 (field10 added, version 1 kept)
+    from yugabyte_db_tpu_torch.docdb import compaction
+    from yugabyte_db_tpu_torch.docdb.table_codec import TableInfo
+    from yugabyte_db_tpu_torch.dockv import packed_row
+    info = ycsb.usertable_info()
+    v2 = TableCodec(TableInfo(
+        info.table_id, info.name, packed_row.TableSchema(
+            info.schema.columns + (packed_row.ColumnSchema(
+                11, "field10", packed_row.ColumnType.STRING),), 2),
+        info.partition_schema, schema_history=(info.schema,)))
+    target = (v2, 2, packed_row.RowPacker(v2.info.packings.get(2)))
+    blocks_in = [rows[i:i + ENCODE_BLOCK_ROWS]
+                 for i in range(0, len(rows), ENCODE_BLOCK_ROWS)]
+    fast_s, fast = timed(lambda: [compaction._repack_block(
+        b, lambda k: target) for b in blocks_in], 1)
+    loop_s, loop = timed(lambda: [[compaction._repack_entry(*target, k, v)
+                                   for k, v in b] for b in blocks_in], 1)
+    report("repack", f"{len(rows)} usertable entries, version 1 to 2, in "
            f"{ENCODE_BLOCK_ROWS}-entry blocks", fast_s, loop_s, fast == loop)
     print(json.dumps({"host_paths_ok": ok, "card": card}))
     return 0 if ok else 1

@@ -355,7 +355,7 @@ def _cutoff(hts, where):
 
 
 @pytest.mark.parametrize("where", ["below", "middle", "above"])
-@pytest.mark.parametrize("backend", ["device", "baseline"])
+@pytest.mark.parametrize("backend", ["device", "native", "baseline"])
 @pytest.mark.parametrize("table", ["lineitem", "lineitem_str"])
 def test_engine_matches_reference_byte_for_byte(tmp_path, table, backend,
                                                 where):
@@ -367,12 +367,13 @@ def test_engine_matches_reference_byte_for_byte(tmp_path, table, backend,
                    {"compaction_chunk_rows": 1024}):
         jp = jcomp.tpu_compact(js, jc, cutoff, block_rows=700,
                                backend=backend)
-        if backend == "device":
+        if backend != "baseline":
             jstats = dict(jcomp.LAST_COMPACTION_STATS)
         pp = pcomp.tpu_compact(ps, pc, cutoff, block_rows=700,
                                backend=backend, device="cpu")
-    if backend == "device":
+    if backend != "baseline":
         st = pcomp.LAST_COMPACTION_STATS
+        assert st["backend"] == backend
         assert st["chunks"] >= 8
         for k in ("chunks", "frontier_rows", "emitted_rows", "kept_rows",
                   "m_cap", "m_growths", "output_bytes", "lanes"):
@@ -385,7 +386,7 @@ def test_engine_matches_reference_byte_for_byte(tmp_path, table, backend,
         open(os.path.join(ps.dir, "db.MANIFEST")).read()
 
 
-@pytest.mark.parametrize("backend", ["device", "baseline"])
+@pytest.mark.parametrize("backend", ["device", "native", "baseline"])
 def test_versions_straddling_chunks(tmp_path, backend):
     """Every SST rewrites the same 600 doc keys: each key's versions run
     across chunk boundaries, so the carry decides retention there (the
@@ -400,7 +401,7 @@ def test_versions_straddling_chunks(tmp_path, backend):
                                backend=backend)
         pp = pcomp.tpu_compact(ps, pc, cutoff, block_rows=256,
                                backend=backend, device="cpu")
-    if backend == "device":
+    if backend != "baseline":
         assert pcomp.LAST_COMPACTION_STATS["chunks"] > 4
     assert open(jp, "rb").read() == open(pp, "rb").read()
 
@@ -446,10 +447,18 @@ def _reason(excinfo):
 
 
 def test_refuses_native_backend(tmp_path):
-    (_, _), (ps, pc), hts = _equal_stores(tmp_path, "lineitem", n_ssts=2)
-    with pytest.raises(NotPortedError) as e:
-        pcomp.tpu_compact(ps, pc, hts[-1], backend="native", device="cpu")
-    assert "native" in _reason(e) and "item 9" in _reason(e)
+    """The native backend (the chunked engine, the host k-way merge per
+    chunk): the reference's native output byte for byte and the device
+    backend's; an unknown backend is refused."""
+    (js, jc), (ps, pc), hts = _equal_stores(tmp_path / "a", "lineitem",
+                                            n_ssts=2)
+    (_, _), (ps2, _), _ = _equal_stores(tmp_path / "b", "lineitem",
+                                        n_ssts=2)
+    jp = jcomp.tpu_compact(js, jc, hts[-1], backend="native")
+    pp = pcomp.tpu_compact(ps, pc, hts[-1], backend="native", device="cpu")
+    dp = pcomp.tpu_compact(ps2, pc, hts[-1], backend="device", device="cpu")
+    assert open(pp, "rb").read() == open(jp, "rb").read() == \
+        open(dp, "rb").read()
     with pytest.raises(ValueError):
         pcomp.tpu_compact(ps, pc, hts[-1], backend="tpu", device="cpu")
 

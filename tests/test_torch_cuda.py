@@ -14,7 +14,9 @@ same mesh on CPU slots, and the sharded exact search against
 exact_search; on a machine with several cards, the mesh with its slots
 spread over every card, and the bypass mesh combine with one card per
 shard; a small vector tablet (IVF and HNSW: build, writes, restart) and
-the grouped spill merge on the card against their CPU twins.
+the grouped spill merge on the card against their CPU twins; a usertable
+tablet after ALTER, the repacking compaction, a snapshot restore and
+TRUNCATE against the same tablet on the CPU.
 Every test here needs a GPU and skips without one; the file imports
 nothing of JAX, so it runs where JAX is not installed:
 
@@ -1117,3 +1119,92 @@ def test_cuda_spill_merge_matches_cpu(cuda_device, tmp_path, streamed):
         assert list(a) == list(b)
     for g, w in zip(got.agg_values, want.agg_values):
         assert np.asarray(g).tobytes() == np.asarray(w).tobytes()
+
+
+# --- the row half's maintenance and colocation on the card -----------------
+def _usertable_pair(tmp_path, cuda_device, n=20000):
+    """A usertable tablet on the card and one on the CPU, each bulk
+    loaded with the same `n` rows at one hybrid time."""
+    from yugabyte_db_tpu_torch.models import ycsb
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    out = []
+    for name, dev in (("card", cuda_device), ("cpu", "cpu")):
+        t = Tablet("u", ycsb.usertable_info(), str(tmp_path / name),
+                   device=dev)
+        t.bulk_load(ycsb.generate_rows(n), ht=HybridTime(1 << 40))
+        out.append(t)
+    return out
+
+
+def _altered_usertable(history=False):
+    """The usertable at version 2 with a nullable `field10` (and, with
+    `history`, version 1 as its ALTER history)."""
+    from yugabyte_db_tpu_torch.docdb.table_codec import TableInfo
+    from yugabyte_db_tpu_torch.dockv import packed_row as pr
+    from yugabyte_db_tpu_torch.models import ycsb
+    info = ycsb.usertable_info()
+    cols = info.schema.columns + (
+        pr.ColumnSchema(11, "field10", pr.ColumnType.STRING),)
+    return TableInfo(info.table_id, info.name, pr.TableSchema(cols, 2),
+                     info.partition_schema,
+                     schema_history=(info.schema,) if history else ())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["alter", "repack", "restore", "truncate"])
+def test_cuda_tablet_maintenance_matches_cpu(cuda_device, tmp_path, step):
+    """After ALTER, the repacking compaction, a snapshot restore and
+    TRUNCATE, the card's tablet answers the count/min/max aggregate,
+    point reads (the host extension's readers) and a BETWEEN range
+    exactly as the same tablet on the CPU."""
+    from yugabyte_db_tpu_torch.docdb.operations import (ReadRequest, RowOp,
+                                                        WriteRequest)
+    from yugabyte_db_tpu_torch.ops.scan import AggSpec
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    gpu, cpu = _usertable_pair(tmp_path, cuda_device)
+    tablets = [gpu, cpu]
+    for t in tablets:
+        t.alter_table(_altered_usertable())
+        ops = [RowOp("upsert", {"ycsb_key": 20000 + k,
+                                **{f"field{j}": f"n{k}" for j in range(11)}})
+               for k in range(500)]
+        t.apply_write(WriteRequest("usertable", ops),
+                      ht=HybridTime((1 << 40) + 4096))
+        if step != "alter":
+            t.flush()
+    if step == "repack":
+        for t in tablets:
+            t.compact()
+            assert len(t.regular.ssts) == 1
+    if step == "restore":
+        out = []
+        for i, t in enumerate(tablets):
+            t.create_snapshot(str(tmp_path / f"s{i}"))
+            out.append(Tablet.restore_snapshot(
+                "r", _altered_usertable(history=True),
+                str(tmp_path / f"s{i}"), str(tmp_path / f"r{i}"),
+                device=t.device))
+        tablets = out
+    if step == "truncate":
+        for t in tablets:
+            assert t.truncate_table("usertable") >= 1
+            t.apply_write(WriteRequest("usertable", [RowOp(
+                "upsert", {"ycsb_key": 7, "field10": "back"})]),
+                ht=HybridTime((1 << 40) + 8192))
+    read_ht = (1 << 40) + (1 << 20)
+    aggs = (AggSpec("count"), AggSpec("min", ("col", 0)),
+            AggSpec("max", ("col", 0)))
+    got, want = (t.read(ReadRequest("usertable", aggregates=aggs,
+                                    read_ht=read_ht)) for t in tablets)
+    assert got.backend == want.backend
+    assert [np.asarray(v).tolist() for v in got.agg_values] == \
+        [np.asarray(v).tolist() for v in want.agg_values]
+    keys = [{"ycsb_key": k} for k in (0, 7, 19999, 20003, 20499, 99999)]
+    assert tablets[0].multi_read("usertable", keys, read_ht=read_ht) == \
+        tablets[1].multi_read("usertable", keys, read_ht=read_ht)
+    between = ReadRequest("usertable", columns=("ycsb_key", "field10"),
+                          where=("between", ("col", 0), ("const", 19995),
+                                 ("const", 20005)), read_ht=read_ht)
+    assert tablets[0].read(between).rows == tablets[1].read(between).rows

@@ -228,6 +228,28 @@ def test_import_check_covers_the_mesh():
             "parallel/distributed_scan.py", "parallel/vector.py"} <= names
 
 
+def test_import_check_covers_the_row_half():
+    names = {str(p.relative_to(PORT)) for p in _port_sources()
+             if PORT in p.parents}
+    assert {"docdb/hotpath.py", "docdb/table_codec.py",
+            "docdb/operations.py", "docdb/compaction.py",
+            "dockv/packed_row.py", "storage/columnar.py", "storage/sst.py",
+            "storage/lsm.py", "tablet/tablet.py", "utils/flags.py",
+            "models/ycsb.py"} <= names
+    assert (PORT / "csrc" / "host_hot.c").is_file()
+
+
+def test_hot_path_loader_reads_only_the_port_csrc():
+    """The extension builds from the port's csrc/host_hot.c into build/;
+    the loader names no file of the reference's native/ directory."""
+    from yugabyte_db_tpu_torch.docdb import hotpath
+    assert hotpath._SRC == PORT / "csrc" / "host_hot.c"
+    assert hotpath.library_path().parent == REPO / "build" / "host_hot"
+    src = (PORT / "docdb" / "hotpath.py").read_text()
+    assert "ybtpu_hot" not in src and '"native"' not in src
+    assert "PyInit_host_hot" in (PORT / "csrc" / "host_hot.c").read_text()
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
@@ -283,6 +305,52 @@ def test_compaction_runs_without_jax_and_msgpack(tmp_path):
     # cutoff at the second load: the newest version <= the cutoff and
     # the one above it survive, the oldest goes
     assert int(out.stdout.strip()) == 2 * 3000
+
+
+def test_row_half_runs_without_jax_and_msgpack(tmp_path):
+    """A CPU usertable tablet through the host extension (point reads,
+    the fused range read), ALTER + the repacking compaction, a snapshot
+    restored, and TRUNCATE, in an interpreter where jax and msgpack
+    cannot be imported."""
+    code = (_BLOCKED +
+            "from yugabyte_db_tpu_torch.docdb.hotpath import "
+            "POINT_READ_STATS as S\n"
+            "from yugabyte_db_tpu_torch.docdb.operations import (\n"
+            "    ReadRequest, RowOp, WriteRequest)\n"
+            "from yugabyte_db_tpu_torch.dockv import packed_row as pr\n"
+            "from yugabyte_db_tpu_torch.models import ycsb\n"
+            "from yugabyte_db_tpu_torch.tablet import Tablet\n"
+            f"root = {str(tmp_path)!r}\n"
+            "info = ycsb.usertable_info()\n"
+            "t = Tablet('u', info, root + '/t', device='cpu')\n"
+            "t.bulk_load(ycsb.generate_rows(2000))\n"
+            "rows = t.multi_read('usertable', [{'ycsb_key': k}\n"
+            "                                  for k in range(10)])\n"
+            "assert all(r is not None for r in rows)\n"
+            "got = t.read(ReadRequest('usertable', columns=('ycsb_key',),\n"
+            "    where=('between', ('col', 0), ('const', 5),\n"
+            "           ('const', 15)))).rows\n"
+            "assert len(got) == 11 and S['range_read_calls'] == 1\n"
+            "cols = info.schema.columns + (pr.ColumnSchema(\n"
+            "    99, 'extra', pr.ColumnType.INT64),)\n"
+            "new = type(info)(info.table_id, info.name,\n"
+            "    pr.TableSchema(cols, 2), info.partition_schema)\n"
+            "t.alter_table(new)\n"
+            "t.apply_write(WriteRequest('usertable', [RowOp('upsert',\n"
+            "    {'ycsb_key': 1, 'extra': 5})]))\n"
+            "t.compact()\n"
+            "t.create_snapshot(root + '/s')\n"
+            "r = Tablet.restore_snapshot('r', new, root + '/s',\n"
+            "    root + '/r', device='cpu')\n"
+            "one = r.multi_read('usertable', [{'ycsb_key': 1}])[0]\n"
+            "assert one['extra'] == 5 and one['field0'] is None\n"
+            "assert r.truncate_table('usertable') == 1\n"
+            "assert r.multi_read('usertable', [{'ycsb_key': 2}]) == [None]\n"
+            "print(S['find_many_keys'], S['readers_built'])")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[0]) >= 10
 
 
 def test_join_read_runs_without_jax_and_msgpack(tmp_path):

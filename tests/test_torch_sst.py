@@ -388,7 +388,8 @@ def test_row_paths_and_encryption_are_refused(tmp_path):
     """Row KV blocks: both packages write one file from the same entries
     (a row region and a columnar sidecar per block), and read it alike —
     iterate, seek, point_find at several read points and the restart
-    window; the native point reader and encrypted files stay refused."""
+    window, the whole-SST point reader's answers; encrypted files stay
+    refused."""
     jb, pb, jc, pc = _blocks("lineitem")
     entries = pc.row_decoder(pb[0]) + pc.row_decoder(pb[1])
     assert entries == jc.row_decoder(jb[0]) + jc.row_decoder(jb[1])
@@ -420,9 +421,14 @@ def test_row_paths_and_encryption_are_refused(tmp_path):
             assert (got is None) == (want is None), (prefix, read_ht)
             if got is not None:
                 assert got[:4] == want[:4]
-    with pytest.raises(NotPortedError) as e:
-        r.point_reader(pc)
-    assert "item 9a" in str(e.value)
+    # the whole-SST point reader: the same answers as the reference's,
+    # key for key, at several read points and the restart window
+    prefixes = [k[:-13] for k, _ in entries[::41]] + [b"\x00", b"\xff"]
+    pr, jpr = r.point_reader(pc), jr.point_reader(jc)
+    assert pr is r.point_reader(pc)                   # cached per codec
+    for read_ht, hi in ((HT, -1), (HT - 1, -1), (HT - 1, HT)):
+        assert pr.find_many(prefixes, read_ht, hi) == \
+            jpr.find_many(prefixes, read_ht, hi)
     w = psst.SstWriter(str(tmp_path / "z.sst"))
     w.add(b"k", b"v")
     with pytest.raises(ValueError):

@@ -13,7 +13,6 @@ from yugabyte_db_tpu.models import tpch as jtpch
 from yugabyte_db_tpu.ops import stream_scan as jss
 from yugabyte_db_tpu_torch.device import DeviceUnavailable
 from yugabyte_db_tpu_torch.docdb import operations as pops
-from yugabyte_db_tpu_torch.errors import NotPortedError
 from yugabyte_db_tpu_torch.models import tpch
 from yugabyte_db_tpu_torch.ops import stream_scan as pss
 from yugabyte_db_tpu_torch.ops.expr import Expr
@@ -308,9 +307,9 @@ def test_device_defaults_to_cuda(tmp_path):
 
 
 def test_compact_backends(tmp_path, data):
-    """Tablet.compact: the host baseline with the offload flag off; the
-    native CPU backend of a CPU tablet is refused; the output equals
-    the reference's baseline output and reads alike."""
+    """Tablet.compact: the host baseline with the offload flag off, then
+    the native backend of a CPU tablet with it on; each output equals
+    the reference's and reads alike."""
     jt, pt = tablet_pair(str(tmp_path), "hash", data,
                          loads=((0, None), (500, None)))
     with _flags("float64"):          # a cached batch of the two SSTs
@@ -322,8 +321,10 @@ def test_compact_backends(tmp_path, data):
     assert open(jpath, "rb").read() == open(ppath, "rb").read()
     assert pt[0].num_sst_files() == 1
     assert pt[0].approximate_size() == jt[0].approximate_size()
-    with pytest.raises(NotPortedError, match="native"):
-        pt[0].compact()
+    from yugabyte_db_tpu_torch.docdb import compaction as pcomp
+    jpath, ppath = jt[0].compact(), pt[0].compact()
+    assert pcomp.LAST_COMPACTION_STATS["backend"] == "native"
+    assert open(jpath, "rb").read() == open(ppath, "rb").read()
     with _flags("float64"):
         presp, jresp = _read_both(jt[0], pt[0], tpch.TPCH_Q1.where,
                                   tpch.TPCH_Q1.aggs, tpch.TPCH_Q1.group)

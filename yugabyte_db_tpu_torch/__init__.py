@@ -24,7 +24,11 @@ baseline) with the SST tier it runs on; and the write path
 memtable, the flush on the apply path to row SSTs with columnar
 sidecars, point, prefix and enumerated reads, the interpreted row path
 and join, row-path compaction with the merge + GC on the card, and
-aggregates on the card over SST + memtable).
+aggregates on the card over SST + memtable); the point-read hot path in
+the host extension (``docdb.hotpath``, ``csrc/host_hot.c``: whole-SST
+point readers, the fused range read, the row extractor and packer);
+the native compaction backend; ALTER TABLE with the repacking
+compactions, TRUNCATE, snapshots and trim; colocated tablets.
 
 Device rule: every entry point takes ``device=`` and defaults to
 ``"cuda"``; asking for CUDA where there is none raises
@@ -50,9 +54,11 @@ Package layout:
               sidecars, bulk blocks and ingest, key derivation), write
               and read requests with DocWriteOperation and
               DocReadOperation (operations), compaction engines and the
-              CPU feed (compaction)
-  tablet/     Tablet: one shard's store, codec, writes, reads, flush and
-              compaction
+              CPU feeds (compaction), the host hot-path extension's
+              loader (hotpath, csrc/host_hot.c)
+  tablet/     Tablet: one shard's (or a colocated group's) stores,
+              codecs, writes, reads, flush, compaction, ALTER, TRUNCATE,
+              snapshots
   bypass/     snapshot pinner, SST-direct scan with the near-data
               prefilter, BypassSession
   models/     TPC-H lineitem generator and refresh functions, Q6/Q1 and

@@ -19,10 +19,19 @@ rocksdb/db/compaction_job.cc:665):
      their source blocks into output ColumnarBlocks that stream to the
      SST file while the next chunk merges.
 
+``backend="native"`` runs the same pipelined engine with the host
+library's k-way merge (csrc/host_native.cpp ``kway_merge``) per chunk
+in a merge worker, and the chunk's retention rule in numpy: the
+reference's route for a tablet without an accelerator.
 ``backend="baseline"`` is the reference's monolithic whole-input merge
 on the host (the host library's k-way merge, then the same vectorized
 retention rule): the CPU comparison point a compaction speedup is
 stated against.
+
+``RepackingCompactionFeed`` and ``ColocatedRepackingFeed`` are the CPU
+feed with schema repacking: a surviving row packed under an older
+schema version re-encodes with the latest packing (of its cotable's
+table, on a colocated tablet), as after an ALTER TABLE.
 
 Inputs outside the columnar engines — row blocks (a TTL'd value never
 gets a columnar sidecar), mixed key widths, blocks that turn ineligible
@@ -30,11 +39,10 @@ mid-stream — take the reference's row routes: ``_compact_rows`` for the
 device backend (every entry materialized, the whole-input merge + GC
 program ops/compaction.py ``merge_gc_split_kernel`` on the card, with
 the TTL-expiry retention term), the streaming CPU feed
-(``DocDbCompactionFeed`` through ``LsmStore.compact``) for the
-baseline, and the CPU feed for keys without the hybrid-time suffix.
-The reference's ``native`` backend raises ``NotPortedError`` (ROADMAP.md
-queue 1 item 9a).  Columnar inputs are TTL-free by construction, so the
-columnar engines need no TTL term."""
+(``DocDbCompactionFeed`` through ``LsmStore.compact``) for the native
+and baseline backends, and the CPU feed for keys without the
+hybrid-time suffix.  Columnar inputs are TTL-free by construction, so
+the columnar engines need no TTL term."""
 from __future__ import annotations
 
 import os
@@ -46,12 +54,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..device import DeviceLike, resolve_device
-from ..errors import NotPortedError
 from ..ops.compaction import (KeySuffixError, _pad_rows, check_ht_suffix,
                               kernel_cache_stats, keys_to_words,
                               merge_frontier, split_ht_suffix)
 from ..storage import native_lib
-from ..dockv.value import ValueKind, unwrap_ttl
+from ..dockv.packed_row import RowPacker, repack_values, unpack_row
+from ..dockv.value import ValueKind, unwrap_ttl, wrap_ttl
 from ..ops.compaction import compact_runs
 from ..storage.columnar import ColumnarBlock
 from ..storage.lsm import CompactionFeed, LsmStore
@@ -103,6 +111,115 @@ class DocDbCompactionFeed(CompactionFeed):
         return [(key, value)]
 
 
+class RepackingCompactionFeed(DocDbCompactionFeed):
+    """DocDbCompactionFeed + schema repacking: surviving packed rows in
+    old schema versions re-encode with the latest packing (reference:
+    PackedRowData repacking during compaction,
+    docdb_compaction_context.cc:142)."""
+
+    def __init__(self, history_cutoff: int, codec: TableCodec):
+        super().__init__(history_cutoff)
+        self.codec = codec
+        self._latest = codec.info.schema.version
+        self._packer = RowPacker(codec.info.packings.get(self._latest))
+
+    def feed(self, key: bytes, value: bytes):
+        out = super().feed(key, value)
+        if not out:
+            return out
+        k, v = out[0]
+        return [_repack_entry(self.codec, self._latest, self._packer,
+                              k, v)]
+
+    def feed_block(self, entries):
+        kept = []
+        for k, v in entries:
+            kept.extend(DocDbCompactionFeed.feed(self, k, v))
+        return _repack_block(kept, lambda k: (self.codec, self._latest,
+                                              self._packer))
+
+
+def _repack_block(entries, target):
+    """:func:`_repack_entry` over a block of GC survivors: rows packed
+    under an older version without a TTL envelope re-encode together,
+    one numpy pass per (table, version) (dockv/packed_row.py
+    ``repack_values``, byte for byte the per-row route); the rest, and
+    version pairs that pass refuses, go row by row.  `target(key)` gives
+    the key's (codec, latest version, packer), or None to keep it."""
+    out = list(entries)
+    groups: dict = {}
+    for i, (k, v) in enumerate(out):
+        ent = target(k)
+        if ent is None:
+            continue
+        codec, latest, packer = ent
+        if v and v[0] == ValueKind.kPackedRowV2:
+            ver = codec.info.packings.version_of(v, 1)
+            if ver != latest:
+                groups.setdefault((id(codec), ver), (ent, []))[1].append(i)
+        elif v and v[0] == ValueKind.kMergeFlags:
+            out[i] = _repack_entry(codec, latest, packer, k, v)
+    for ((_cid, ver), ((codec, latest, packer), idx)) in groups.items():
+        got = repack_values(codec.info.packings.get(ver),
+                            codec.info.packings.get(latest),
+                            [out[i][1] for i in idx])
+        for j, i in enumerate(idx):
+            k, v = out[i]
+            out[i] = (k, got[j]) if got is not None else \
+                _repack_entry(codec, latest, packer, k, v)
+    return out
+
+
+def _repack_entry(codec, latest: int, packer, k: bytes, v: bytes):
+    """Re-encode a surviving packed row with the latest packing, keeping
+    any TTL envelope (shared by the single-table and per-cotable
+    repacking feeds)."""
+    inner, expire = unwrap_ttl(v)
+    if inner and inner[0] == ValueKind.kPackedRowV2:
+        ver = codec.info.packings.version_of(inner, 1)
+        if ver != latest:
+            row = unpack_row(codec.info.packings.get(ver), inner, 1)
+            repacked = packer.pack_value(row)
+            v = (wrap_ttl(repacked, expire) if expire is not None
+                 else repacked)
+    return (k, v)
+
+
+class ColocatedRepackingFeed(DocDbCompactionFeed):
+    """GC + PER-COTABLE schema repacking for colocated tablets: one GC
+    pass over the merged stream, the repack packing chosen by the key's
+    cotable prefix (reference: the cotable-aware SchemaPackingProvider
+    in docdb_compaction_context.cc)."""
+
+    def __init__(self, history_cutoff: int, codecs):
+        super().__init__(history_cutoff)
+        self._by_prefix = {}
+        for codec in codecs:
+            prefix = codec.scan_prefix()
+            if not prefix:
+                continue            # the parent anchor has no cotable id
+            latest = codec.info.schema.version
+            self._by_prefix[prefix] = (
+                codec, latest,
+                RowPacker(codec.info.packings.get(latest)))
+
+    def feed(self, key: bytes, value: bytes):
+        out = super().feed(key, value)
+        if not out:
+            return out
+        k, v = out[0]
+        ent = self._by_prefix.get(k[:5])
+        if ent is None:
+            return out
+        return [_repack_entry(*ent, k, v)]
+
+    def feed_block(self, entries):
+        kept = []
+        for k, v in entries:
+            kept.extend(DocDbCompactionFeed.feed(self, k, v))
+        return _repack_block(kept, lambda k: self._by_prefix.get(k[:5]))
+
+
 def native_merge_gc(keys: np.ndarray, run_starts: np.ndarray,
                     ht: np.ndarray, tomb: np.ndarray, cutoff: int):
     """The baseline backend's whole-input merge + GC on the host
@@ -138,21 +255,19 @@ def tpu_compact(store: LsmStore, codec: TableCodec, history_cutoff: int,
     backend="device": the pipelined chunked engine, the merge on
     `device` (CUDA by default; raises without it — the CPU runs it only
     when the caller passes device="cpu").
+    backend="native": the same engine with the host library's k-way
+    merge per chunk (the reference's route for a tablet without an
+    accelerator; `device` is checked but not used).
     backend="baseline": the monolithic whole-input host merge.
 
     Returns the new SST path, or None when there was nothing to do.
     Inputs outside the columnar engines fall back as the reference's
     do: the device backend to ``_compact_rows`` (row blocks, mixed key
-    widths, a block the chunked engine refuses mid-stream), the baseline
-    to the streaming CPU feed, keys without the hybrid-time suffix to
-    the CPU feed.  backend="native" raises NotPortedError."""
+    widths, a block the chunked engine refuses mid-stream), the native
+    and baseline backends to the streaming CPU feed, keys without the
+    hybrid-time suffix to the CPU feed."""
     dev = resolve_device(device)
-    if backend == "native":
-        raise NotPortedError(
-            "tpu_compact(backend='native') (the chunked engine with the "
-            "host k-way merge per chunk)",
-            "ROADMAP.md queue 1 item 9a (native compaction backend)")
-    if backend not in ("device", "baseline"):
+    if backend not in ("device", "native", "baseline"):
         raise ValueError(f"unknown compaction backend {backend!r}")
     if inputs is None:
         inputs = store.ssts
@@ -160,9 +275,10 @@ def tpu_compact(store: LsmStore, codec: TableCodec, history_cutoff: int,
     if not inputs:
         return None
     try:
-        if backend == "device" and _chunked_eligible(inputs):
+        if backend in ("device", "native") and _chunked_eligible(inputs):
             path = _compact_columnar_chunked(
-                store, codec, inputs, history_cutoff, block_rows, dev)
+                store, codec, inputs, history_cutoff, block_rows, backend,
+                dev)
             if path is not None:
                 return path
         if backend == "baseline":
@@ -172,8 +288,9 @@ def tpu_compact(store: LsmStore, codec: TableCodec, history_cutoff: int,
                 return _compact_columnar(store, codec, col_sources, inputs,
                                          history_cutoff, block_rows,
                                          run_starts)
-            # non-columnar inputs on the host backend: the streaming GC
-            # feed, TTL expiry included
+        if backend in ("native", "baseline"):
+            # non-columnar inputs on a host backend: the streaming GC
+            # feed, TTL expiry included, and no device program
             return store.compact(inputs=inputs,
                                  feed=DocDbCompactionFeed(history_cutoff))
         return _compact_rows(store, codec, inputs, history_cutoff, dev)
@@ -366,11 +483,14 @@ class _ActiveBlock:
 
     __slots__ = ("cb", "keys", "dk_words", "vstarts", "heaps", "cursor")
 
-    def __init__(self, cb: ColumnarBlock):
+    def __init__(self, cb: ColumnarBlock, want_words: bool):
         self.cb = cb
         self.keys = cb.keys
         self.cursor = 0
-        self.dk_words = keys_to_words(cb.keys[:, :-_HT_SUFFIX])
+        # the device merge reads doc keys as u64 words; the host merge
+        # compares the key matrix itself
+        self.dk_words = (keys_to_words(cb.keys[:, :-_HT_SUFFIX])
+                         if want_words else None)
         # varlen per-row start offsets + heap as an indexable array
         self.vstarts = {}
         self.heaps = {}
@@ -389,7 +509,8 @@ class _ActiveBlock:
 
 
 def _decode_planned(reader: SstReader, idx: int, key_width: int,
-                    schema_version: Optional[int]) -> _ActiveBlock:
+                    schema_version: Optional[int],
+                    want_words: bool) -> _ActiveBlock:
     """Decode-ahead worker: deserialize one columnar block and validate
     the chunked engine's preconditions."""
     cb = reader.read_columnar(idx)
@@ -402,7 +523,7 @@ def _decode_planned(reader: SstReader, idx: int, key_width: int,
         raise _ChunkFallback(f"{reader.path}: block {idx} schema version "
                              f"{cb.schema_version} != {schema_version}")
     check_ht_suffix(cb.keys)        # raises KeySuffixError
-    return _ActiveBlock(cb)
+    return _ActiveBlock(cb, want_words)
 
 
 class _BlockCutter:
@@ -483,10 +604,9 @@ class _BlockCutter:
             self.write_wait_s += time.perf_counter() - t0
 
 
-# --- host twins of the chunk merge (the reference's native backend) --------
-# The reference's `native` backend (not ported: tpu_compact raises) merges
-# each frontier on the host with these helpers; the tests use them as the
-# host oracle of chunk_merge_kernel.
+# --- the host chunk merge (the native backend) -------------------------------
+# The native backend merges each frontier on the host with these helpers;
+# the tests also hold chunk_merge_kernel to them.
 def _g(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
     """Row gather `src[idx]` through the host library's GIL-free loop
     (numpy fancy indexing for inputs it does not take)."""
@@ -572,11 +692,70 @@ def _retention_keep(dup: np.ndarray, ht_s: np.ndarray, leq: np.ndarray,
                    | (first_leq & ~sorted_tomb_fn()))
 
 
+def _native_chunk_merge(keys_buf: np.ndarray, run_starts: np.ndarray,
+                        ht: np.ndarray, wid: np.ndarray, tomb: np.ndarray,
+                        bound_key: Optional[bytes],
+                        carry_key: Optional[bytes], carry_leq: bool,
+                        cutoff: int):
+    """The native backend's merge of one frontier: the host library's
+    k-way merge over the frontier's key matrix, then chunk_merge_kernel's
+    retention rule with the boundary carry, in numpy.
+
+    Returns (order, n_emit, keep, kept): `kept` pre-gathers the emitted
+    and kept rows' (keys, ht, wid, tomb), whose sorted copies already
+    live here, so the encode stage does not gather them again."""
+    rows, width = keys_buf.shape
+    vt = np.dtype((np.void, width))
+    v_all = np.ascontiguousarray(keys_buf).view(vt).reshape(-1)
+    order, dup = native_lib.kway_merge_fixed(keys_buf, run_starts)
+    n_emit = _emit_count(
+        [v_all[run_starts[si]:run_starts[si + 1]]
+         for si in range(len(run_starts) - 1)], bound_key, rows, vt)
+    ht_s = ht[order]
+    leq = ht_s <= np.uint64(cutoff)
+    dup = _flag_carry_dup(dup, v_all[order[0]].tobytes(), carry_key)
+    keep = _retention_keep(dup, ht_s, leq,
+                           lambda: _g(keys_buf, order),
+                           lambda: tomb[order],
+                           carry_key, carry_leq, cutoff)
+    ke = keep[:n_emit]
+    sel = np.ascontiguousarray(order[:n_emit][ke])
+    keys_o = np.empty((len(sel), width), np.uint8)
+    ht_o = np.empty(len(sel), ht.dtype)
+    wid_o = np.empty(len(sel), wid.dtype)
+    tomb_o = np.empty(len(sel), tomb.dtype)
+    native_lib.gather_columns([
+        (keys_buf, keys_o, sel, None), (ht, ht_o, sel, None),
+        (wid, wid_o, sel, None), (tomb, tomb_o, sel, None)])
+    return order, n_emit, keep, (keys_o, ht_o, wid_o, tomb_o)
+
+
+def _native_chunk_merge_segs(seg_views, run_starts: np.ndarray,
+                             bound_key: Optional[bytes],
+                             carry_key: Optional[bytes], carry_leq: bool,
+                             cutoff: int):
+    """Merge-worker entry of the native backend: concatenate the
+    frontier's block slices (each a sorted run) and merge them with
+    :func:`_native_chunk_merge`.  The merge call releases the GIL, so it
+    overlaps the pipeline's encode stage.  (The reference merges up to 8
+    runs in place with a segment merge and concatenates above that; the
+    merged order is the same either way.)"""
+    keys_b = np.concatenate([k for k, _h, _w, _t in seg_views])
+    ht_b = np.concatenate([h for _k, h, _w, _t in seg_views])
+    wid_b = np.concatenate([w for _k, _h, w, _t in seg_views])
+    tomb_b = np.concatenate([t for _k, _h, _w, t in seg_views])
+    return _native_chunk_merge(keys_b, run_starts, ht_b, wid_b, tomb_b,
+                               bound_key, carry_key, carry_leq, cutoff)
+
+
 def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
-                              cutoff: int, block_rows: int,
-                              device) -> str:
-    """The pipelined chunked compaction driver (see module docstring).
-    Returns the new SST path."""
+                              cutoff: int, block_rows: int, backend: str,
+                              device) -> Optional[str]:
+    """The pipelined chunked compaction engine (see module docstring),
+    merging each frontier on `device` (backend "device") or in a host
+    merge worker (backend "native").  Returns the new SST path, or None
+    when a streamed block turns out ineligible (the caller falls
+    back)."""
     # --- plan: all input blocks, globally ordered by first key ----------
     plan: List[list] = []           # [first_key, rank, reader, idx, future]
     for rank, r in enumerate(inputs):
@@ -585,11 +764,13 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
     plan.sort(key=lambda p: (p[0], p[1]))
     key_width = len(plan[0][0])
     dk_word_width = (key_width - _HT_SUFFIX + 7) // 8
+    native = backend == "native"
 
     m_target = int(flags.get("compaction_chunk_rows"))
     m_cap = _pad_rows(max(m_target, block_rows))   # shared pow2 buckets
 
-    stats = {"backend": "device", "device": str(device), "chunks": 0,
+    stats = {"backend": backend,
+             "device": "host" if native else str(device), "chunks": 0,
              "frontier_rows": 0, "emitted_rows": 0, "kept_rows": 0,
              "m_cap": m_cap, "m_growths": 0, "decode_wait_s": 0.0,
              "dispatch_s": 0.0, "merge_wait_s": 0.0, "gather_s": 0.0,
@@ -601,8 +782,9 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
     # pipeline width adapts to the machine: with 4+ cores the encode
     # stage gets its own worker (decode/merge/encode/write overlap); on
     # small hosts encode runs on the calling thread in the
-    # dispatch->resolve gap and decode-ahead uses one worker.  The merge
-    # stays on the calling thread and its current stream.
+    # dispatch->resolve gap and decode-ahead uses one worker.  The device
+    # merge stays on the calling thread and its current stream; the host
+    # merge runs in a worker of its own.
     path = store._new_sst_path()
     # incremental fsync from the write worker; key_builder lets the v2
     # writer drop derivable key matrices.  Made before any pool, so a
@@ -616,6 +798,7 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
     write_pool = ThreadPoolExecutor(max_workers=1)
     encode_pool = (ThreadPoolExecutor(max_workers=1)
                    if encode_async else None)          # stage 3, ordered
+    merge_pool = ThreadPoolExecutor(max_workers=1) if native else None
     cutter = _BlockCutter(w, write_pool, block_rows)
 
     active: List[_ActiveBlock] = []
@@ -623,7 +806,9 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
     prefetch_pos = 0
     prefetch_rows = 0               # decoded-ahead rows beyond plan_pos
     schema_version: Optional[int] = None
-    carry = None                    # (dk words, ht, wid, leq) of last emit
+    # the last emitted row: (dk words, ht, wid, leq) for the device
+    # merge, (full key, leq) for the host merge
+    carry = None
     col_spec = None                 # (sv, fixed_ids, pk_ids, varlen_ids)
 
     def top_up_prefetch():
@@ -634,7 +819,8 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
         while prefetch_pos < len(plan) and prefetch_rows < 8 * m_cap:
             p = plan[prefetch_pos]
             p[4] = decode_pool.submit(_decode_planned, p[2], p[3],
-                                      key_width, schema_version)
+                                      key_width, schema_version,
+                                      not native)
             prefetch_rows += p[2].index[p[3]].num_rows
             prefetch_pos += 1
 
@@ -643,7 +829,8 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
         p = plan[plan_pos]
         if p[4] is None:
             p[4] = decode_pool.submit(_decode_planned, p[2], p[3],
-                                      key_width, schema_version)
+                                      key_width, schema_version,
+                                      not native)
         t0 = time.perf_counter()
         ab = p[4].result()
         stats["decode_wait_s"] += time.perf_counter() - t0
@@ -725,6 +912,10 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
         for si, (_ab, lo, hi) in enumerate(segs):
             seg_starts[si + 1] = seg_starts[si] + (hi - lo)
         seg_lo = np.asarray([lo for _ab, lo, _hi in segs], np.int64)
+        if native:
+            # the merge worker assembles its buffers from the (immutable)
+            # block slices: only metadata is built on the critical path
+            return (segs, rows, seg_starts, seg_lo, bound, None)
         ht_b = np.zeros(m_cap_now, np.uint64)
         wid_b = np.zeros_like(ht_b, dtype=np.uint32)
         tomb_b = np.zeros_like(ht_b, dtype=bool)
@@ -742,7 +933,17 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
 
     def dispatch(fr):
         t0 = time.perf_counter()
-        _segs, _rows, _seg_starts, _seg_lo, bound, bufs = fr
+        segs, _rows, seg_starts, _seg_lo, bound, bufs = fr
+        if native:
+            ck, cl = carry if carry is not None else (None, False)
+            seg_views = [(ab.keys[lo:hi], ab.cb.ht[lo:hi],
+                          ab.cb.write_id[lo:hi], ab.cb.tombstone[lo:hi])
+                         for ab, lo, hi in segs]
+            handle = merge_pool.submit(
+                _native_chunk_merge_segs, seg_views, seg_starts, bound,
+                ck, cl, cutoff)
+            stats["dispatch_s"] += time.perf_counter() - t0
+            return handle
         dk_b, ht_b, wid_b, tomb_b, valid_b = bufs
         bound_split = None
         if bound is not None:
@@ -758,18 +959,23 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
     def resolve(handle):
         # the one place the merge's results come back to the host
         t0 = time.perf_counter()
-        order_t, emit_t, keep_t = handle
-        order = order_t.cpu().numpy().astype(np.int64)
-        emit = emit_t.cpu().numpy()
-        keep = keep_t.cpu().numpy()
-        n_emit = int(np.count_nonzero(emit))
+        if native:
+            order, n_emit, keep, kept_rows = handle.result()
+        else:
+            order_t, emit_t, keep_t = handle
+            order = order_t.cpu().numpy().astype(np.int64)
+            emit = emit_t.cpu().numpy()
+            keep = keep_t.cpu().numpy()
+            n_emit = int(np.count_nonzero(emit))
+            kept_rows = None
         stats["merge_wait_s"] += time.perf_counter() - t0
-        return order, n_emit, keep
+        return order, n_emit, keep, kept_rows
 
-    def gather_chunk(fr, order, n_emit, keep, seg_of):
+    def gather_chunk(fr, order, n_emit, keep, kept_rows, seg_of):
         """Stage 3 (encode worker): gather emitted+kept rows from their
         source blocks into one output piece, in merged order, and hand
-        it to the block cutter."""
+        it to the block cutter.  `kept_rows` (the host merge) carries
+        the key and MVCC lanes the merge worker already gathered."""
         t0 = time.perf_counter()
         segs, _rows, seg_starts, seg_lo, _bound, _bufs = fr
         ord_e = order[:n_emit]
@@ -783,10 +989,13 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
         piece = None
         if n_keep:
             key_hash = np.empty(n_keep, np.uint64)
-            ht_o = np.empty(n_keep, np.uint64)
-            wid_o = np.empty(n_keep, np.uint32)
-            tomb_o = np.empty(n_keep, bool)
-            keys_o = np.empty((n_keep, key_width), np.uint8)
+            if kept_rows is not None:
+                keys_o, ht_o, wid_o, tomb_o = kept_rows
+            else:
+                ht_o = np.empty(n_keep, np.uint64)
+                wid_o = np.empty(n_keep, np.uint32)
+                tomb_o = np.empty(n_keep, bool)
+                keys_o = np.empty((n_keep, key_width), np.uint8)
             pk_o = {}
             fixed_o = {}
             varlen_lens = {cid: np.zeros(n_keep, np.int64)
@@ -819,10 +1028,11 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
                 seg_dst.append(dst)
                 cb = ab.cb
                 jobs.append((cb.key_hash, key_hash, src, dst))
-                jobs.append((cb.ht, ht_o, src, dst))
-                jobs.append((cb.write_id, wid_o, src, dst))
-                jobs.append((cb.tombstone, tomb_o, src, dst))
-                jobs.append((ab.keys, keys_o, src, dst))
+                if kept_rows is None:
+                    jobs.append((cb.ht, ht_o, src, dst))
+                    jobs.append((cb.write_id, wid_o, src, dst))
+                    jobs.append((cb.tombstone, tomb_o, src, dst))
+                    jobs.append((ab.keys, keys_o, src, dst))
                 for cid in pk_ids:
                     jobs.append((cb.pk[cid], pk_o[cid], src, dst))
                 for cid in fixed_ids:
@@ -899,8 +1109,11 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
         ab = segs[si][0]
         li = last - int(seg_starts[si]) + int(seg_lo[si])
         ht_last = int(ab.cb.ht[li])
-        carry = (ab.dk_words[li].copy(), ht_last,
-                 int(ab.cb.write_id[li]), ht_last <= cutoff)
+        if native:
+            carry = (ab.key_at(li), ht_last <= cutoff)
+        else:
+            carry = (ab.dk_words[li].copy(), ht_last,
+                     int(ab.cb.write_id[li]), ht_last <= cutoff)
 
     enc_q: deque = deque()          # in-flight stage-3 gathers, FIFO
     try:
@@ -914,8 +1127,8 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
                 # device merging chunk i
                 gather_chunk(*prev)
                 prev = None
-            order, n_emit, keep = resolve(handle)
-            while n_emit == 0:
+            order, n_emit, keep, kept_rows = resolve(handle)
+            while n_emit == 0 and fr[4] is not None:
                 # pathological frontier: every pulled row sits at or
                 # above the bound. Double the budget (a new shape
                 # bucket) and retry — with no unpulled blocks left the
@@ -924,7 +1137,7 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
                 stats["m_growths"] += 1
                 stats["m_cap"] = m_cap
                 fr = fill_frontier(m_cap)
-                order, n_emit, keep = resolve(dispatch(fr))
+                order, n_emit, keep, kept_rows = resolve(dispatch(fr))
             stats["chunks"] += 1
             stats["frontier_rows"] += fr[1]
             stats["emitted_rows"] += n_emit
@@ -938,9 +1151,10 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
                 while len(enc_q) >= 2:  # backpressure: <= 2 in flight
                     enc_q.popleft().result()
                 enc_q.append(encode_pool.submit(
-                    gather_chunk, fr, order, n_emit, keep, seg_of_e))
+                    gather_chunk, fr, order, n_emit, keep, kept_rows,
+                    seg_of_e))
             else:
-                prev = (fr, order, n_emit, keep, seg_of_e)
+                prev = (fr, order, n_emit, keep, kept_rows, seg_of_e)
         if encode_async:
             while enc_q:
                 enc_q.popleft().result()
@@ -962,6 +1176,8 @@ def _compact_columnar_chunked(store, codec, inputs: Sequence[SstReader],
         if encode_pool is not None:
             encode_pool.shutdown(wait=True)
         write_pool.shutdown(wait=True)
+        if merge_pool is not None:
+            merge_pool.shutdown(wait=True)
         after = kernel_cache_stats()
         before = stats.pop("kernel_stats_before")
         stats["kernel_compiles"] = after["compiles"] - before["compiles"]

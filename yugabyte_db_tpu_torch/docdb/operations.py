@@ -10,9 +10,12 @@ src/yb/docdb/pgsql_operation.cc):
 - ``ReadRequest`` / ``ReadResponse`` with the reference's fields, and
   ``DocReadOperation`` with its restart loop (``execute``) and the
   reference's route order: point reads (``get_row``, ``multi_get``:
-  the newest visible version across the memtables and the SSTs' blooms
-  and blocks), prefix scans, joins, enumerated reads on a
-  single-integer hash key (batched point gets), the aggregate pushdown,
+  the newest visible version across the memtables and the SSTs, each SST
+  through the host extension's whole-SST ``PointReader``, the per-key
+  path where a reader or a block's columnar sidecar is missing), prefix
+  scans, joins, enumerated reads on a single-integer hash key (one
+  fused ``range_read`` call for a BETWEEN span, batched point gets for
+  the rest), the aggregate pushdown,
   the device filter route of row reads, and the interpreted row path
   (``_execute_cpu``: the MVCC walk over the merged store with
   skip-scan segments on range tables, ``eval_expr_py``, aggregates,
@@ -63,10 +66,11 @@ from ..ops.device_batch import build_batch
 from ..ops.grouped_scan import DictGroupSpec
 from ..ops.scan import (AggSpec, HashGroupSpec, ScanKernel, _np,
                         expand_aggregates, needed_probe_columns)
-from ..storage.columnar import ColumnarBlock, fnv64_bytes
+from ..storage.columnar import ColumnarBlock, fnv64_bytes, native_hot
 from ..storage.lsm import WriteBatch
 from ..utils import flags
 from ..utils.hybrid_time import ENCODED_SIZE, DocHybridTime, HybridTime
+from .hotpath import POINT_READ_STATS
 
 _DOC_ITEM = "queue 1 item 9b (document shredding)"
 _HT_SUFFIX = ENCODED_SIZE + 1
@@ -1091,29 +1095,77 @@ class DocReadOperation:
                 best = c
         return best
 
-    def _decode_best(self, best, read_ht: int, want=None):
+    def _decode_best(self, best, read_ht: int):
         """The row of a winning version (None for a tombstone or an
-        expired TTL); `want` limits a columnar winner's decode to those
-        columns (the caller projects onto them)."""
+        expired TTL)."""
         _, _, k, v, cb, pos = best
         if cb is not None:
             # columnar winner: direct single-row decode (no TTL wrapper
             # possible — TTL'd blocks never get a columnar sidecar)
-            return self.codec.decode_block_row(cb, pos, k, want)
+            return self.codec.decode_block_row(cb, pos, k)
         v, expire = unwrap_ttl(v)
         if expire is not None and expire <= read_ht:
             return None
         return self.codec.decode_row(k, v)
 
+    def _native_best(self, prefixes: List[bytes], ssts, read_ht: int,
+                     restart_hi, want_cols=None):
+        """Cross-SST merge of PointReader.find_many results: one call
+        into the extension per SST does bloom, bisect, MVCC walk and row
+        extraction for the whole key list.  Returns (best, slow): best[i]
+        is the winning (ht, wid, row dict | None for a tombstone), slow
+        the key indexes that need the per-key path (a block without a
+        columnar sidecar); None when an SST has no reader (over
+        ``native_point_reader_max_rows``)."""
+        readers = []
+        for r in ssts:
+            pr = r.point_reader(self.codec)
+            if pr is None:
+                return None
+            readers.append(pr)
+        n = len(prefixes)
+        best: List = [None] * n
+        slow: set = set()
+        rh = -1 if restart_hi is None else restart_hi
+        for pr in readers:
+            for i, got in enumerate(pr.find_many(prefixes, read_ht, rh,
+                                                 want_cols)):
+                if got is None:
+                    continue
+                if got is NotImplemented:
+                    slow.add(i)
+                    continue
+                if isinstance(got, int):
+                    raise ReadRestartError(got)
+                b = best[i]
+                if b is None or got[:2] > b[:2]:
+                    best[i] = got
+        POINT_READ_STATS["find_many_keys"] += n - len(slow)
+        return best, slow
+
     def get_row(self, pk_row: Dict[str, object], read_ht: int
                 ) -> Optional[Dict[str, object]]:
-        """Newest visible version across the memtables and SSTs, through
-        each SST's bloom filter and an in-block walk (reference:
-        DocDBTableReader point-get over BlockBasedTable::Get)."""
+        """Newest visible version across the memtables and SSTs
+        (reference: DocDBTableReader point-get over
+        BlockBasedTable::Get): the SSTs through the extension's
+        whole-SST readers, a non-empty memtable's candidate through a
+        seek merged against their winner; the per-key path where a
+        reader or a block's sidecar is missing."""
         prefix = self.codec.doc_key_prefix(pk_row)
         restart_hi = (read_ht + _skew_window_ht()
                       if self._allow_restart else None)
         mems, ssts = self.store.read_snapshot()
+        got = self._native_best([prefix], ssts, read_ht, restart_hi)
+        if got is not None:
+            best, slow = got
+            if not slow:
+                mb = self._mem_best(prefix, read_ht, restart_hi, mems)
+                nb = best[0]
+                if mb is not None and (nb is None or mb[:2] > nb[:2]):
+                    POINT_READ_STATS["memtable_keys"] += 1
+                    return self._decode_best(mb, read_ht)
+                return nb[2] if nb is not None else None
+        POINT_READ_STATS["per_key_keys"] += 1
         best = self._find_best(prefix, read_ht, restart_hi, mems, ssts)
         if best is None:
             return None
@@ -1125,19 +1177,131 @@ class DocReadOperation:
         """Batched point lookups: one snapshot, one restart window, one
         result list (reference analog: operation buffering in pggate,
         src/yb/yql/pggate/pg_operation_buffer.cc, and MultiGet-style
-        batched reads).  With `columns`, a row read from a columnar
-        block holds at least those columns (the caller projects)."""
+        batched reads).  The whole batch runs in ONE extension call per
+        SST (PointReader.find_many); only keys that touch a block
+        without a columnar sidecar or a non-empty memtable take the
+        per-key path.  With `columns`, the extension materializes only
+        those columns of its rows (memtable and per-key rows stay full:
+        the caller projects)."""
         restart_hi = (read_ht + _skew_window_ht()
                       if allow_restart else None)
-        mems, ssts = self.store.read_snapshot()
-        want = tuple(columns) if columns else None
-        out: List[Optional[Dict[str, object]]] = []
         prefix_of = self.codec.doc_key_prefix
-        for r in pk_rows:
-            f = self._find_best(prefix_of(r), read_ht, restart_hi, mems,
-                                ssts)
-            out.append(None if f is None
-                       else self._decode_best(f, read_ht, want))
+        prefixes = [prefix_of(r) for r in pk_rows]
+        want = tuple(columns) if columns else None
+        return self._multi_get_prefixes(prefixes, read_ht, restart_hi,
+                                        want)
+
+    def _multi_get_prefixes(self, prefixes: List[bytes], read_ht: int,
+                            restart_hi, want=None
+                            ) -> List[Optional[Dict[str, object]]]:
+        mems, ssts = self.store.read_snapshot()
+        n = len(prefixes)
+        got = self._native_best(prefixes, ssts, read_ht, restart_hi,
+                                want)
+        if got is None:
+            best: List = [None] * n
+            slow = set(range(n))
+        else:
+            best, slow = got
+        mem_active = [m for m in mems if not m.empty()]
+        # direct prefix-set membership beats a method call per (key,
+        # memtable) pair; a foreign-layout memtable disables the
+        # shortcut and probes unconditionally
+        mem_guarded = [m for m in mem_active if not m._foreign_layout]
+        probe_all = len(mem_guarded) != len(mem_active)
+        mem_sets = [m._row_prefixes for m in mem_guarded]
+        if len(mem_sets) == 1:
+            ms0 = mem_sets[0]        # the steady state: one memtable
+            mem_sets = None
+        else:
+            ms0 = None
+        POINT_READ_STATS["per_key_keys"] += len(slow)
+        out: List[Optional[Dict[str, object]]] = []
+        for i in range(n):
+            if i in slow:
+                f = self._find_best(prefixes[i], read_ht, restart_hi,
+                                    mems, ssts)
+                out.append(None if f is None
+                           else self._decode_best(f, read_ht))
+                continue
+            b = best[i]
+            if mem_active:
+                p = prefixes[i]
+                if probe_all or (p in ms0 if ms0 is not None
+                                 else any(p in ms for ms in mem_sets)):
+                    mb = self._mem_best(p, read_ht, restart_hi,
+                                        mem_active)
+                    POINT_READ_STATS["memtable_keys"] += 1
+                    if mb is not None and (b is None or mb[:2] > b[:2]):
+                        out.append(self._decode_best(mb, read_ht))
+                        continue
+            out.append(b[2] if b is not None else None)
+        return out
+
+    def _enumerated_multi_get(self, hot, spec, keys, read_ht: int,
+                              want) -> List[Optional[Dict[str, object]]]:
+        """Enumerated scans through the batched prefix MultiGet, each
+        single-int key encoded by the extension inline."""
+        restart_hi = (read_ht + _skew_window_ht()
+                      if self._allow_restart else None)
+        enc = hot.encode_doc_key
+        prefixes = [enc(spec, (int(k),)) for k in keys]
+        return self._multi_get_prefixes(prefixes, read_ht, restart_hi,
+                                        want)
+
+    def _range_read_fused(self, hot, spec, keys: range, read_ht: int,
+                          want) -> List[Optional[Dict[str, object]]]:
+        """A contiguous int-key MultiGet in ONE extension call
+        (``range_read``): key encode, each SST's bloom/bisect/MVCC walk,
+        the cross-SST merge and the memtable-guard probe all run below
+        the interpreter; only keys it flags (a memtable hit, a block
+        without a sidecar, a read restart) come back for per-key
+        handling.  The semantics of :meth:`_multi_get_prefixes`, which
+        serves a snapshot the fused read does not take (an SST without a
+        reader, more than one or a foreign-layout memtable)."""
+        restart_hi = (read_ht + _skew_window_ht()
+                      if self._allow_restart else None)
+        mems, ssts = self.store.read_snapshot()
+        readers = []
+        for r in ssts:
+            pr = r.point_reader(self.codec)
+            if pr is None:
+                return self._enumerated_multi_get(hot, spec, keys, read_ht,
+                                                  want)
+            readers.append(pr)
+        mem_active = [m for m in mems if not m.empty()]
+        if any(m._foreign_layout for m in mem_active) \
+                or len(mem_active) > 1:
+            return self._enumerated_multi_get(hot, spec, keys, read_ht,
+                                              want)
+        ms0 = mem_active[0]._row_prefixes if mem_active else None
+        rh = -1 if restart_hi is None else restart_hi
+        res = hot.range_read(spec, keys.start, keys.stop - 1,
+                             tuple(readers), read_ht, rh, want, ms0)
+        POINT_READ_STATS["range_read_calls"] += 1
+        POINT_READ_STATS["range_read_keys"] += len(res)
+        out: List[Optional[Dict[str, object]]] = []
+        for item in res:
+            if type(item) is not tuple:
+                out.append(item)       # the final row dict | None
+                continue
+            p, got = item
+            if got is NotImplemented:
+                POINT_READ_STATS["per_key_keys"] += 1
+                f = self._find_best(p, read_ht, restart_hi, mems, ssts)
+                out.append(None if f is None
+                           else self._decode_best(f, read_ht))
+                continue
+            if isinstance(got, int):
+                raise ReadRestartError(got)
+            # memtable-guard hit: merge the memtable's candidate against
+            # the SSTs' winner by (commit ht, write id)
+            POINT_READ_STATS["memtable_keys"] += 1
+            mb = self._mem_best(p, read_ht, restart_hi, mem_active)
+            if mb is not None and (got is None or mb[:2] > got[:2]):
+                out.append(self._decode_best(mb, read_ht))
+            else:
+                out.append(got[2] if got is not None else None)
         return out
 
     # ---- scans -----------------------------------------------------------
@@ -1258,15 +1422,25 @@ class DocReadOperation:
             return None
         name = kcs[0].name
         read_ht = req.read_ht if req.read_ht is not None else _MAX_HT
-        # residual predicates read their own columns: decode only the
-        # projection when the bounds consumed the whole WHERE
+        # residual predicates need their referenced columns too: project
+        # in the extension only when the bounds consumed the whole WHERE
         want = tuple(req.columns) if (req.columns and residual is None) \
             else None
-        rows = self.multi_get([{name: int(k)} for k in keys], read_ht,
-                              allow_restart=self._allow_restart,
-                              columns=want)
+        spec = self.codec._key_spec
+        if spec is not None and isinstance(keys, range) and keys \
+                and len(keys) < 1_000_000:
+            rows = self._range_read_fused(native_hot(), spec, keys,
+                                          read_ht, want)
+        elif spec is not None:
+            rows = self._enumerated_multi_get(native_hot(), spec, keys,
+                                              read_ht, want)
+        else:
+            rows = self.multi_get([{name: int(k)} for k in keys], read_ht,
+                                  allow_restart=self._allow_restart,
+                                  columns=want)
         by_id = {c.name: c.id for c in schema.columns}
         out = []
+        nwant = len(want) if want else -1
         for r in rows:
             if r is None:
                 continue
@@ -1274,7 +1448,10 @@ class DocReadOperation:
                 idrow = {by_id[n]: v for n, v in r.items()}
                 if eval_expr_py(residual, idrow) is not True:
                     continue
-            out.append(self._project(r, req.columns))
+            # rows the extension projected are final; memtable and
+            # per-key rows are whole and still need the cut
+            out.append(r if len(r) == nwant
+                       else self._project(r, req.columns))
             if req.limit is not None and len(out) >= req.limit:
                 break
         return ReadResponse(rows=out, backend="cpu")

@@ -11,11 +11,15 @@ SST flush (``columnar_builder``) and the ``row_decoder`` that rebuilds
 KV entries from columnar-only blocks; the vectorized bulk load
 (``bulk_blocks``/``bulk_blocks_iter`` and ``bulk_ingest``, the body of
 the reference's ``Tablet.bulk_load``) and ``derive_keys`` (the v2
-keyless-block contract, bound as the SST key builder).  Where the
+keyless-block contract, bound as the SST key builder).  Doc-key
+prefixes and single-row decodes run in the host extension
+(csrc/host_hot.c ``encode_doc_key`` and ``Extractor``) where the
+reference's do, with their Python versions beside them
+(``doc_key_prefix_plain``, ``decode_block_row_plain``).  Where the
 reference gathers through its native library the bulk load gathers
-with numpy, and where it encodes keys or extracts rows natively the
-port takes the reference's Python path; the bytes and rows are the
-same."""
+with numpy; the bytes and rows are the same.  A colocated table
+(``cotable_id``) prefixes its doc keys and bounds its scans with its
+cotable id."""
 from __future__ import annotations
 
 import itertools
@@ -34,7 +38,7 @@ from ..dockv.partition import PartitionSchema, hash_key_for
 from ..dockv.value import PrimitiveValue, ValueKind
 from ..storage import native_lib
 from ..storage.columnar import (DERIVED_COL_BASE, ColumnarBlock,
-                                fnv64_rows)
+                                fnv64_rows, native_hot)
 from ..storage.pipeline import StreamPipeline
 from ..utils.hybrid_time import ENCODED_SIZE, DocHybridTime, HybridTime
 
@@ -52,9 +56,15 @@ class TableInfo:
     partition_schema: PartitionSchema
     packings: SchemaPackingStorage = field(
         default_factory=SchemaPackingStorage)
-    cotable_id: Optional[int] = None
+    cotable_id: Optional[int] = None    # set for colocated tables
+    # prior schema versions (the ALTER history): rows packed under them
+    # keep decoding in a tablet opened, restored or cloned from disk
+    schema_history: Tuple[TableSchema, ...] = ()
 
     def __post_init__(self):
+        for old in self.schema_history:
+            if old.version not in self.packings.versions():
+                self.packings.add_schema(old)
         if self.schema.version not in self.packings.versions():
             self.packings.add_schema(self.schema)
 
@@ -73,6 +83,12 @@ _KEV_MAKER = {
 }
 
 
+#: pk column types the extension's encode_doc_key takes, by its kind code
+_KEY_KIND = {ColumnType.INT64: 0, ColumnType.INT32: 1,
+             ColumnType.FLOAT64: 2, ColumnType.STRING: 3,
+             ColumnType.TIMESTAMP: 4, ColumnType.BINARY: 5}
+
+
 _BULK_ENC = {
     ColumnType.INT32: bulk.encode_int32_column,
     ColumnType.INT64: bulk.encode_int64_column,
@@ -84,10 +100,6 @@ _BULK_ENC = {
 
 class TableCodec:
     def __init__(self, info: TableInfo):
-        if info.cotable_id is not None:
-            raise NotImplementedError(
-                "colocated tables are not ported (ROADMAP.md queue 1: "
-                "storage/LSM and SQL tier copies)")
         self.info = info
         self.schema = info.schema
         self.packer = RowPacker(info.packing)
@@ -105,6 +117,17 @@ class TableCodec:
         self.shred_cols = tuple(
             c.id for c in self.schema.value_columns
             if c.type == ColumnType.JSON)
+        # the extension's DocKey-prefix encoder spec: (cotable id or -1,
+        # hash column count, kind per pk column, desc flag per pk
+        # column); None for a pk with a type the encoder does not take
+        self._key_spec = None
+        if all(c.type in _KEY_KIND for c in self._pk_cols):
+            ps = info.partition_schema
+            self._key_spec = (
+                -1 if info.cotable_id is None else info.cotable_id,
+                ps.num_hash_columns if ps.kind == "hash" else 0,
+                bytes(_KEY_KIND[c.type] for c in self._pk_cols),
+                bytes(1 if c.sort_desc else 0 for c in self._pk_cols))
 
     # --- scalar paths -----------------------------------------------------
     def pk_entries(self, row: Dict[str, object]) -> List[KeyEntryValue]:
@@ -145,7 +168,22 @@ class TableCodec:
         return key, PrimitiveValue.tombstone().encode()
 
     def doc_key_prefix(self, pk_row: Dict[str, object]) -> bytes:
-        """The encoded DocKey (no hybrid time) of a row's primary key."""
+        """The encoded DocKey (no hybrid time) of a row's primary key,
+        through the extension's ``encode_doc_key``.  A pk shape without
+        a key spec, and a value the encoder does not take (a NULL range
+        component, a value of another type), take the Python encoder,
+        which encodes it or raises: the reference's route by input."""
+        if self._key_spec is not None:
+            try:
+                return native_hot().encode_doc_key(
+                    self._key_spec,
+                    tuple(pk_row[c.name] for c in self._pk_cols))
+            except (TypeError, OverflowError, ValueError):
+                pass
+        return self.doc_key_prefix_plain(pk_row)
+
+    def doc_key_prefix_plain(self, pk_row: Dict[str, object]) -> bytes:
+        """:meth:`doc_key_prefix` through the Python key encoder."""
         return self.doc_key(pk_row).encode()
 
     def scan_prefix(self) -> bytes:
@@ -208,13 +246,84 @@ class TableCodec:
                 out[c.name] = None   # column added after this row's version
         return out
 
+    _DTYPE_CHAR = {("i", 8): "q", ("i", 4): "i", ("i", 2): "h",
+                   ("i", 1): "b", ("u", 8): "Q", ("u", 4): "I",
+                   ("f", 8): "d", ("f", 4): "f", ("b", 1): "?"}
+
+    def _native_extractor(self, cb: ColumnarBlock):
+        """The extension's row Extractor for this codec over block `cb`
+        (csrc/host_hot.c; reference: dockv/pg_row.cc runs this loop in
+        C++ too), built once and cached on the block by codec object (an
+        ALTER makes a new codec).  None when the block's shape keeps the
+        Python decode: a pk column without its lane, or a lane dtype the
+        extractor has no code for (a BOOL column stored as uint8)."""
+        cache = getattr(cb, "_extractors", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(cb, "_extractors", cache)
+        ext = cache.get(self, False)
+        if ext is not False:
+            return ext
+        plan = self._extractor_plan(cb)
+        ext = None if plan is None else native_hot().Extractor(plan, cb.n)
+        cache[self] = ext
+        return ext
+
+    def _extractor_plan(self, cb: ColumnarBlock):
+        """The Extractor's column plan over `cb` (the reference's), or
+        None when the block's shape keeps the Python decode."""
+        if not all(cid in cb.pk for cid in self._pk_ids):
+            return None
+        plan = []
+        for c in self._pk_cols:
+            arr = np.ascontiguousarray(cb.pk[c.id])
+            ch = self._DTYPE_CHAR.get((arr.dtype.kind, arr.dtype.itemsize))
+            if ch is None:
+                return None
+            plan.append((c.name, 3, ch, arr, None, None))
+        for name, cid, _is_bool, is_str in self._val_plan:
+            f = cb.fixed.get(cid)
+            if f is not None:
+                vals = np.ascontiguousarray(f[0])
+                nulls = np.ascontiguousarray(f[1])
+                ch = self._DTYPE_CHAR.get((vals.dtype.kind,
+                                           vals.dtype.itemsize))
+                if ch is None:
+                    return None
+                plan.append((name, 0, ch, vals, nulls, None))
+                continue
+            vl = cb.varlen.get(cid)
+            if vl is not None:
+                ends = np.ascontiguousarray(
+                    vl[0].astype(np.uint32, copy=False))
+                nulls = np.ascontiguousarray(vl[2])
+                plan.append((name, 1 if is_str else 2, "q", ends, nulls,
+                             vl[1]))
+            else:
+                plan.append((name, 4, "q", None, None, None))
+        return plan
+
     def decode_block_row(self, cb: ColumnarBlock, pos: int, key: bytes,
                          want=None) -> Optional[Dict[str, object]]:
         """Single-row decode straight from a columnar block's arrays:
         exactly what decode_row() yields for the same row, without the
         pack/unpack round trip (the point-read path; reference analog:
         PgTableRow materialization from a packed row, dockv/pg_row.cc).
-        `want` (column names) limits the value columns decoded."""
+        The whole row comes from the extension's Extractor where the
+        block's shape takes one; `want` (column names) limits the value
+        columns decoded, in Python (:meth:`decode_block_row_plain`)."""
+        if cb.tombstone[pos]:
+            return None
+        if want is None:
+            ext = self._native_extractor(cb)
+            if ext is not None:
+                return ext.extract(pos)
+        return self.decode_block_row_plain(cb, pos, key, want)
+
+    def decode_block_row_plain(self, cb: ColumnarBlock, pos: int,
+                               key: bytes, want=None
+                               ) -> Optional[Dict[str, object]]:
+        """:meth:`decode_block_row` in Python."""
         if cb.tombstone[pos]:
             return None
         out: Dict[str, object] = {}
@@ -369,7 +478,7 @@ class TableCodec:
                 unique_keys=uniq)
             # keys were built by the very pipeline derive_keys replays,
             # so derivability is proven without a write-time verify
-            blk.keys_proven = True
+            blk.keys_proven = self.info.cotable_id is None
             yield blk
 
     def bulk_ingest(self, store, columns: Dict[str, np.ndarray],
@@ -653,7 +762,9 @@ class TableCodec:
         readers call the same function (bound as the SST key_builder) to
         rebuild it lazily, so write-time verification proves read-time
         exactness.  None when the pk shape is underivable (unsupported
-        component types, missing pk arrays)."""
+        component types, missing pk arrays, cotable prefixes)."""
+        if self.info.cotable_id is not None:
+            return None
         ps = self.info.partition_schema
         pk_blocks = []
         for c in self._pk_cols:

@@ -16,8 +16,10 @@ formats, byte for byte the reference's:
 Headers are MessagePack, written by the port's own codec
 (storage/wire_pack.py).  Derived scan-lifetime lanes (column ids at or
 above ``DERIVED_COL_BASE``) and shredded document lanes refuse to
-serialize with ``NotPortedError``; the native point-read extension
-(``native_hot``) is not ported."""
+serialize with ``NotPortedError``.  ``native_hot`` is the shared
+accessor of the host hot-path extension (docdb/hotpath.py), which hashes
+single keys (``fnv64_bytes``) and caches its per-block point-read
+helpers on the block (``_finder``, ``_extractors``)."""
 from __future__ import annotations
 
 import struct
@@ -45,7 +47,7 @@ KEY_REBUILD_STATS = {"rebuilds": 0, "rows": 0}
 _HASH_MULT = np.uint64(0x100000001B3)
 _HASH_OFF = np.uint64(0xCBF29CE484222325)
 
-_SHRED_ITEM = "ROADMAP.md queue 1 item 9 (document shredding)"
+_SHRED_ITEM = "ROADMAP.md queue 1 item 9b (document shredding)"
 
 
 def fnv64_rows(mat: np.ndarray) -> np.ndarray:
@@ -57,7 +59,28 @@ def fnv64_rows(mat: np.ndarray) -> np.ndarray:
     return h
 
 
+def native_hot():
+    """The host hot-path extension (docdb/hotpath.py ``host_hot``), the
+    one shared memo the storage modules call.  Imported at call time:
+    the storage layer sits below docdb.  A failed build raises."""
+    global _HOT
+    if _HOT is None:
+        from ..docdb.hotpath import load as _load_hot
+        _HOT = _load_hot()
+    return _HOT
+
+
+_HOT = None
+
+
 def fnv64_bytes(data: bytes) -> int:
+    """FNV-1a 64-bit of one key (the doc-key hash blooms probe), in the
+    extension; :func:`fnv64_bytes_plain` is its Python version."""
+    return native_hot().fnv64(data)
+
+
+def fnv64_bytes_plain(data: bytes) -> int:
+    """:func:`fnv64_bytes` one byte at a time in Python."""
     h = 0xCBF29CE484222325
     for b in data:
         h = ((h ^ b) * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
@@ -115,7 +138,11 @@ class ColumnarBlock:
                  "tombstone", "pk", "fixed", "varlen", "unique_keys",
                  "zmap", "keys_proven", "_keys", "_key_thunk",
                  "_first_key", "_last_key", "_void_keys", "_vdicts",
-                 "_vdict_cache")
+                 "_vdict_cache",
+                 # native point-read caches (storage/sst.py
+                 # _native_finder, TableCodec._native_extractor), set
+                 # with object.__setattr__; weakly referenceable
+                 "_finder", "_extractors", "__weakref__")
 
     def __init__(self, n: int, schema_version: int,
                  key_hash: np.ndarray, ht: np.ndarray,

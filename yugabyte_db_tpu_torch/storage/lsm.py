@@ -12,8 +12,9 @@ oldest-first.  Reads merge the memtables and SSTs newest-first.  The
 out-of-band reader leases (``SstLease``, ``pin_ssts``) let the bypass
 reader scan a tablet's files while a compaction replaces them.  The
 manifest is the reference's JSON, so either package opens a directory
-the other wrote.  Truncate and checkpoints are not ported (ROADMAP.md
-queue 1 item 9a)."""
+the other wrote.  ``truncate`` drops the whole store at once, and
+``checkpoint`` hard-links the live SSTs beside a copy of the manifest
+(a snapshot's image, which ``open_checkpoint`` opens)."""
 from __future__ import annotations
 
 import json
@@ -354,6 +355,31 @@ class LsmStore:
             elif not wait:
                 return last     # a foreign flush owns the IO lock
 
+    def truncate(self, op_id=None) -> int:
+        """Drop EVERYTHING: memtables, frozen memtables and SST files
+        (reference: tablet truncate, src/yb/tablet/tablet.cc Truncate,
+        which replaces the RocksDB instances wholesale rather than
+        writing tombstones).  The manifest persists the empty state
+        atomically, so a crash right after cannot resurrect the SSTs,
+        and the flushed frontier moves to the truncate op, so a log
+        replay resumes after it.  Returns the SST files removed."""
+        with self._lock:
+            removed = list(self._ssts)
+            self._mem = MemTable()
+            self._frozen = []
+            self._frozen_frontiers = {}
+            self._ssts = []
+            self._mem_frontier = {}
+            self._struct_gen += 1
+            self._write_gen += 1
+            self._snap = None
+            if op_id is not None:
+                self._flushed_frontier["op_id"] = list(op_id)
+            self._write_manifest()
+        for r in removed:
+            self._gc_file(r.path)
+        return len(removed)
+
     def ingest_sst(self, build: Callable[[SstWriter], None],
                    frontier: Optional[dict] = None,
                    stream: bool = False) -> str:
@@ -506,3 +532,29 @@ class LsmStore:
             self._write_manifest()
         for r in old:
             self._gc_file(r.path)
+
+    # --- checkpoint -------------------------------------------------------
+    def checkpoint(self, out_dir: str) -> None:
+        """Hard-link every live SST into `out_dir` and write the
+        manifest there (reference: rocksdb Checkpoint::CreateCheckpoint
+        via tablet/tablet_snapshots.cc:273).  Memtables are NOT
+        included: callers flush first for a point-in-time image."""
+        os.makedirs(out_dir, exist_ok=True)
+        with self._lock:
+            ssts = list(self._ssts)
+            for r in ssts:
+                dst = os.path.join(out_dir, os.path.basename(r.path))
+                if not os.path.exists(dst):
+                    os.link(r.path, dst)
+            m = {
+                "next_file": self._next_file,
+                "flushed_frontier": self._flushed_frontier,
+                "ssts": [os.path.basename(r.path) for r in ssts],
+            }
+        with open(os.path.join(out_dir, f"{self.name}.MANIFEST"), "w") as f:
+            json.dump(m, f)
+
+    @classmethod
+    def open_checkpoint(cls, directory: str, name: str = "db",
+                        **kw) -> "LsmStore":
+        return cls(directory, name, **kw)

@@ -20,9 +20,12 @@ a row block's columnar sidecar comes from the writer's
 ``columnar_builder``, and a columnar-only block's rows come back through
 the reader's ``row_decoder``.  The writer writes v2 blocks (the
 reference's default format); the reader reads v1 and v2.  Point reads
-walk one block in Python (``point_find``); the reference's native
-whole-SST point reader, document shredding and encrypted files raise
-``NotPortedError``.
+run in the host extension (csrc/host_hot.c): ``point_reader`` builds the
+whole-SST ``PointReader`` (bloom, block bisect, MVCC walk and row
+materialization for a key list in one call) up to
+``native_point_reader_max_rows`` rows, and ``point_find`` walks one
+block through its ``BlockFinder``.  Document shredding and encrypted
+files raise ``NotPortedError``.
 """
 from __future__ import annotations
 
@@ -30,16 +33,19 @@ import bisect
 import mmap
 import os
 import struct
+import time
 from dataclasses import dataclass
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..docdb.hotpath import POINT_READ_STATS
 from ..errors import NotPortedError
 from ..utils import flags
 from ..utils.hybrid_time import ENCODED_SIZE, DocHybridTime
 from . import native_lib, wire_pack
-from .columnar import SUPPORTED_FORMAT_VERSION, ColumnarBlock, fnv64_keys
+from .columnar import (SUPPORTED_FORMAT_VERSION, ColumnarBlock, fnv64_keys,
+                       native_hot)
 
 MAGIC = b"YBTPUSST"
 DEFAULT_BLOCK_ROWS = 4096
@@ -50,8 +56,36 @@ _HT_SUFFIX = ENCODED_SIZE + 1
 #: the reference's encrypted-file envelopes (utils/encryption.py)
 _ENC_MAGICS = (b"YBTPUENC", b"YBTPUEN2")
 
-_NATIVE_ITEM = "ROADMAP.md queue 1 item 9a (the native point reader)"
-_ENC_ITEM = "ROADMAP.md queue 1 item 9 (encryption at rest)"
+_ENC_ITEM = "ROADMAP.md queue 1 item 9c (encryption at rest)"
+
+
+def _native_finder(cb: ColumnarBlock):
+    """The extension's fused in-block point lookup (csrc/host_hot.c
+    BlockFinder) over `cb`'s key matrix and MVCC lanes, built once and
+    cached on the block; None for a block without keys or rows."""
+    f = getattr(cb, "_finder", False)
+    if f is not False:
+        return f
+    f = None
+    if cb.keys is not None and cb.n:
+        keys = np.ascontiguousarray(cb.keys)
+        f = native_hot().BlockFinder(
+            keys, np.ascontiguousarray(cb.ht.astype(np.uint64, copy=False)),
+            np.ascontiguousarray(cb.write_id.astype(np.uint32, copy=False)),
+            np.ascontiguousarray(cb.tombstone.astype(np.uint8, copy=False)),
+            cb.n, keys.shape[1])
+    object.__setattr__(cb, "_finder", f)
+    return f
+
+
+def _block_bytes(cb: ColumnarBlock) -> int:
+    """Bytes of the host arrays a point reader over `cb` keeps alive."""
+    n = cb.keys.nbytes + cb.ht.nbytes + cb.write_id.nbytes \
+        + cb.tombstone.nbytes
+    n += sum(a.nbytes for a in cb.pk.values())
+    n += sum(v.nbytes + m.nbytes for v, m in cb.fixed.values())
+    n += sum(e.nbytes + len(h) + m.nbytes for e, h, m in cb.varlen.values())
+    return n
 
 
 def _doc_key_of(k: bytes) -> bytes:
@@ -172,6 +206,13 @@ class BloomFilter:
             np.asarray(key_hashes, np.uint64), m, k), k)
 
     def may_contain(self, key_hash: int) -> bool:
+        """False only when no key of this hash was added (the
+        extension's ``bloom_may_contain``)."""
+        return native_hot().bloom_may_contain(
+            self.bits, self.k, key_hash & 0xFFFFFFFFFFFFFFFF)
+
+    def may_contain_plain(self, key_hash: int) -> bool:
+        """:meth:`may_contain` in Python."""
         m = len(self.bits) * 8
         h1 = key_hash & 0xFFFFFFFFFFFFFFFF
         h2 = (h1 >> 33) | 1
@@ -470,6 +511,7 @@ class SstReader:
         self._first_keys = [e.first_key for e in self.index]
         self._col_cache: dict = {}
         self._row_cache: dict = {}   # block idx -> decoded entries
+        self._point_readers: dict = {}   # codec -> PointReader | None
 
     @property
     def file_size(self) -> int:
@@ -529,8 +571,49 @@ class SstReader:
         return self.bloom.may_contain(key_hash)
 
     def point_reader(self, codec):
-        raise NotPortedError("SstReader.point_reader (the native "
-                             "whole-SST point reader)", _NATIVE_ITEM)
+        """The extension's whole-SST batched point reader bound to
+        `codec` (csrc/host_hot.c PointReader): bloom probe, block bisect,
+        MVCC walk and row materialization for a LIST of doc-key prefixes
+        in one call.  Building it deserializes and pins every columnar
+        block of the file, so an SST over ``native_point_reader_max_rows``
+        rows gets None and its keys take the per-key path (which pins
+        only the blocks it visits).  A block without a columnar sidecar
+        has no finder, and find_many answers NotImplemented for its keys.
+        Cached per codec OBJECT (an ALTER makes a new codec; SSTs are
+        immutable, so nothing else invalidates it)."""
+        cache = self._point_readers
+        pr = cache.get(codec, False)
+        if pr is not False:
+            return pr
+        total_rows = sum(e.num_rows for e in self.index)
+        if not self.index or \
+                total_rows > flags.get("native_point_reader_max_rows"):
+            POINT_READ_STATS["readers_refused"] += bool(self.index)
+            cache[codec] = None
+            return None
+        t0 = time.perf_counter()
+        firsts, lasts, finders, extractors = [], [], [], []
+        pinned = 0
+        for i, e in enumerate(self.index):
+            cb = self.columnar_block(i)
+            fnd = ext = None
+            if cb is not None and cb.keys is not None:
+                fnd = _native_finder(cb)
+                ext = codec._native_extractor(cb)
+                pinned += _block_bytes(cb)
+            firsts.append(e.first_key)
+            lasts.append(e.last_key)
+            finders.append(fnd)
+            extractors.append(ext)
+        pr = native_hot().PointReader(
+            tuple(firsts), tuple(lasts), tuple(finders), tuple(extractors),
+            np.ascontiguousarray(self.bloom.bits), self.bloom.k)
+        POINT_READ_STATS["readers_built"] += 1
+        POINT_READ_STATS["reader_build_s"] += time.perf_counter() - t0
+        POINT_READ_STATS["reader_rows"] += total_rows
+        POINT_READ_STATS["reader_heap_bytes"] += pinned
+        cache[codec] = pr
+        return pr
 
     def point_find(self, prefix: bytes, read_ht: int,
                    restart_hi: Optional[int] = None):
@@ -558,6 +641,22 @@ class SstReader:
             if cb is not None and cb.keys is None:
                 cb = None
             if cb is not None:
+                fnd = _native_finder(cb)
+                if fnd is not None:
+                    r = fnd.find(prefix, read_ht,
+                                 -1 if restart_hi is None else restart_hi)
+                    if isinstance(r, tuple):
+                        pos, ht, wid, _tomb = r
+                        return ("row", ht, wid,
+                                cb.keys[pos].tobytes(), None, cb, pos)
+                    if r is not None:
+                        return ("restart", r)
+                    # nothing visible HERE; this doc key's versions
+                    # continue into the next block only when they run
+                    # through the block's last key
+                    if e.last_key[:plen] == prefix:
+                        continue
+                    return None
                 pos = cb.searchsorted_key(prefix)
                 keys, hts, n = cb.keys, cb.ht, cb.n
                 advanced = False

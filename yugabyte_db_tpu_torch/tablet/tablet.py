@@ -3,15 +3,26 @@ compaction and vector indexes.
 
 Counterpart of ``yugabyte_db_tpu/tablet/tablet.py`` (reference:
 src/yb/tablet/tablet.h:151, tablet.cc:2303 HandlePgsqlReadRequest, :1938
-ApplyRowOperations): ``apply_write`` through ``DocWriteOperation`` into
-the memtable, with the flush on the apply path (async: the memtable
-freezes on the apply thread and a two-worker flush pool writes the SST;
-backpressure past ``max_frozen_memtables``); ``flush``; ``read`` and
-``multi_read`` through ``DocReadOperation`` on the tablet's device;
-``bulk_load`` into columnar SSTs; ``compact`` (major, or the oldest run
-that ``pick_compaction`` picks) and the size accessors.  The flush
-thread writes files on the host and makes no CUDA call: a read that
-holds a device batch keeps its tensors alive by reference.
+ApplyRowOperations): the RegularDB and IntentsDB LSM stores (reference:
+tablet/tablet.h:1287-1288); ``apply_write`` through
+``DocWriteOperation`` into the memtable, with the flush on the apply
+path (async: the memtable freezes on the apply thread and a two-worker
+flush pool writes the SST; backpressure past ``max_frozen_memtables``);
+``flush``; ``read`` and ``multi_read`` through ``DocReadOperation`` on
+the tablet's device; ``bulk_load`` into columnar SSTs; ``compact``
+(major, or the oldest run that ``pick_compaction`` picks) and the size
+accessors.  The flush thread writes files on the host and makes no CUDA
+call: a read that holds a device batch keeps its tensors alive by
+reference.
+
+Maintenance and DDL: ``alter_table`` (old packings retained, the
+store's builders and decoders rebound; compaction repacks),
+``truncate_table`` (the whole store at once on a dedicated tablet,
+cotable tombstones on a colocated one), ``create_snapshot`` (a
+hard-link checkpoint of both stores), ``trim_above_ht`` and
+``restore_snapshot``.  A colocated tablet hosts several tables
+(``add_table``), each keyed under its cotable prefix; its SSTs carry no
+columnar sidecar, so its reads take the row paths.
 
 Vector indexes (the reference's vector-LSM shape): a frozen ANN chunk
 from the index registry (the two-stage IVF on the tablet's device, or
@@ -22,8 +33,8 @@ folds an outgrown delta back in.  Each build persists the chunk under
 ``vecidx/<column id>/`` and ``bootstrap_vector_indexes`` loads it on
 restart and reconciles it with the store by a scan-diff.
 
-Colocation, ``alter_table``, truncate, snapshots, the WAL, metrics and
-trace spans are not ported (ROADMAP.md queue 1 item 9)."""
+The WAL, metrics and trace spans are not ported (ROADMAP.md queue 1
+item 9)."""
 from __future__ import annotations
 
 import logging
@@ -38,21 +49,22 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..device import DeviceLike, resolve_device
-from ..docdb.compaction import tpu_compact
+from ..docdb.compaction import (ColocatedRepackingFeed,
+                                RepackingCompactionFeed, tpu_compact)
 from ..docdb.operations import (DocReadOperation, DocWriteOperation,
                                 ReadRequest, ReadResponse, ReadRestartError,
                                 WriteRequest, WriteResponse)
 from ..docdb.table_codec import TableCodec, TableInfo
-from ..errors import NotPortedError
+from ..dockv.key_encoding import ValueType
+from ..dockv.value import PrimitiveValue
 from ..ops.device_batch import DeviceBlockCache
 from ..storage import wire_pack
-from ..storage.lsm import LsmStore
+from ..storage.lsm import CompactionFeed, LsmStore, WriteBatch
 from ..utils import flags
-from ..utils.hybrid_time import HybridClock, HybridTime
+from ..utils.hybrid_time import (ENCODED_SIZE, DocHybridTime, HybridClock,
+                                 HybridTime)
 
 log = logging.getLogger("ybtpu_torch.tablet")
-
-_STORE_ITEM = "queue 1 item 9a (colocation and the native compaction backend)"
 
 #: process-wide device block cache shared by all tablets (device memory
 #: is global); keys carry the store, its SSTs, its write generation and
@@ -103,6 +115,23 @@ class _VectorIndexState:
         return int(self.options.get("lists", 100))
 
 
+class _TrimFeed(CompactionFeed):
+    """trim_above_ht's feed: drops every version above the cutoff."""
+
+    def __init__(self, cutoff: int):
+        self.cutoff = cutoff
+        self.dropped = 0
+
+    def feed(self, key: bytes, value: bytes):
+        if len(key) > ENCODED_SIZE and \
+                key[-(ENCODED_SIZE + 1)] == ValueType.kHybridTime and \
+                DocHybridTime.decode_desc(
+                    key[-ENCODED_SIZE:]).ht.value > self.cutoff:
+            self.dropped += 1
+            return []
+        return [(key, value)]
+
+
 class Tablet:
     """One tablet on `device` (CUDA unless the caller passes "cpu";
     raises without a card)."""
@@ -111,33 +140,90 @@ class Tablet:
                  clock: Optional[HybridClock] = None,
                  partition=None, colocated: bool = False,
                  device: DeviceLike = "cuda"):
-        if colocated:
-            raise NotPortedError("colocated tablets", _STORE_ITEM)
         self.device = resolve_device(device)
         self.tablet_id = tablet_id
         self.info = info
         self.partition = partition
         self.dir = directory
+        self.colocated = colocated
         os.makedirs(directory, exist_ok=True)
         self.codec = TableCodec(info)
+        # a colocated tablet hosts several tables (reference: the
+        # ysql-colocated-tables design; cotable-prefixed doc keys), and
+        # its SSTs carry no columnar sidecar
         self.codecs: Dict[str, TableCodec] = {info.table_id: self.codec}
         self.clock = clock or HybridClock()
         self.regular = LsmStore(
             os.path.join(directory, "regular"), name="regular",
-            columnar_builder=self.codec.columnar_builder,
-            row_decoder=self.codec.row_decoder,
-            key_builder=self.codec.derive_keys,
-            shred_cols=self.codec.shred_cols)
+            columnar_builder=(None if colocated
+                              else self.codec.columnar_builder),
+            row_decoder=None if colocated else self.codec.row_decoder,
+            key_builder=None if colocated else self.codec.derive_keys,
+            shred_cols=None if colocated else self.codec.shred_cols)
+        self.intents = LsmStore(
+            os.path.join(directory, "intents"), name="intents")
         self._read_op = DocReadOperation(
             self.codec, self.regular, device_cache=_DEVICE_CACHE,
             device=self.device)
+        self._read_ops: Dict[str, DocReadOperation] = {
+            info.table_id: self._read_op}
         # vector ANN indexes: col_id -> _VectorIndexState
         self.vector_indexes: Dict[int, _VectorIndexState] = {}
         self._lock = threading.Lock()
         self._vector_build_lock = threading.Lock()   # serializes rebuilds
 
+    # --- colocation and DDL -----------------------------------------------
+    def add_table(self, info: TableInfo) -> None:
+        """Host one more table (a colocated tablet's cotable)."""
+        codec = TableCodec(info)
+        self.codecs[info.table_id] = codec
+        self._read_ops[info.table_id] = DocReadOperation(
+            codec, self.regular, device_cache=None, device=self.device)
+
     def _codec_for(self, table_id: str) -> TableCodec:
         return self.codecs.get(table_id, self.codec)
+
+    def schema_version_of(self, table_id: str) -> Optional[int]:
+        """The table's current schema version (the catalog-version
+        write fence)."""
+        return self._codec_for(table_id).info.schema.version
+
+    def tables(self):
+        return list(self.codecs)
+
+    def alter_table(self, new_info: TableInfo) -> None:
+        """Online schema change (reference: ChangeMetadataOperation,
+        tablet/operations/change_metadata_operation.cc): adopt the new
+        schema version while RETAINING the old packings, so existing
+        rows keep decoding; compaction repacks them over time."""
+        old = self.codecs.get(new_info.table_id, self.codec)
+        merged = TableCodec(new_info)
+        merged.info.packings._packings.update(
+            {v: p for v, p in old.info.packings._packings.items()
+             if v not in merged.info.packings._packings})
+        self.codecs[new_info.table_id] = merged
+        primary = new_info.table_id == self.info.table_id
+        if primary:
+            self.info = new_info
+            self.codec = merged
+            if not self.colocated:
+                self.regular.columnar_builder = merged.columnar_builder
+                self.regular.row_decoder = merged.row_decoder
+                # key derivation depends only on the pk and partition
+                # shape, which an ALTER cannot change; rebinding keeps
+                # the codec object current all the same
+                self.regular.key_builder = merged.derive_keys
+                self.regular.shred_cols = merged.shred_cols
+                for r in self.regular.ssts:
+                    r.row_decoder = merged.row_decoder
+                    r.key_builder = merged.derive_keys
+            self._read_op = DocReadOperation(
+                merged, self.regular, device_cache=_DEVICE_CACHE,
+                device=self.device)
+        self._read_ops[new_info.table_id] = (
+            self._read_op if primary else DocReadOperation(
+                merged, self.regular, device_cache=None,
+                device=self.device))
 
     # --- writes -----------------------------------------------------------
     def apply_write(self, req: WriteRequest,
@@ -203,7 +289,7 @@ class Tablet:
         if req.read_ht is None:
             req.read_ht = self.clock.now().value
             req.server_assigned_read_ht = True
-        return self._read_op.execute(req)
+        return self._read_ops.get(req.table_id, self._read_op).execute(req)
 
     def multi_read(self, table_id: str, pk_rows, read_ht=None,
                    allow_restart=None):
@@ -215,7 +301,7 @@ class Tablet:
             allow_restart = server_assigned
         if server_assigned:
             read_ht = self.clock.now().value
-        op = self._read_op
+        op = self._read_ops.get(table_id, self._read_op)
         for _attempt in range(3):
             try:
                 return op.multi_get(pk_rows, read_ht,
@@ -228,6 +314,45 @@ class Tablet:
         return self.clock.now()
 
     # --- maintenance ------------------------------------------------------
+    def truncate_table(self, table_id: str, op_id=None, ht=None) -> int:
+        """TRUNCATE (reference: tablet/tablet.cc Truncate, which
+        replaces the stores rather than writing tombstones).  A
+        dedicated tablet drops its whole regular store at once; a
+        colocated one tombstones the cotable's doc keys at a fresh
+        hybrid time (MVCC-correct; compaction reclaims them).  Vector
+        indexes over the table reset with it.  Returns the SSTs removed
+        (dedicated) or the rows tombstoned (colocated)."""
+        codec = self._codec_for(table_id)
+        if table_id == self.info.table_id:
+            # vector indexes only ever cover the tablet's primary table
+            with self._vector_build_lock:
+                self.vector_indexes.clear()
+                shutil.rmtree(os.path.join(self.dir, "vecidx"),
+                              ignore_errors=True)
+        if not self.colocated:
+            n = self.regular.truncate(op_id=op_id)
+            _DEVICE_CACHE.invalidate_prefix((id(self.regular),))
+            return n
+        prefix = codec.scan_prefix()
+        mems, ssts = self.regular.read_snapshot()
+        seen = set()
+        ht = HybridTime(ht) if ht is not None else self.clock.now()
+        batch = WriteBatch(op_id=op_id)
+        for src in list(mems) + list(ssts):
+            for k, _v in src.iterate():
+                if not k.startswith(prefix):
+                    continue
+                dk = k[:-(ENCODED_SIZE + 1)]
+                if dk in seen:
+                    continue
+                seen.add(dk)
+                batch.put(dk + bytes([ValueType.kHybridTime])
+                          + DocHybridTime(ht, len(seen) - 1).encoded_desc(),
+                          PrimitiveValue.tombstone().encode())
+        if batch.entries:
+            self.regular.apply(batch)
+        return len(seen)
+
     def flush(self, wait: bool = True) -> Optional[str]:
         """Freeze the memtable and drain every frozen memtable to SSTs:
         the barrier behind which every applied write is on disk."""
@@ -244,28 +369,45 @@ class Tablet:
 
     def compact(self, major: bool = True) -> Optional[str]:
         """Compaction with MVCC GC after a flush, of every SST (major) or
-        of the oldest run ``pick_compaction`` picks: the pipelined
-        chunked engine with the merge on the card when
-        ``tpu_compaction_enabled`` is set (row blocks and TTL'd rows
-        through ``_compact_rows``, its whole-input merge also on the
-        card), the host baseline when it is off.  The reference's native
-        per-chunk merge for a CPU backend is not ported."""
+        of the oldest run ``pick_compaction`` picks (reference analog:
+        full_compaction_manager.cc driving CompactionJob with the DocDB
+        feed), routed as the reference routes it:
+
+          colocated tablet              the CPU feed, repacking per
+                                        cotable (ColocatedRepackingFeed)
+          more than one schema version  the CPU feed, repacking to the
+                                        latest (RepackingCompactionFeed)
+          tpu_compaction_enabled, card  the pipelined chunked engine,
+                                        the merge on the card (row
+                                        blocks and TTL'd rows through
+                                        _compact_rows, also on the card)
+          tpu_compaction_enabled, CPU   the same engine with the host
+                                        k-way merge per chunk (native)
+          tpu_compaction_enabled off    the monolithic host baseline"""
         self.flush()
         inputs = self.regular.ssts if major else \
             self.regular.pick_compaction()
         if not inputs:
             return None
         cutoff = self.history_cutoff()
-        if not flags.get("tpu_compaction_enabled"):
-            backend = "baseline"
-        elif self.device.type == "cuda":
-            backend = "device"
+        if self.colocated:
+            path = self.regular.compact(
+                inputs=inputs,
+                feed=ColocatedRepackingFeed(cutoff, self.codecs.values()))
+        elif len(self.codec.info.packings.versions()) > 1:
+            path = self.regular.compact(
+                inputs=inputs,
+                feed=RepackingCompactionFeed(cutoff, self.codec))
         else:
-            raise NotPortedError(
-                "the native compaction backend of a CPU tablet",
-                _STORE_ITEM)
-        path = tpu_compact(self.regular, self.codec, cutoff, inputs=inputs,
-                           backend=backend, device=self.device)
+            if not flags.get("tpu_compaction_enabled"):
+                backend = "baseline"
+            elif self.device.type == "cuda":
+                backend = "device"
+            else:
+                backend = "native"
+            path = tpu_compact(self.regular, self.codec, cutoff,
+                               inputs=inputs, backend=backend,
+                               device=self.device)
         _DEVICE_CACHE.invalidate_prefix((id(self.regular),))
         return path
 
@@ -279,6 +421,51 @@ class Tablet:
         return self.codec.bulk_ingest(self.regular, columns, ht,
                                       block_rows=block_rows,
                                       partition=self.partition)
+
+    # --- snapshots --------------------------------------------------------
+    def create_snapshot(self, out_dir: str):
+        """Consistent tablet snapshot: flush and hard-link checkpoint of
+        the regular and the intents store (reference:
+        tablet/tablet_snapshots.cc:186,273; a bootstrapped replica keeps
+        the provisional records).  Call it from the apply thread, so
+        that both checkpoints form one cut.  Returns the regular store's
+        flushed op index (the snapshot's replication frontier)."""
+        self.flush()
+        self.regular.checkpoint(os.path.join(out_dir, "regular"))
+        self.intents.flush()
+        self.intents.checkpoint(os.path.join(out_dir, "intents"))
+        op = self.regular.flushed_frontier().get("op_id")
+        return int(op[1]) if op else None
+
+    def trim_above_ht(self, cutoff: int) -> int:
+        """Enforce a single-hybrid-time cut: drop every version whose
+        DocHybridTime exceeds `cutoff` (reference: tablet_snapshots.cc,
+        a restore with a history cutoff), so a snapshot reads alike
+        across tablets whose clocks were skewed at checkpoint time.  Run
+        on a freshly restored tablet.  Returns the versions dropped."""
+        self.flush()
+        inputs = self.regular.ssts
+        if not inputs:
+            return 0
+        feed = _TrimFeed(cutoff)
+        self.regular.compact(inputs, feed)
+        _DEVICE_CACHE.invalidate_prefix((id(self.regular),))
+        return feed.dropped
+
+    @classmethod
+    def restore_snapshot(cls, tablet_id: str, info: TableInfo,
+                         snapshot_dir: str, directory: str, clock=None,
+                         device: DeviceLike = "cuda") -> "Tablet":
+        """A tablet in `directory` opened on a copy of the snapshot's
+        regular store, on `device` (CUDA unless the caller passes
+        "cpu")."""
+        dev = resolve_device(device)
+        os.makedirs(directory, exist_ok=True)
+        dst = os.path.join(directory, "regular")
+        if os.path.exists(dst):
+            shutil.rmtree(dst)
+        shutil.copytree(os.path.join(snapshot_dir, "regular"), dst)
+        return cls(tablet_id, info, directory, clock=clock, device=dev)
 
     def approximate_size(self) -> int:
         return self.regular.approximate_size()

@@ -201,3 +201,8 @@ REGISTRY.define(
     "time (the reference's docstore/).  Shredding is not ported, so an "
     "SST writer given JSON columns refuses while this is on; off, it "
     "writes the reference's pre-shred bytes.")
+REGISTRY.define(
+    "native_point_reader_max_rows", 4_000_000,
+    "SSTs above this row count skip the eager whole-SST PointReader "
+    "(it deserializes and pins every columnar block); their point reads "
+    "take the per-key path, which pins only the blocks it visits.")
