@@ -189,12 +189,28 @@ Phases (any failed check raises and the script exits non-zero):
      DictGroupSpec (6 groups: 3 spill) on the streamed and the
      monolithic route, against numpy, one spill merge each (one `spill`
      line per route: wall, rows on the interpreted tail);
-  13. print the kernels line (launches per path: phase 3's scan, phase
-     6's tablet reads, phase 7's joins, phases 8, 9, 11 and 12; and the
-     new paths' plain programs: window program launches, device
+  13. the document store and encryption at rest (docs_phase):
+     bench.py doc_scan_bench's 1,000,000 documents (models/docbench.py,
+     65,536-row blocks) bulk-loaded into one tablet with shredding on;
+     the bench query (WHERE CAST(doc->>'qty' AS bigint) = 7; SUM, COUNT,
+     MAX(doc->>'tag')) on the exact route, warm and timed (median of 5)
+     with a `profile` window, its warm read served from the cached
+     batch; the tag, nested region, IS NULL and row-read shapes; K3's
+     attempt on two shapes (launches or typed refusals); the keyless
+     bypass bit for bit with the tablet; 20,000 upserts, Tablet.compact()
+     on the card (shredded output) and 2,000 get_rows byte for byte; a
+     second tablet bulk-loaded under a generated universe key with
+     encrypt_data_at_rest on (its cipher printed), answering like the
+     first, also after a cold open.  Every card answer is held to the
+     interpreted path's over the same SSTs (doc_shred_enabled off),
+     computed in spawned CPU processes on hard-linked checkpoints; one
+     `docs` line per step;
+  14. print the kernels line (launches per path: phase 3's scan, phase
+     6's tablet reads, phase 7's joins, phases 8, 9, 11, 12 and 13; and
+     the new paths' plain programs: window program launches, device
      searches, the mesh's slot programs, merge_gc_split, the vector
-     tablet's searches and the spill tail's dict-grouped programs),
-     then the device line last.
+     tablet's searches, the spill tail's dict-grouped programs and the
+     doc scans' exact-route programs), then the device line last.
 
 It imports nothing of JAX: the port stands alone.
 """
@@ -4076,6 +4092,408 @@ def spill_phase(torch, np, data, card, root, device="cuda",
     return {"dict_group_program": GROUPED_STATS["launches"] - launches0}
 
 
+#: phase 13: bench.py doc_scan_bench's documents (models/docbench.py)
+DOC_ROWS = 1_000_000             # BENCH_DOC_ROWS
+DOC_BLOCK_ROWS = 65_536          # 16 blocks
+DOC_ITERS = 5                    # timed warm bench queries (median)
+DOC_UPSERTS = 20_000             # documents rewritten before compaction
+DOC_WRITE_BATCH = 1_000          # row ops per write request
+DOC_SAMPLES = 2_000              # get_row checks after compaction
+DOC_ORACLES = 6                  # interpreted-path processes at once
+CIPHER_NAMES = {1: "blake2b", 2: "aes_ctr"}
+
+
+def _doc_shapes(db, AggSpec):
+    """{name: read request kwargs} of phase 13's doc shapes."""
+    def j(*path):
+        node = ("col", db.DOC_COL)
+        for key in path:
+            node = ("json", "text", node, key)
+        return node
+    w, aggs = db.doc_qty_query()
+    qty = ("fn", "cast_bigint", j("qty"))
+    return {
+        "bench": dict(where=w, aggregates=aggs),
+        "tag": dict(where=("cmp", "eq", j("tag"), ("const", "beta")),
+                    aggregates=(AggSpec("count"), AggSpec("sum", qty))),
+        "region": dict(where=("cmp", "eq", j("meta", "region"),
+                              ("const", "eu")),
+                       aggregates=(AggSpec("count"),
+                                   AggSpec("max", j("tag")))),
+        "qty_is_null": dict(where=("isnull", j("qty")),
+                            aggregates=(AggSpec("count"),)),
+        "rows": dict(where=w, columns=("id", "doc")),
+    }
+
+
+def _answer(np, resp) -> dict:
+    """A response as plain lists (agg values) or rows, for equality."""
+    if resp.agg_values is not None:
+        return {"agg": [np.asarray(v).tolist() for v in resp.agg_values]}
+    return {"rows": resp.rows}
+
+
+def doc_oracle_job(directory: str, name: str) -> dict:
+    """One phase-13 shape through the interpreted row path: a CPU tablet
+    over `directory` (a hard-linked checkpoint) with doc_shred_enabled
+    off at read time.  Runs in a process of its own, beside the card's
+    reads; returns the answer and the read's seconds."""
+    import numpy as np
+
+    from yugabyte_db_tpu_torch.docdb.operations import ReadRequest
+    from yugabyte_db_tpu_torch.models import docbench as db
+    from yugabyte_db_tpu_torch.ops.scan import AggSpec
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import flags
+    flags.set_flag("doc_shred_enabled", False)
+    t = Tablet("docs", db.docs_info(), directory, device="cpu")
+    t0 = time.perf_counter()
+    resp = t.read(ReadRequest("docs", **_doc_shapes(db, AggSpec)[name]))
+    return {"backend": resp.backend, "s": time.perf_counter() - t0,
+            **_answer(np, resp)}
+
+
+def docs_phase(torch, np, hs, card, root, seed=0, device="cuda",
+               rows=DOC_ROWS, block_rows=DOC_BLOCK_ROWS,
+               upserts=DOC_UPSERTS, samples=DOC_SAMPLES) -> dict:
+    """Phase 13: the document store and encryption at rest.  bench.py
+    doc_scan_bench's documents (models/docbench.py generate_docs: `rows`
+    documents in `block_rows`-row blocks) in one tablet on `device`:
+    the shredding bulk load, the bench query on the exact route (warm,
+    timed) and its cached batch, more doc shapes (each on the hand route
+    too), the keyless bypass, 20,000 upserts + Tablet.compact() and
+    sampled get_rows, and an encrypted second tablet.  Every card answer
+    is held to the interpreted path's over the same SSTs, run in
+    processes of their own on hard-linked checkpoints.  One `docs` line
+    per step; returns the hand kernels' launches and the exact route's
+    program launches over the phase."""
+    import concurrent.futures as cf
+    import multiprocessing
+    import shutil
+
+    from yugabyte_db_tpu_torch.bypass import BypassIneligible, BypassSession
+    from yugabyte_db_tpu_torch.docdb.operations import (ReadRequest, RowOp,
+                                                        WriteRequest,
+                                                        shared_kernel)
+    from yugabyte_db_tpu_torch.docstore import (DOC_STATS, DOC_WRITE_STATS,
+                                                LAST_DOC_STATS)
+    from yugabyte_db_tpu_torch.models import docbench as db
+    from yugabyte_db_tpu_torch.ops.scan import AggSpec, ScanKernel
+    from yugabyte_db_tpu_torch.storage import sst as psst
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.tablet import tablet as tablet_mod
+    from yugabyte_db_tpu_torch.utils import encryption, flags
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed_read(t, **kw):
+        sync()
+        t0 = time.perf_counter()
+        resp = t.read(ReadRequest("docs", **kw))
+        sync()
+        return resp, time.perf_counter() - t0
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    shapes = _doc_shapes(db, AggSpec)
+    hand0 = dict(hs.LAUNCHES)
+    # the exact route's program calls: ScanKernel._get hands out the
+    # compiled program; count each call of it over the phase
+    programs = [0]
+    plain_get = ScanKernel._get
+
+    def counted_get(self, *a, **k):
+        fn = plain_get(self, *a, **k)
+
+        def run(*x, **y):
+            programs[0] += 1
+            return fn(*x, **y)
+        return run
+    # per-path shredded bytes: each SST writer's lane stats at finish
+    path_bytes: dict = {}
+    plain_finish = psst.SstWriter.finish
+
+    def counted_finish(self):
+        for p, e in self.lane_stats.get("shred_paths", {}).items():
+            acc = path_bytes.setdefault(p, {"kind": e["kind"], "bytes": 0,
+                                            "present": 0})
+            acc["bytes"] += e["bytes"]
+            acc["present"] += e["present"]
+        return plain_finish(self)
+    key_state = (dict(encryption.KEY_MANAGER.keys),
+                 encryption.KEY_MANAGER.active)
+    pool = cf.ProcessPoolExecutor(
+        max_workers=DOC_ORACLES,
+        mp_context=multiprocessing.get_context("spawn"))
+    out = {}
+    done = False
+    try:
+        ScanKernel._get = counted_get
+        psst.SstWriter.finish = counted_finish
+
+        # --- 1. the shredding bulk load ---------------------------------
+        t0 = time.perf_counter()
+        docs = db.generate_docs(rows, seed)
+        gen_s = time.perf_counter() - t0
+        raw_json = int(sum(len(d) for d in docs["doc"]))
+        t = Tablet("docs", db.docs_info(), os.path.join(root, "plain"),
+                   device=device)
+        w0 = dict(DOC_WRITE_STATS)
+        t0 = time.perf_counter()
+        check(t.bulk_load(docs, block_rows=block_rows) == rows,
+              "docs: bulk load row count")
+        load_s = time.perf_counter() - t0
+        wstats = {k: v - w0[k] for k, v in DOC_WRITE_STATS.items()}
+        n_blocks = -(-rows // block_rows)
+        check(wstats["blocks_shredded"] == n_blocks,
+              f"docs: {wstats} shredded blocks of {n_blocks}")
+        print(json.dumps({"docs": "load", "card": card, "rows": rows,
+                          "blocks": n_blocks, "generate_s": gen_s,
+                          "load_s": load_s, "rows_per_s": rows / load_s,
+                          "doc_write_stats": wstats,
+                          "raw_json_bytes": raw_json,
+                          "sst_bytes": t.approximate_size(),
+                          "shredded_paths": path_bytes}))
+        # the interpreted answers, in processes of their own over a
+        # hard-linked checkpoint, beside the card's reads
+        t.create_snapshot(os.path.join(root, "oracle0"))
+        oracle = {name: pool.submit(doc_oracle_job,
+                                    os.path.join(root, "oracle0"), name)
+                  for name in shapes}
+
+        # --- 2. the bench query on the exact route ----------------------
+        kern = shared_kernel(device)
+        misses0, hits0 = tablet_mod._DEVICE_CACHE.misses, \
+            tablet_mod._DEVICE_CACHE.hits
+        first, first_s = timed_read(t, **shapes["bench"])
+        check(first.backend == "tpu", f"docs: bench on {first.backend}")
+        check(LAST_DOC_STATS.get("coverage", 0) > 0,
+              f"docs: coverage {LAST_DOC_STATS}")
+        coverage = dict(LAST_DOC_STATS)
+        walls = []
+        for _ in range(DOC_ITERS):
+            resp, s = timed_read(t, **shapes["bench"])
+            check(_answer(np, resp) == _answer(np, first),
+                  "docs: warm bench answer changed")
+            walls.append(s)
+        bench_s = statistics.median(walls)
+        if cuda:       # device busy and idle share of the warm query
+            problems = profile_route(
+                torch, hs, "docs_bench_exact", card, rows,
+                lambda: t.read(ReadRequest("docs", **shapes["bench"])),
+                DOC_ITERS, wall=bench_s)
+            check(not problems, "; ".join(problems))
+
+        # --- 3. the batch cache: the warm read reuses the device batch ---
+        m1, h1 = tablet_mod._DEVICE_CACHE.misses, tablet_mod._DEVICE_CACHE.hits
+        again, _ = timed_read(t, **shapes["bench"])
+        m2, h2 = tablet_mod._DEVICE_CACHE.misses, tablet_mod._DEVICE_CACHE.hits
+        check(m2 == m1 and h2 == h1 + 1,
+              f"docs: warm read built a batch (misses {m1}->{m2}, hits "
+              f"{h1}->{h2})")
+        print(json.dumps({"docs": "batch_cache", "card": card,
+                          "builds_first_read": m1 - misses0,
+                          "builds_warm_reads": m2 - m1,
+                          "hits_warm_reads": h2 - hits0}))
+
+        # --- 4. more shapes, and the hand route's attempt ----------------
+        served = {}
+        for name in shapes:
+            if name == "bench":
+                continue
+            resp, s = timed_read(t, **shapes[name])
+            check(resp.backend == "tpu", f"docs {name}: on {resp.backend}")
+            served[name] = (_answer(np, resp), s)
+            resp2, s2 = timed_read(t, **shapes[name])
+            check(_answer(np, resp2) == served[name][0],
+                  f"docs {name}: warm answer changed")
+            served[name] = (served[name][0], s2)
+        refusals0 = dict(kern.hand_scan_refusals)
+        k3_0 = hs.LAUNCHES["generic_scan"]
+        hand = {}
+        with flags.overridden("hand_scan_enabled", True):
+            for name in ("bench", "tag"):
+                resp, s = timed_read(t, **shapes[name])
+                got = _answer(np, resp)
+                want = _answer(np, first) if name == "bench" \
+                    else served[name][0]
+                check(got == want, f"docs hand {name}: {got} != {want}")
+                hand[name] = s
+        k3 = hs.LAUNCHES["generic_scan"] - k3_0
+        refused = {r: v - refusals0.get(r, 0)
+                   for r, v in kern.hand_scan_refusals.items()
+                   if v != refusals0.get(r, 0)}
+        print(json.dumps({"docs": "hand_route", "card": card,
+                          "shapes": sorted(hand), "k3_launches": k3,
+                          "refusals": refused, "wall_s": hand}))
+
+        # --- 5. the keyless bypass --------------------------------------
+        with BypassSession([t], device=device) as s:
+            sync()
+            t0 = time.perf_counter()
+            outs, _, bstats = s.scan_aggregate(
+                shapes["bench"]["where"], shapes["bench"]["aggregates"])
+            sync()
+            bypass_s = time.perf_counter() - t0
+            tab = t.read(ReadRequest("docs", read_ht=s.read_ht,
+                                     **shapes["bench"]))
+            # a shape the lanes cannot serve exactly (text order over
+            # the int path) refuses typed, before any scan
+            try:
+                s.scan_aggregate(("cmp", "gt", ("json", "text", (
+                    "col", db.DOC_COL), "qty"), ("const", "10")),
+                    (AggSpec("count"),))
+                refusal = None
+            except BypassIneligible as e:
+                refusal = {"reason": e.reason, "detail": e.detail}
+        check(refusal is not None and refusal["reason"] == "doc_shape",
+              f"docs: bypass served a text compare over $.qty: {refusal}")
+        check([np.asarray(v).tolist() for v in outs] ==
+              _answer(np, tab)["agg"], "docs: bypass != tablet read")
+        check(bstats.get("key_rebuilds", 0) == 0,
+              f"docs: bypass rebuilt keys {bstats}")
+        print(json.dumps({"docs": "bypass", "card": card, "wall_s": bypass_s,
+                          "rows_per_s": rows / bypass_s,
+                          "path": bstats.get("path"),
+                          "key_rebuilds": bstats.get("key_rebuilds"),
+                          "typed_refusal": refusal}))
+
+        # the interpreted answers of steps 2 and 4
+        interp = {name: f.result() for name, f in oracle.items()}
+        for name, got in interp.items():
+            check(got["backend"] == "cpu",
+                  f"docs oracle {name}: on {got['backend']}")
+        want = {k: v for k, v in interp["bench"].items()
+                if k in ("agg", "rows")}
+        check(_answer(np, first) == want,
+              f"docs: bench {_answer(np, first)} != interpreted {want}")
+        print(json.dumps({
+            "docs": "bench_exact", "card": card, "rows": rows,
+            "answer": want["agg"], "first_s": first_s, "warm_s": walls,
+            "warm_median_s": bench_s, "rows_per_s": rows / bench_s,
+            "interpreted_s": interp["bench"]["s"],
+            "interpreted_rows_per_s": rows / interp["bench"]["s"],
+            "speedup": interp["bench"]["s"] / bench_s,
+            "coverage": coverage}))
+        for name, (ans, s) in served.items():
+            ref = {k: v for k, v in interp[name].items()
+                   if k in ("agg", "rows")}
+            check(ans == ref, f"docs {name}: card != interpreted")
+            print(json.dumps({
+                "docs": "shape", "shape": name, "card": card,
+                "warm_s": s, "interpreted_s": interp[name]["s"],
+                "answer": ans.get("agg", len(ans.get("rows", ())))}))
+
+        # --- 6. upserts and the compaction on the card --------------------
+        rng = np.random.default_rng(seed + 13)
+        ids = np.sort(rng.choice(rows, upserts, replace=False))
+        written = {}
+        for i in ids:
+            d = json.loads(docs["doc"][i])
+            d["qty"] = int(rng.integers(0, 100))
+            written[int(i)] = json.dumps(d)
+        t0 = time.perf_counter()
+        for lo in range(0, upserts, DOC_WRITE_BATCH):
+            t.apply_write(WriteRequest("docs", [
+                RowOp("upsert", {"id": int(i), "doc": written[int(i)]})
+                for i in ids[lo:lo + DOC_WRITE_BATCH]]))
+        write_s = time.perf_counter() - t0
+        w0 = dict(DOC_WRITE_STATS)
+        t0 = time.perf_counter()
+        t.compact()
+        sync()
+        compact_s = time.perf_counter() - t0
+        wstats = {k: v - w0[k] for k, v in DOC_WRITE_STATS.items()}
+        (sst,) = t.regular.ssts
+        check(all(sst.columnar_block(i).shred.get(db.DOC_COL)
+                  for i in range(sst.num_blocks())),
+              "docs: a compacted block lost its shredded lanes")
+        check(wstats["blocks_shredded"] >= sst.num_blocks(),
+              f"docs: compaction shredded {wstats}")
+        t.create_snapshot(os.path.join(root, "oracle1"))
+        after = pool.submit(doc_oracle_job, os.path.join(root, "oracle1"),
+                            "bench")
+        compacted, compacted_s = timed_read(t, **shapes["bench"])
+        check(compacted.backend == "tpu",
+              f"docs: bench after compaction on {compacted.backend}")
+        read_ht = t.clock.now().value
+        t._read_op._allow_restart = False    # an explicit read point
+        sample = rng.choice(rows, samples, replace=False)
+        check_ids = list(ids[:samples // 2]) + list(sample[:samples // 2])
+        t0 = time.perf_counter()
+        for i in check_ids:
+            row = t._read_op.get_row({"id": int(i)}, read_ht)
+            want_doc = written.get(int(i), docs["doc"][int(i)])
+            check(row is not None and row["doc"] == want_doc,
+                  f"docs: get_row({int(i)}) != the written JSON")
+        get_s = time.perf_counter() - t0
+
+        # --- 7. encryption at rest ----------------------------------------
+        version = encryption.KEY_MANAGER.generate_key("docs-smoke")
+        with flags.overridden("encrypt_data_at_rest", True):
+            te = Tablet("docs", db.docs_info(), os.path.join(root, "enc"),
+                        device=device)
+            t0 = time.perf_counter()
+            te.bulk_load(docs, block_rows=block_rows)
+            enc_load_s = time.perf_counter() - t0
+        heads = {open(r.path, "rb").read(len(encryption.MAGIC_V2) + 1)
+                 for r in te.regular.ssts}
+        check(all(h.startswith(encryption.MAGIC_V2) for h in heads),
+              f"docs: unencrypted SST {heads}")
+        ciphers = sorted(CIPHER_NAMES[h[-1]] for h in heads)
+        enc_resp, enc_s = timed_read(te, **shapes["bench"])
+        check(_answer(np, enc_resp) == _answer(np, first),
+              "docs: encrypted tablet != plain tablet")
+        t0 = time.perf_counter()
+        cold = Tablet("docs", db.docs_info(), os.path.join(root, "enc"),
+                      device=device)
+        open_s = time.perf_counter() - t0
+        cold_resp, cold_s = timed_read(cold, **shapes["bench"])
+        check(_answer(np, cold_resp) == _answer(np, first),
+              "docs: cold-opened encrypted tablet != plain tablet")
+        print(json.dumps({
+            "docs": "encryption", "card": card, "key": version,
+            "ciphers": ciphers, "aes_available": encryption.aes_available(),
+            "ssts": len(heads), "load_s": enc_load_s,
+            "plain_load_s": load_s, "first_read_s": enc_s,
+            "cold_open_s": open_s, "cold_first_read_s": cold_s}))
+
+        interp_after = after.result()
+        check(interp_after["backend"] == "cpu", "docs oracle after compaction")
+        check(_answer(np, compacted)["agg"] == interp_after["agg"],
+              f"docs: bench after compaction {_answer(np, compacted)} != "
+              f"interpreted {interp_after['agg']}")
+        print(json.dumps({
+            "docs": "compaction", "card": card, "upserts": upserts,
+            "write_s": write_s, "compact_s": compact_s,
+            "blocks": sst.num_blocks(), "doc_write_stats": wstats,
+            "answer": interp_after["agg"], "first_read_s": compacted_s,
+            "interpreted_s": interp_after["s"],
+            "get_row_checked": len(check_ids), "get_row_s": get_s}))
+        print(json.dumps({"docs": "reasons", "card": card,
+                          "doc_stats": DOC_STATS}))
+        done = True
+    finally:
+        ScanKernel._get = plain_get
+        psst.SstWriter.finish = plain_finish
+        encryption.KEY_MANAGER.keys, encryption.KEY_MANAGER.active = \
+            key_state
+        if not done:      # a failed check: stop the running oracles
+            for p in list((getattr(pool, "_processes", None) or {})
+                          .values()):
+                if p.is_alive():
+                    p.terminate()
+        pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(root, ignore_errors=True)
+    print("[phase 13] documents and encryption OK")
+    out["hand"] = {k: v - hand0.get(k, 0) for k, v in hs.LAUNCHES.items()}
+    out["doc_scan"] = programs[0]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4546,6 +4964,12 @@ def main(argv=None) -> int:
                           for k, v in hs.LAUNCHES.items()}
     phase_time("12b spill tail")
 
+    # --- phase 13: the document store and encryption at rest -------------
+    documents = docs_phase(torch, np, hs, card,
+                           os.path.join(here, "build", "docs_smoke"),
+                           seed=args.seed)
+    phase_time("13 documents")
+
     # --- report ----------------------------------------------------------
     for k in kernels:
         scan_path = launches.get(k["name"], per_query.get(k["name"], 0))
@@ -4557,7 +4981,9 @@ def main(argv=None) -> int:
                                  "vectors": vector_hand.get(k["name"], 0),
                                  "write_path": written.get(k["name"], 0),
                                  "vector_tablet": vector_tablet_hand.get(
-                                     k["name"], 0)}
+                                     k["name"], 0),
+                                 "docs": documents["hand"].get(k["name"],
+                                                               0)}
         k["launches"] = sum(k["launches_by_path"].values())
         check(k["launches"] > 0, f"{k['name']} launched 0 times")
     keys = ("name", "route", "source", "replaces", "launches",
@@ -4593,7 +5019,10 @@ def main(argv=None) -> int:
                  "launches": vector_tablet["exact_search"]},
                 {"name": "dict_group_program", "path": "vector_tablet",
                  "source": "yugabyte_db_tpu_torch/ops/grouped_scan.py",
-                 "launches": spilled["dict_group_program"]}]
+                 "launches": spilled["dict_group_program"]},
+                {"name": "doc_scan", "path": "docs",
+                 "source": "yugabyte_db_tpu_torch/ops/scan.py",
+                 "launches": documents["doc_scan"]}]
     check(all(p["launches"] > 0 for p in programs),
           f"a program of the new paths never ran: {programs}")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}

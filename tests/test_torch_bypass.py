@@ -18,7 +18,6 @@ from yugabyte_db_tpu.storage import native_lib as jnl
 from yugabyte_db_tpu_torch import bypass as pbp
 from yugabyte_db_tpu_torch.bypass import prefilter as ppf
 from yugabyte_db_tpu_torch.device import DeviceUnavailable
-from yugabyte_db_tpu_torch.errors import NotPortedError
 from yugabyte_db_tpu_torch.models import tpch
 from yugabyte_db_tpu_torch.ops import join_scan as pjs
 from yugabyte_db_tpu_torch.ops import scan as pscan
@@ -393,7 +392,7 @@ def test_lease_defers_unlink_and_open_sweeps_strays(tmp_path, data):
 
 
 def test_refusals_of_what_is_not_ported(shards):
-    _, pts = shards[("hash", 1)]
+    jts, pts = shards[("hash", 1)]
     q = tpch.TPCH_Q6
     with pbp.BypassSession(pts, read_ht=READ_HT, device="cpu") as s:
         # the mesh combine serves no join, as in the reference
@@ -401,9 +400,17 @@ def test_refusals_of_what_is_not_ported(shards):
                             keys=np.arange(4, dtype=np.int64))
         with pytest.raises(ValueError, match="mesh combine does not serve"):
             s.scan_aggregate(q.where, q.aggs, combine="mesh", join=join)
-        with pytest.raises(NotPortedError, match="item 9"):
-            s.scan_aggregate(("cmp", "gt", ("json", "->", ("col", 1), "a"),
-                              ("const", 1)), q.aggs)
+        # a doc path over a table without shredded lanes: the
+        # reference's typed refusal, reason and detail
+        doc = ("cmp", "gt", ("json", "->", ("col", 1), "a"), ("const", 1))
+        with pytest.raises(pbp.BypassIneligible) as e:
+            s.scan_aggregate(doc, q.aggs)
+        with jbp.BypassSession(jts, read_ht=READ_HT) as js:
+            with pytest.raises(jbp.BypassIneligible) as je:
+                js.scan_aggregate(doc, to_jax_aggs(q.aggs))
+        assert e.value.reason == "doc_shape"
+        assert (e.value.reason, e.value.detail) == \
+            (je.value.reason, je.value.detail)
     assert s.closed
     with pytest.raises(RuntimeError, match="closed"):
         s.scan_aggregate(q.where, q.aggs)

@@ -27,7 +27,6 @@ from yugabyte_db_tpu.utils.hybrid_time import HybridTime as JHT
 from yugabyte_db_tpu_torch.device import DeviceUnavailable
 from yugabyte_db_tpu_torch.docdb import compaction as pcomp
 from yugabyte_db_tpu_torch.docdb.table_codec import TableCodec
-from yugabyte_db_tpu_torch.errors import NotPortedError
 from yugabyte_db_tpu_torch.models import tpch
 from yugabyte_db_tpu_torch.ops import compaction as pops
 from yugabyte_db_tpu_torch.storage import native_lib
@@ -543,34 +542,73 @@ def test_refuses_mixed_schema_versions_mid_stream(tmp_path):
 
 
 def test_refuses_shredding_and_encryption(tmp_path):
+    """A JSON column's store (the default doc_shred_enabled on): bulk
+    ingest and the device compaction write the reference's shredded
+    SSTs.  Encrypted stores: the device compaction of the reference's
+    encrypted store writes the reference's file under the envelope, and
+    the port opens the reference's encrypted directory.  The store's own
+    feed compaction writes the reference's file too."""
+    from yugabyte_db_tpu.docdb.table_codec import TableInfo as JInfo
+    from yugabyte_db_tpu.dockv import packed_row as jpr
+    from yugabyte_db_tpu.dockv.partition import PartitionSchema as JPS
+    from yugabyte_db_tpu.models import docbench as jdocs
+    from yugabyte_db_tpu.utils import encryption as jenc
     from yugabyte_db_tpu_torch.docdb.table_codec import TableInfo
-    from yugabyte_db_tpu_torch.dockv.packed_row import (ColumnSchema,
-                                                        ColumnType,
-                                                        TableSchema)
+    from yugabyte_db_tpu_torch.dockv import packed_row as ppr
     from yugabyte_db_tpu_torch.dockv.partition import PartitionSchema
-    info = TableInfo("d", "d", TableSchema(columns=(
-        ColumnSchema(0, "k", ColumnType.INT64, is_hash_key=True),
-        ColumnSchema(1, "doc", ColumnType.JSON)), version=1),
-        PartitionSchema("hash", 1))
-    codec = TableCodec(info)
-    assert codec.shred_cols == (1,)
-    store = LsmStore(str(tmp_path / "d"), key_builder=codec.derive_keys,
-                     shred_cols=codec.shred_cols)
-    with pytest.raises(NotPortedError) as e:
-        store.ingest_sst(lambda w: None)
-    assert "shredding" in _reason(e)
-    # the store's own feed compaction (no GC) is ported: the same file
+    from yugabyte_db_tpu_torch.utils import encryption as penc
+    from tests.torch_parity import flags_set
+
+    def schema(pr):
+        C, T = pr.ColumnSchema, pr.ColumnType
+        return pr.TableSchema(columns=(C(0, "id", T.INT64, is_hash_key=True),
+                                       C(1, "doc", T.JSON)), version=1)
+    jc = JCodec(JInfo("d", "d", schema(jpr), JPS("hash", 1)))
+    pc = TableCodec(TableInfo("d", "d", schema(ppr),
+                              PartitionSchema("hash", 1)))
+    assert pc.shred_cols == jc.shred_cols == (1,)
+    docs = jdocs.generate_docs(3000, 5)
+    saved = [(m, dict(m.keys), m.active, m.force_cipher)
+             for m in (jenc.KEY_MANAGER, penc.KEY_MANAGER)]
+    try:
+        for m in (jenc.KEY_MANAGER, penc.KEY_MANAGER):
+            m.add_key("cmp", bytes(range(32)))
+            m.force_cipher = penc.CIPHER_BLAKE2B
+        for enc in (False, True):
+            js = JStore(str(tmp_path / f"j{enc}"), key_builder=jc.derive_keys,
+                        shred_cols=jc.shred_cols)
+            ps = LsmStore(str(tmp_path / f"p{enc}"),
+                          key_builder=pc.derive_keys,
+                          shred_cols=pc.shred_cols)
+            flag = {"encrypt_data_at_rest": enc}
+            with flags_set(flag, flag):
+                for i, us in enumerate((COMPACT_BASE_US,
+                                        COMPACT_BASE_US + 100)):
+                    batch = {k: v[i * 1000:i * 1000 + 2000]
+                             for k, v in docs.items()}
+                    _jbulk(js, jc, batch, JHT.from_micros(us), 512)
+                    pc.bulk_ingest(ps, batch, HybridTime.from_micros(us),
+                                   block_rows=512)
+                cutoff = JHT.from_micros(COMPACT_BASE_US + 200).value
+                jp = jcomp.tpu_compact(js, jc, cutoff, block_rows=512)
+                pp = pcomp.tpu_compact(ps, pc, cutoff, block_rows=512,
+                                       device="cpu")
+            raw = {n: penc.KEY_MANAGER.decrypt_file_bytes(
+                open(x, "rb").read()) for n, x in (("j", jp), ("p", pp))}
+            assert raw["p"] == raw["j"] and b"shred" in raw["p"]
+            assert open(pp, "rb").read().startswith(penc.MAGIC_V2) == enc
+            r = LsmStore(js.dir, key_builder=pc.derive_keys).ssts[0]
+            assert r.file_size == len(raw["j"])
+            assert all(r.columnar_block(i).shred[1]
+                       for i in range(r.num_blocks()))
+    finally:
+        for m, keys, active, force in saved:
+            m.keys, m.active, m.force_cipher = keys, active, force
+    # the store's own feed compaction (no GC): the same file
     (js, jc), (ps, pc), hts = _equal_stores(tmp_path, "lineitem", n_ssts=2)
     _with_row_codecs(js, jc, ps, pc)
     assert os.path.basename(js.compact()) == os.path.basename(ps.compact())
     _same_store_files(js, ps)
-    # a tablet holding an encrypted SST (the reference's envelope) does
-    # not open, so it never reaches a compaction
-    with open(ps.ssts[-1].path, "r+b") as f:
-        f.write(b"YBTPUEN2")
-    with pytest.raises(NotPortedError) as e:
-        LsmStore(ps.dir, key_builder=pc.derive_keys)
-    assert "encrypt" in _reason(e) and "item 9" in _reason(e)
 
 
 def test_host_merge_helpers_match_numpy():

@@ -1208,3 +1208,55 @@ def test_cuda_tablet_maintenance_matches_cpu(cuda_device, tmp_path, step):
                           where=("between", ("col", 0), ("const", 19995),
                                  ("const", 20005)), read_ht=read_ht)
     assert tablets[0].read(between).rows == tablets[1].read(between).rows
+
+
+@pytest.mark.cuda
+def test_cuda_doc_queries_match_cpu(cuda_device, tmp_path):
+    """A small shredded document tablet: the bench query, a string-path
+    predicate, a presence shape and a row read on the card (the exact
+    route over the virtual lanes, then the hand route) and the keyless
+    bypass answer exactly as the same tablet read on the CPU."""
+    from yugabyte_db_tpu_torch.bypass import BypassSession
+    from yugabyte_db_tpu_torch.docdb.operations import ReadRequest
+    from yugabyte_db_tpu_torch.docstore import LAST_DOC_STATS
+    from yugabyte_db_tpu_torch.models import docbench as db
+    from yugabyte_db_tpu_torch.ops.scan import AggSpec
+    from yugabyte_db_tpu_torch.tablet import Tablet
+    from yugabyte_db_tpu_torch.utils import flags
+    from yugabyte_db_tpu_torch.utils.hybrid_time import HybridTime
+    cpu = Tablet("d", db.docs_info(), str(tmp_path), device="cpu")
+    cpu.bulk_load(db.generate_docs(40000, 3), ht=HybridTime(1 << 40),
+                  block_rows=8192)
+    gpu = Tablet("d", db.docs_info(), str(tmp_path), device=cuda_device)
+    tag = ("json", "text", ("col", db.DOC_COL), "tag")
+    region = ("json", "text", ("json", "text", ("col", db.DOC_COL), "meta"),
+              "region")
+    w, a = db.doc_qty_query()
+    shapes = [dict(where=w, aggregates=a),
+              dict(where=("cmp", "eq", tag, ("const", "beta")),
+                   aggregates=(AggSpec("count"), AggSpec("sum", a[0].expr))),
+              dict(where=("cmp", "eq", region, ("const", "eu")),
+                   aggregates=(AggSpec("count"),)),
+              dict(where=("isnull", ("json", "text", ("col", db.DOC_COL),
+                                     "qty")),
+                   aggregates=(AggSpec("count"),)),
+              dict(where=w, columns=("id", "doc"))]
+    read_ht = (1 << 40) + 4096
+    for hand in (False, True):
+        with flags.overridden("hand_scan_enabled", hand):
+            for kw in shapes:
+                got = gpu.read(ReadRequest("docs", read_ht=read_ht, **kw))
+                assert got.backend == "tpu" and LAST_DOC_STATS["coverage"] > 0
+                want = cpu.read(ReadRequest("docs", read_ht=read_ht, **kw))
+                assert want.backend == "tpu"
+                if got.agg_values is None:
+                    assert got.rows == want.rows and got.rows
+                else:
+                    assert [np.asarray(v).tolist() for v in got.agg_values] \
+                        == [np.asarray(v).tolist() for v in want.agg_values]
+    with BypassSession([gpu], read_ht=read_ht, device=cuda_device) as s:
+        outs, _, _ = s.scan_aggregate(w, a)
+    want = cpu.read(ReadRequest("docs", read_ht=read_ht, where=w,
+                                aggregates=a))
+    assert [np.asarray(v).tolist() for v in outs] == \
+        [np.asarray(v).tolist() for v in want.agg_values]

@@ -14,8 +14,7 @@ from yugabyte_db_tpu.storage.columnar import ColumnarBlock as JBlock
 from yugabyte_db_tpu_torch.models import tpch
 from yugabyte_db_tpu_torch.ops.device_batch import build_batch as pbuild
 from yugabyte_db_tpu_torch.ops.scan import (AggSpec, GroupSpec,
-                                            HashGroupSpec, NotPortedError,
-                                            ScanKernel)
+                                            HashGroupSpec, ScanKernel)
 from yugabyte_db_tpu_torch.storage.columnar import ColumnarBlock
 from tests.torch_parity import (assert_bitwise, assert_same_run, flags_set,
                                 float_dtype, jax_blocks, lineitem_data,
@@ -161,18 +160,18 @@ def test_signature_cache_and_compiles(blocks):
 
 
 def test_unported_shapes_raise_naming_the_roadmap(blocks):
-    # dedup mode, HashGroupSpec, the streamed scan's prefilter and the
-    # bypass reader's fused join plan are served now
-    # (tests/test_torch_mvcc.py, tests/test_torch_grouped.py,
-    # tests/test_torch_bypass.py, tests/test_torch_plan.py); the bypass
-    # reader's document-path scans are what still raise, naming their
-    # ROADMAP.md item
+    # dedup mode, HashGroupSpec, the streamed scan's prefilter, the
+    # bypass reader's fused join plan and its document-path scans are
+    # served now (tests/test_torch_mvcc.py, tests/test_torch_grouped.py,
+    # tests/test_torch_bypass.py, tests/test_torch_plan.py,
+    # tests/test_torch_docstore.py): a doc path over blocks without
+    # shredded lanes refuses typed, as the reference's bypass does
     from yugabyte_db_tpu_torch.bypass.scan import (bypass_plan_aggregate,
                                                    bypass_scan_aggregate)
     from yugabyte_db_tpu_torch.ops.join_scan import JoinWire
     from yugabyte_db_tpu_torch.ops.stream_scan import \
         streaming_scan_aggregate
-    _, _, pb = blocks
+    _, jb, pb = blocks
     _, pbat = _batches(blocks, "float32")
     k = ScanKernel(device="cpu")
     out = k.run(pbat, None, (AggSpec("count"),), HashGroupSpec(cols=(R,)))
@@ -191,9 +190,18 @@ def test_unported_shapes_raise_naming_the_roadmap(blocks):
                                          None, 1000, join, device="cpu")
     assert int(counts) == len(rowids[::2])
     doc = ("cmp", "gt", ("json", "->", ("col", Q), "a"), ("const", 1))
-    with pytest.raises(NotPortedError, match="ROADMAP.md"):
+    from yugabyte_db_tpu.bypass.scan import \
+        bypass_scan_aggregate as jbypass
+    from yugabyte_db_tpu.ops.scan import AggSpec as JAgg
+    from yugabyte_db_tpu_torch.bypass.errors import BypassIneligible
+    with pytest.raises(BypassIneligible) as e:
         bypass_scan_aggregate(pb, doc, (AggSpec("count"),), None, 1000,
                               device="cpu")
+    with pytest.raises(Exception) as je:
+        jbypass(jb, doc, (JAgg("count"),), None, 1000)
+    assert e.value.reason == "doc_shape"
+    assert (e.value.reason, e.value.detail) == \
+        (je.value.reason, je.value.detail)
     # no read point: mode none, served
     out = k.run(pbat, None, (AggSpec("count"),))
     assert int(out[0][0]) == pbat.n_rows

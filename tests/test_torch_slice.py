@@ -239,6 +239,69 @@ def test_import_check_covers_the_row_half():
     assert (PORT / "csrc" / "host_hot.c").is_file()
 
 
+def test_import_check_covers_the_document_store():
+    names = {str(p.relative_to(PORT)) for p in _port_sources()
+             if PORT in p.parents}
+    assert {"docstore/__init__.py", "docstore/errors.py",
+            "docstore/shred.py", "docstore/pushdown.py",
+            "utils/encryption.py", "models/docbench.py"} <= names
+
+
+def test_documents_and_encryption_run_without_jax_and_msgpack(tmp_path):
+    """A shredded document tablet in encrypted SSTs (a bulk load and the
+    bypass against the tablet read, then a flush of upserts and a
+    compaction), the doc-path query on the device route (the CPU)
+    against the interpreted one, in an interpreter where jax, msgpack
+    and the `cryptography` package cannot be imported: the files are
+    then BLAKE2b, the cipher where no AES provider imports."""
+    code = (_BLOCKED +
+            "sys.modules['cryptography'] = None\n"
+            "import json\n"
+            "import numpy as np\n"
+            "from yugabyte_db_tpu_torch.bypass import BypassSession\n"
+            "from yugabyte_db_tpu_torch.docdb.operations import (\n"
+            "    ReadRequest, RowOp, WriteRequest)\n"
+            "from yugabyte_db_tpu_torch.docstore import (DOC_WRITE_STATS,\n"
+            "    LAST_DOC_STATS)\n"
+            "from yugabyte_db_tpu_torch.models import docbench as db\n"
+            "from yugabyte_db_tpu_torch.tablet import Tablet\n"
+            "from yugabyte_db_tpu_torch.utils import encryption as enc\n"
+            "from yugabyte_db_tpu_torch.utils import flags\n"
+            "flags.set_flag('tpu_min_rows_for_pushdown', 64)\n"
+            "flags.set_flag('encrypt_data_at_rest', True)\n"
+            "enc.KEY_MANAGER.generate_key()\n"
+            f"t = Tablet('d', db.docs_info(), {str(tmp_path)!r},"
+            " device='cpu')\n"
+            "t.bulk_load(db.generate_docs(3000, 1), block_rows=1024)\n"
+            "w, a = db.doc_qty_query()\n"
+            "r = t.read(ReadRequest('docs', where=w, aggregates=a))\n"
+            "with BypassSession([t], device='cpu') as s:\n"
+            "    outs, _, _ = s.scan_aggregate(w, a)\n"
+            "assert [np.asarray(v).tolist() for v in outs] == \\\n"
+            "    [np.asarray(v).tolist() for v in r.agg_values]\n"
+            "t.apply_write(WriteRequest('docs', [RowOp('upsert', {'id': i,\n"
+            "    'doc': json.dumps({'qty': 7, 'tag': 'beta'})})\n"
+            "    for i in range(0, 3000, 10)]))\n"
+            "t.flush()\n"
+            "t.compact()\n"
+            "heads = {open(r.path, 'rb').read(9) for r in t.regular.ssts}\n"
+            "assert heads == {enc.MAGIC_V2 + bytes([enc.CIPHER_BLAKE2B])}\n"
+            "r = t.read(ReadRequest('docs', where=w, aggregates=a))\n"
+            "assert r.backend == 'tpu' and LAST_DOC_STATS['coverage'] > 0\n"
+            "flags.set_flag('doc_shred_enabled', False)\n"
+            "i = t.read(ReadRequest('docs', where=w, aggregates=a))\n"
+            "flags.set_flag('doc_shred_enabled', True)\n"
+            "got = [np.asarray(v).tolist() for v in r.agg_values]\n"
+            "assert i.backend == 'cpu'\n"
+            "assert got == [np.asarray(v).tolist() for v in i.agg_values]\n"
+            "assert DOC_WRITE_STATS['blocks_shredded'] >= 3\n"
+            "print(got[1])")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) > 300
+
+
 def test_hot_path_loader_reads_only_the_port_csrc():
     """The extension builds from the port's csrc/host_hot.c into build/;
     the loader names no file of the reference's native/ directory."""

@@ -23,7 +23,6 @@ from yugabyte_db_tpu.storage import sst as jsst
 from yugabyte_db_tpu.storage.lsm import LsmStore as JStore
 from yugabyte_db_tpu.utils.hybrid_time import HybridTime as JHT
 from yugabyte_db_tpu_torch.docdb.table_codec import TableCodec
-from yugabyte_db_tpu_torch.errors import NotPortedError
 from yugabyte_db_tpu_torch.models import tpch
 from yugabyte_db_tpu_torch.storage import columnar as pcol
 from yugabyte_db_tpu_torch.storage import lane_codec as plane
@@ -32,7 +31,7 @@ from yugabyte_db_tpu_torch.storage import sst as psst
 from yugabyte_db_tpu_torch.storage import wire_pack
 from yugabyte_db_tpu_torch.storage.lsm import LsmStore
 from yugabyte_db_tpu_torch.utils.hybrid_time import DocHybridTime, HybridTime
-from tests.torch_parity import tombstoned_block
+from tests.torch_parity import flags_set, tombstoned_block
 
 HT = 1_700_000_000_000_000 << 12
 
@@ -204,20 +203,16 @@ def test_encode_lane_matches_reference(name):
 @pytest.mark.parametrize("tomb", [False, True])
 def test_serialize_parts_byte_identical_and_cross_readable(table, version,
                                                            tomb):
-    """v2: both packages write the same bytes and read each other's.  v1
-    (the reference's pre-v2 format, which the port reads and does not
-    write): the reference's bytes read alike in both."""
+    """v1 and v2: both packages write the same bytes and read each
+    other's."""
     jb, pb, jc, pc = _blocks(table, tomb=tomb)
     for j, p in zip(jb, pb):
         for builder in ((jc.derive_keys, pc.derive_keys), (None, None)):
             jstats, pstats = {}, {}
             jraw = _bytes(j.serialize_parts(version, builder[0], jstats))
-            if version == 2:
-                praw = _bytes(p.serialize_parts(builder[1], pstats))
-                assert jraw == praw
-                assert jstats == pstats
-            else:
-                praw = jraw
+            praw = _bytes(p.serialize_parts(version, builder[1], pstats))
+            assert jraw == praw
+            assert jstats == pstats
             # each package reads the other's bytes
             for raw, copy in ((jraw, True), (memoryview(praw), False)):
                 back_p = pcol.ColumnarBlock.deserialize(raw, copy=copy)
@@ -227,11 +222,12 @@ def test_serialize_parts_byte_identical_and_cross_readable(table, version,
                 _assert_same_block(back_p, back_j)
                 assert np.array_equal(back_p.keys, p.keys)
     assert p.serialize() == j.serialize(2)
+    assert p.serialize(1) == j.serialize(1)
 
 
 def test_zone_maps_and_boundary_keys_without_materializing():
     _, pb, _, pc = _blocks("lineitem")
-    raw = _bytes(pb[0].serialize_parts(pc.derive_keys))
+    raw = _bytes(pb[0].serialize_parts(2, pc.derive_keys))
     back = pcol.ColumnarBlock.deserialize(raw)
     assert back.keys_proven and not back.keys_derivable
     back.bind_key_builder(pc.derive_keys)
@@ -251,7 +247,7 @@ def test_zone_maps_and_boundary_keys_without_materializing():
 
 def test_dict_coded_varlen_lane_serves_dict_varlen():
     jb, pb, jc, pc = _blocks("lineitem_str")
-    raw = _bytes(pb[0].serialize_parts(pc.derive_keys))
+    raw = _bytes(pb[0].serialize_parts(2, pc.derive_keys))
     pback = pcol.ColumnarBlock.deserialize(raw)
     jback = jcol.ColumnarBlock.deserialize(raw)
     assert pback._vdicts and set(pback._vdicts) == set(jback._vdicts)
@@ -289,25 +285,42 @@ def test_derive_keys_matches_bulk_keys_and_reference():
 
 
 def test_derived_and_shredded_lanes_refuse_to_serialize(tmp_path):
-    _, pb, _, _ = _blocks("lineitem")
-    p = pb[0]
+    """A derived lane (a column id at or above DERIVED_COL_BASE) is never
+    serialized: a block carrying one writes the reference's bytes, those
+    of the same block without it, in both formats.  The writer shreds
+    JSON columns only in v2 files with doc_shred_enabled on, as the
+    reference's does."""
+    jb, pb, jc, pc = _blocks("lineitem")
+    j, p = jb[0], pb[0]
+    plain = {v: _bytes(p.serialize_parts(v, pc.derive_keys)) for v in (1, 2)}
+    for blk in (j, p):
+        blk.fixed[pcol.DERIVED_COL_BASE + 1] = blk.fixed[tpch.QTY]
+        blk.varlen[pcol.DERIVED_COL_BASE + 2] = (
+            np.ones(blk.n, np.uint32), b"x", np.zeros(blk.n, bool))
+    for v in (1, 2):
+        raw = _bytes(p.serialize_parts(v, pc.derive_keys))
+        assert raw == plain[v] == _bytes(j.serialize_parts(v, jc.derive_keys))
+        assert pcol.DERIVED_COL_BASE + 1 not in \
+            pcol.ColumnarBlock.deserialize(raw).fixed
     path = str(tmp_path / "s.sst")
-    with pytest.raises(NotPortedError) as e:
-        psst.SstWriter(path, shred_cols=(3,))
-    assert "shredding" in str(e.value) and "item 9" in str(e.value)
-    p.fixed[pcol.DERIVED_COL_BASE + 1] = p.fixed[tpch.QTY]
-    with pytest.raises(NotPortedError) as e:
-        p.serialize_parts()
-    assert "item 9" in str(e.value)
+    for on in (True, False):
+        for version in (1, 2):
+            with flags_set({"doc_shred_enabled": on,
+                            "sst_format_version": version},
+                           {"doc_shred_enabled": on,
+                            "sst_format_version": version}):
+                w = psst.SstWriter(path, shred_cols=(3,))
+                jw = jsst.SstWriter(path, shred_cols=(3,))
+            assert w.shred_cols == jw.shred_cols == \
+                ((3,) if on and version == 2 else ())
+            assert w._fmt == jw._fmt == version
 
 
 # --- SST files ---------------------------------------------------------------------
 def _write(mod, path, blocks, version, stream, key_builder, frontier):
-    """One SST from `blocks`; the port's writer writes v2 only."""
-    kw = {"format_version": version} if mod is jsst else {}
-    assert mod is jsst or version == 2
+    """One SST from `blocks` in format `version`."""
     w = mod.SstWriter(path, stream_columnar=stream, key_builder=key_builder,
-                      **kw)
+                      format_version=version)
     for b in blocks:
         w.add_columnar_block(b)
     w.set_frontier(**frontier)
@@ -318,14 +331,12 @@ def _write(mod, path, blocks, version, stream, key_builder, frontier):
 @pytest.mark.parametrize("version", [1, 2])
 def test_sst_files_byte_identical_streamed_and_buffered(tmp_path, table,
                                                         version):
-    """v2 files of both packages, streamed and buffered, are one byte
-    string; v1 files (written by the reference only) read alike in
-    both."""
+    """v1 and v2 files of both packages, streamed and buffered, are one
+    byte string, and each package reads the other's."""
     jb, pb, jc, pc = _blocks(table)
     frontier = {"op_id": [3, 141], "history_cutoff": HT}
-    writers = [("j", jsst, jb, jc.derive_keys)]
-    if version == 2:
-        writers.append(("p", psst, pb, pc.derive_keys))
+    writers = [("j", jsst, jb, jc.derive_keys),
+               ("p", psst, pb, pc.derive_keys)]
     files = {}
     for stream in (False, True):
         for name, mod, blocks, kb in writers:
@@ -388,8 +399,8 @@ def test_row_paths_and_encryption_are_refused(tmp_path):
     """Row KV blocks: both packages write one file from the same entries
     (a row region and a columnar sidecar per block), and read it alike —
     iterate, seek, point_find at several read points and the restart
-    window, the whole-SST point reader's answers; encrypted files stay
-    refused."""
+    window, the whole-SST point reader's answers; the reference's
+    encrypted file, in either envelope, reads as the plain one."""
     jb, pb, jc, pc = _blocks("lineitem")
     entries = pc.row_decoder(pb[0]) + pc.row_decoder(pb[1])
     assert entries == jc.row_decoder(jb[0]) + jc.row_decoder(jb[1])
@@ -433,13 +444,28 @@ def test_row_paths_and_encryption_are_refused(tmp_path):
     w.add(b"k", b"v")
     with pytest.raises(ValueError):
         w.add(b"a", b"v")                         # out of order
-    enc = str(tmp_path / "e.sst")
-    for magic in (b"YBTPUENC", b"YBTPUEN2"):      # the reference's envelopes
-        with open(enc, "wb") as f:
-            f.write(magic + b"\x00" * 64)
-        with pytest.raises(NotPortedError) as e:
-            psst.SstReader(enc)
-        assert "encrypt" in str(e.value) and "item 9" in str(e.value)
+    from yugabyte_db_tpu.utils import encryption as jenc
+    from yugabyte_db_tpu_torch.utils import encryption as penc
+    key, nonce = bytes(range(32)), bytes(range(16))
+    jenc.KEY_MANAGER.keys["row-test"] = penc.KEY_MANAGER.keys["row-test"] = \
+        key
+    try:
+        plain = files["j"]
+        envelopes = (   # the reference's v1 (BLAKE2b) and v2 envelopes
+            jenc.MAGIC + bytes([8]) + b"row-test" + nonce
+            + jenc.CipherStream(key, nonce).xor(plain),
+            jenc.MAGIC_V2 + bytes([jenc.CIPHER_BLAKE2B, 8]) + b"row-test"
+            + nonce + jenc.CipherStream(key, nonce).xor(plain))
+        enc = str(tmp_path / "e.sst")
+        for raw in envelopes:
+            with open(enc, "wb") as f:
+                f.write(raw)
+            er = psst.SstReader(enc, row_decoder=pc.row_decoder)
+            assert er.file_size == len(plain)
+            assert list(er.iterate()) == entries
+    finally:
+        for m in (jenc.KEY_MANAGER, penc.KEY_MANAGER):
+            del m.keys["row-test"]
 
 
 # --- the host library against its numpy twins ------------------------------------

@@ -29,7 +29,6 @@ from yugabyte_db_tpu.tablet import Tablet as JTablet
 from yugabyte_db_tpu.utils import hybrid_time as jht
 from yugabyte_db_tpu_torch.docdb.operations import RowOp, WriteRequest
 from yugabyte_db_tpu_torch.docdb.table_codec import TableCodec
-from yugabyte_db_tpu_torch.errors import NotPortedError
 from yugabyte_db_tpu_torch.storage import wire_pack
 from yugabyte_db_tpu_torch.tablet import Tablet
 from yugabyte_db_tpu_torch.utils import hybrid_time as pht
@@ -233,7 +232,8 @@ def test_bulk_blocks_take_vector_json_decimal(block_rows, emb_form):
 def test_bulk_load_writes_the_reference_sst(tmp_path, column):
     """Tablet.bulk_load of a VECTOR, DECIMAL or JSON value column writes
     the reference's SST and manifest byte for byte (JSON with document
-    shredding off in both: the port does not shred)."""
+    shredding off in both; test_json_bulk_load_refuses_shredding holds
+    the shredding writer)."""
     jinfo, pinfo = vec_infos(extra=(column,))
     cols = {k: v for k, v in _extra_columns(300).items()
             if k in ("id", "emb", column)}
@@ -254,13 +254,24 @@ def test_bulk_load_writes_the_reference_sst(tmp_path, column):
 
 
 def test_json_bulk_load_refuses_shredding(tmp_path):
-    """With doc_shred_enabled on (the default) the reference's writer
-    shreds a JSON column; the port refuses it, naming its item."""
-    _, pinfo = vec_infos(extra=("doc",))
-    pt = Tablet("v", pinfo, str(tmp_path), device="cpu")
-    with pytest.raises(NotPortedError, match="shredding"):
-        pt.bulk_load({k: v for k, v in _extra_columns(20).items()
-                      if k != "amt"})
+    """With doc_shred_enabled on (the default) both writers shred the
+    JSON column of a bulk load: the reference's SST and manifest byte
+    for byte, with the shredded lanes in the block, and the rows read
+    back alike."""
+    jinfo, pinfo = vec_infos(extra=("doc",))
+    cols = {k: v for k, v in _extra_columns(300).items() if k != "amt"}
+    jt, pt = _open(str(tmp_path), ("j", "p"), (jinfo, pinfo),
+                   jht.MockPhysicalClock(WRITE_BASE_US),
+                   pht.MockPhysicalClock(WRITE_BASE_US))
+    assert jt.bulk_load(cols, block_rows=64) == \
+        pt.bulk_load(cols, block_rows=64) == 300
+    assert store_files(pt.regular) == store_files(jt.regular)
+    cid = pt.codec.shred_cols[0]
+    assert pt.regular.ssts[0].columnar_block(0).shred[cid]
+    from yugabyte_db_tpu.docdb.operations import ReadRequest as JReq
+    from yugabyte_db_tpu_torch.docdb.operations import ReadRequest
+    assert pt.read(ReadRequest("t1", columns=("id", "doc"))).rows == \
+        jt.read(JReq("t1", columns=("id", "doc"))).rows
 
 
 def test_bulk_load_refuses_a_string_key():

@@ -28,7 +28,11 @@ aggregates on the card over SST + memtable); the point-read hot path in
 the host extension (``docdb.hotpath``, ``csrc/host_hot.c``: whole-SST
 point readers, the fused range read, the row extractor and packer);
 the native compaction backend; ALTER TABLE with the repacking
-compactions, TRUNCATE, snapshots and trim; colocated tablets.
+compactions, TRUNCATE, snapshots and trim; colocated tablets; the
+document store (JSON paths shredded at write into v2 lanes, doc-path
+predicates and aggregates on the card's existing scan machinery, the
+bypass and compaction over shredded lanes); the v1 SST writer; and
+encryption at rest.
 
 Device rule: every entry point takes ``device=`` and defaults to
 ``"cuda"``; asking for CUDA where there is none raises
@@ -40,7 +44,7 @@ Package layout:
   device.py   device resolution and validation
   errors.py   the typed NotPortedError refusal
   utils/      flags (only those the ported paths read), hybrid times,
-              the memtable's sorted map
+              the memtable's sorted map, encryption at rest
   dockv/      column schemas and packed rows, doc key encoding, values
               and TTL envelopes, partitioning, bulk encoders
   storage/    ColumnarBlock (struct-of-arrays rows, string lanes, v1/v2
@@ -59,10 +63,13 @@ Package layout:
   tablet/     Tablet: one shard's (or a colocated group's) stores,
               codecs, writes, reads, flush, compaction, ALTER, TRUNCATE,
               snapshots
+  docstore/   JSON path shredding (shred) and the doc-path rewrite
+              onto virtual shredded columns (pushdown)
   bypass/     snapshot pinner, SST-direct scan with the near-data
               prefilter, BypassSession
   models/     TPC-H lineitem generator and refresh functions, Q6/Q1 and
-              their numpy answers; the YCSB usertable workload
+              their numpy answers; the YCSB usertable workload; the
+              document workload (docbench)
   ops/        expression compiler, device batches and cache, scan
               kernel with the shard combine and zone pruning, dictionary
               GROUP BY (grouped_scan), streaming scan (stream_scan),

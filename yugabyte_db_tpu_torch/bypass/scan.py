@@ -19,8 +19,11 @@ raises BypassIneligible with a typed reason and the caller falls back
 to ``Tablet.read``.  What it serves equals the tablet read path at the
 same read point bit for bit: the same zone-prune gate, chunk plan and
 bucket, kernel and combine, and the same monolithic twin under
-``min_chunks``.  Document-path scans raise NotPortedError (ROADMAP.md
-queue 1 item 9b).
+``min_chunks``.  Document-path shapes rewrite onto the shredded lanes
+first (docstore/pushdown.py ``prepare_doc_scan``) and then scan like
+any column; a shape the lanes cannot serve raises
+``BypassIneligible(REASON_DOC_SHAPE)`` with the docstore reason in
+``detail``, and ``REASON_DOC_OFF`` while ``doc_shred_enabled`` is off.
 """
 from __future__ import annotations
 
@@ -28,7 +31,6 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..errors import NotPortedError
 from ..ops.device_batch import bucket_rows, build_batch
 from ..ops.grouped_scan import DictGroupSpec
 from ..ops.scan import (AggSpec, HashGroupSpec, ScanKernel, _np,
@@ -38,15 +40,14 @@ from ..ops.stream_scan import (LAST_STREAM_STATS, chunk_safe_mvcc,
 from ..storage.columnar import KEY_REBUILD_STATS, ColumnarBlock
 from ..storage.sst import SstReader
 from ..utils import flags
-from .errors import (REASON_COLUMN_NOT_FIXED, REASON_EXPR_SHAPE,
+from .errors import (REASON_COLUMN_NOT_FIXED, REASON_DOC_OFF,
+                     REASON_DOC_SHAPE, REASON_EXPR_SHAPE,
                      REASON_GROUPED_OFF, REASON_HASH_GROUP,
                      REASON_JOIN_OFF, REASON_JOIN_SHAPE,
                      REASON_NO_COLUMNAR, REASON_NOT_AGGREGATE,
                      REASON_NOT_CHUNK_SAFE, REASON_SLOT_OVERFLOW,
                      BypassIneligible)
 from .prefilter import make_prefilter
-
-_DOC_ITEM = "queue 1 item 9b (document shredding)"
 
 
 def open_snapshot_readers(snap) -> List[SstReader]:
@@ -89,12 +90,6 @@ def collect_keyless_blocks(readers: Sequence[SstReader]
                     "ssts": len(readers)}
 
 
-def _has_doc_nodes(where, aggs) -> bool:
-    from ..docdb.operations import has_doc_nodes
-    return (where is not None and has_doc_nodes(where)) or any(
-        a.expr is not None and has_doc_nodes(a.expr) for a in aggs)
-
-
 def bypass_scan_aggregate(
         blocks: Sequence[ColumnarBlock],
         where: Optional[tuple], aggs: Sequence[AggSpec],
@@ -121,8 +116,21 @@ def bypass_scan_aggregate(
     dict_group = isinstance(group, DictGroupSpec)
     if dict_group and not flags.get("grouped_pushdown_enabled"):
         raise BypassIneligible(REASON_GROUPED_OFF)
-    if _has_doc_nodes(where, aggs):
-        raise NotPortedError("document-path bypass scans", _DOC_ITEM)
+    # doc-path shapes rewrite onto shredded virtual lanes FIRST; the
+    # keyless scanner then serves them like any derived column (the
+    # shredded lanes need no key matrix, so no key rebuilds)
+    from ..docstore import pushdown as _doc
+    if _doc.exprs_have_doc(where, aggs):
+        if not flags.get("doc_shred_enabled"):
+            raise BypassIneligible(REASON_DOC_OFF)
+        from ..docstore.errors import DocIneligible
+        try:
+            where, aggs, _refs, blocks = _doc.prepare_doc_scan(
+                where, aggs, blocks)
+        except DocIneligible as e:
+            raise BypassIneligible(
+                REASON_DOC_SHAPE,
+                e.reason + (f": {e.detail}" if e.detail else ""))
     from ..ops.expr import device_compatible
     if where is not None and not device_compatible(where):
         raise BypassIneligible(REASON_EXPR_SHAPE, "where")

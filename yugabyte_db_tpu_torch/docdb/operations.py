@@ -39,8 +39,10 @@ paths, as in the reference.  A dictionary GROUP BY past its slot budget
 takes the partial-spill merge on either route (``grouped_spill_merge_
 enabled``): the device's in-range slots stay, the spilled rows
 re-aggregate on the interpreted tail, and the two combine by group key.
-Still refused with ``NotPortedError``: document-path pushdown
-(ROADMAP.md queue 1 item 9b).
+Document-path predicates and aggregates over a table with JSON columns
+rewrite onto the blocks' shredded lanes (``_maybe_doc_rewrite``,
+docstore/pushdown.py) and run on the same routes; a shape the lanes
+cannot serve exactly records its typed reason and answers interpreted.
 
 String columns ride on the device as codes into SORTED scan-global
 dictionaries, so ordering predicates map to code ranges, equality/IN to
@@ -61,7 +63,6 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..dockv.key_encoding import ValueType
 from ..dockv.value import ValueKind, unwrap_ttl, wrap_ttl
-from ..errors import NotPortedError
 from ..ops.device_batch import build_batch
 from ..ops.grouped_scan import DictGroupSpec
 from ..ops.scan import (AggSpec, HashGroupSpec, ScanKernel, _np,
@@ -72,7 +73,6 @@ from ..utils import flags
 from ..utils.hybrid_time import ENCODED_SIZE, DocHybridTime, HybridTime
 from .hotpath import POINT_READ_STATS
 
-_DOC_ITEM = "queue 1 item 9b (document shredding)"
 _HT_SUFFIX = ENCODED_SIZE + 1
 
 #: zone-map pruning tally of the most recent monolithic pushdown scan
@@ -1016,16 +1016,6 @@ def dict_minmax_decode(expanded, outs, dicts):
     return tuple(outs)
 
 
-def has_doc_nodes(node) -> bool:
-    """True when an expression reads a JSON document path."""
-    if not isinstance(node, (tuple, list)) or not node:
-        return False
-    if node[0] == "json":
-        return True
-    return any(has_doc_nodes(c) for c in node[1:]
-               if isinstance(c, (tuple, list)))
-
-
 class ReadRestartError(Exception):
     """Internal: a record inside the clock-uncertainty window was seen;
     the read restarts at restart_ht (tserver/read_query.cc)."""
@@ -1460,18 +1450,53 @@ class DocReadOperation:
         if not flags.get("tpu_pushdown_enabled"):
             return False
         from ..ops.expr import device_compatible
-        if self.codec.shred_cols and (
-                (req.where is not None and has_doc_nodes(req.where))
-                or any(a.expr is not None and has_doc_nodes(a.expr)
-                       for a in req.aggregates)):
-            raise NotPortedError("document-path pushdown", _DOC_ITEM)
-        if req.where is not None and not device_compatible(req.where):
+        compatible = device_compatible
+        json_cols = set(self.codec.shred_cols)
+        if json_cols and flags.get("doc_shred_enabled"):
+            # doc-path shapes MAY rewrite onto shredded lanes: judge the
+            # rest of the expression with them neutralized (the block
+            # level rewrite still falls back typed)
+            from ..docstore.pushdown import doc_compatible
+
+            def compatible(n, _jc=json_cols):
+                return doc_compatible(n, _jc)
+        if req.where is not None and not compatible(req.where):
             return False
         for a in req.aggregates:
-            if a.expr is not None and not device_compatible(a.expr):
+            if a.expr is not None and not compatible(a.expr):
                 return False
         approx_rows = sum(r.num_entries for r in self.store.ssts)
         return approx_rows >= flags.get("tpu_min_rows_for_pushdown")
+
+    def _maybe_doc_rewrite(self, req: ReadRequest, blocks
+                           ) -> Optional[ReadRequest]:
+        """Doc-path pushdown (docstore/): a request that reads JSON
+        paths comes back rewritten onto shredded virtual lanes, with
+        ``blocks`` replaced in place by their scan-lifetime clones that
+        carry those lanes; `req` unchanged when it reads no path; None
+        when the lanes cannot serve the shapes exactly (the typed reason
+        is recorded and the interpreted path answers)."""
+        json_cols = set(self.codec.shred_cols)
+        if not json_cols:
+            return req
+        from ..docstore import pushdown as _doc
+        if not _doc.exprs_have_doc(req.where, req.aggregates):
+            return req
+        from ..docstore.errors import REASON_OFF, DocIneligible
+        if not flags.get("doc_shred_enabled"):
+            _doc.record_fallback(REASON_OFF)
+            return None
+        try:
+            where, aggs, _refs, attached = _doc.prepare_doc_scan(
+                req.where, req.aggregates, blocks, json_cols)
+        except DocIneligible as e:
+            _doc.record_fallback(e.reason)
+            return None
+        # the cached originals (also read by compaction and point reads)
+        # stay untouched: the caller scans the clones
+        blocks[:] = attached
+        from dataclasses import replace
+        return replace(req, where=where, aggregates=aggs)
 
     def _collect_blocks(self) -> Optional[List[ColumnarBlock]]:
         """Every columnar block across the store's SSTs, plus one block
@@ -1752,6 +1777,9 @@ class DocReadOperation:
         blocks = self._collect_blocks()
         if not blocks:
             return None
+        req = self._maybe_doc_rewrite(req, blocks)
+        if req is None:
+            return None     # typed doc fallback: interpreted row path
         needed = needed_probe_columns(req.where, req.aggregates,
                                       req.group_by)
         if isinstance(req.group_by, DictGroupSpec) \
@@ -2042,6 +2070,9 @@ class DocReadOperation:
         blocks = self._collect_blocks()
         if not blocks:
             return None
+        req = self._maybe_doc_rewrite(req, blocks)
+        if req is None:
+            return None     # typed doc fallback: interpreted row path
         from ..ops.expr import referenced_columns
         from ..ops.stream_scan import chunk_safe_mvcc
         needed = set(referenced_columns(req.where))

@@ -113,7 +113,7 @@ class TableCodec:
                         ColumnType.DECIMAL))
             for c in self.schema.value_columns)
         # JSON value columns: candidates for document shredding, threaded
-        # as `shred_cols` through LsmStore / SstWriter (which refuse them)
+        # as `shred_cols` through LsmStore / SstWriter (docstore/shred.py)
         self.shred_cols = tuple(
             c.id for c in self.schema.value_columns
             if c.type == ColumnType.JSON)

@@ -1,0 +1,43 @@
+"""Document shredding subsystem: nested JSON paths as columnar lanes.
+
+Counterpart of ``yugabyte_db_tpu/docstore/``, pure Python and numpy:
+the same shredded bytes on disk and the same rewrite, over the port's
+own lane codec, flags, ``AggSpec`` and ``ColumnarBlock``.
+
+Write side (:mod:`.shred`): at flush/compaction time, infer a path
+schema from a block's JSON column values and shred qualifying scalar
+paths into derived per-path v2 lanes (int/float/dict-coded string +
+presence bitmap + zone bounds), serialized through the shared lane
+codec behind ``doc_shred_enabled`` — flag-off output is byte-identical
+to the pre-shred v2 writer, and the raw JSON payload always stays.
+
+Scan side (:mod:`.pushdown`): doc-path predicates and aggregates
+rewrite onto virtual derived columns over the shredded lanes and run
+through the EXISTING device machinery (the exact route's programs and
+the hand route's K3, the string-dictionary rewrite, zone pruning,
+streamed chunks, the keyless bypass): no kernel of its own.  Anything
+unservable raises a typed :class:`.errors.DocIneligible` and falls
+back to the interpreted row path bit-identically.
+
+Layering: pure library — may import storage/dockv/ops/utils, never
+tablet or bypass.
+"""
+from .errors import (ALL_REASONS, REASON_DOC_SHAPE,
+                     REASON_KIND_MISMATCH, REASON_NOT_DOC_COLUMN,
+                     REASON_OFF, REASON_UNSHREDDED_BLOCK,
+                     DocIneligible)
+from .pushdown import (DOC_COL_BASE, DOC_STATS, LAST_DOC_STATS,
+                       attach_shredded, doc_compatible, exprs_have_doc,
+                       has_doc_nodes, prepare_doc_scan, record_fallback,
+                       rewrite_doc, vcid_for)
+from .shred import DOC_WRITE_STATS, infer_paths, shred_lanes
+
+__all__ = [
+    "ALL_REASONS", "DOC_COL_BASE", "DOC_STATS", "DOC_WRITE_STATS",
+    "DocIneligible", "LAST_DOC_STATS", "REASON_DOC_SHAPE",
+    "REASON_KIND_MISMATCH", "REASON_NOT_DOC_COLUMN", "REASON_OFF",
+    "REASON_UNSHREDDED_BLOCK", "attach_shredded", "doc_compatible",
+    "exprs_have_doc", "has_doc_nodes", "infer_paths",
+    "prepare_doc_scan", "record_fallback", "rewrite_doc", "shred_lanes",
+    "vcid_for",
+]

@@ -1,0 +1,475 @@
+"""Scan-side document pushdown: doc-path expressions -> shredded lanes.
+
+Counterpart of ``yugabyte_db_tpu/docstore/pushdown.py``.
+
+A shredded path behaves exactly like a derived column: this module
+assigns each referenced ``(json column, path)`` pair a process-stable
+VIRTUAL column id (>= DOC_COL_BASE, disjoint from schema and join-build
+ids), injects the stored per-path lanes into every block of the scan
+(``attach_shredded`` — int/float paths become fixed lanes with zone-map
+entries, string paths become dictionary varlen lanes), and rewrites the
+WHERE/aggregate ASTs so the EXISTING device machinery serves them: the
+scan kernel compares fixed lanes, the string rewrite maps
+dictionary predicates to code space, zone maps prune whole blocks, and
+the grouped/bypass/streaming routes need no doc-specific kernels.
+
+The rewrite is bit-parity-driven.  The interpreted extractor
+(docdb/operations.eval_expr_py "json") returns TEXT — raw strings for
+string values, the JSON dump for everything else — so:
+
+  string paths  the full predicate set (eq/ne/ordering/IN/BETWEEN/
+                LIKE) pushes down: dictionary codes are sorted by
+                bytes, which IS text order; MIN/MAX/COUNT aggregate
+                over codes and decode through the scan-global
+                dictionary (docdb/operations.py dict_minmax_decode)
+  numeric paths eq/ne/IN against canonical JSON text push down as
+                value compares; CAST(doc->>'p' AS <int/double>) shapes
+                push down as native numeric compares/aggregates (the
+                canonical text round-trips the value exactly); bare
+                ORDERING over the text stays interpreted — text order
+                is not numeric order, and bit-parity wins over speed
+  is-null       pushes down for every kind (absence == presence-lane 0)
+
+Anything else raises :class:`DocIneligible` with a typed reason and the
+caller falls back to the interpreted row path, byte-identical to a
+build without the subsystem.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .errors import (REASON_DOC_SHAPE, REASON_KIND_MISMATCH,
+                     REASON_NOT_DOC_COLUMN, REASON_UNSHREDDED_BLOCK,
+                     DocIneligible)
+
+#: virtual column ids for (json col, path) pairs live here — above the
+#: join build-column band (ops/join_scan.BUILD_COL_BASE = 1<<20), so
+#: the two derived-column spaces can never collide
+DOC_COL_BASE = 1 << 24
+
+_VCID_LOCK = threading.Lock()
+_VCIDS: Dict[Tuple[int, tuple], int] = {}
+
+#: cumulative scan-side accounting
+DOC_STATS = {"shredded_scans": 0, "fallbacks": 0, "reasons": {}}
+#: stats of the most recent shredded scan (chip_smoke.py reads these)
+LAST_DOC_STATS: dict = {}
+
+_INT_CASTS = ("cast_bigint", "cast_int", "cast_integer", "cast_int8",
+              "cast_int4", "cast_smallint")
+_FLOAT_CASTS = ("cast_double", "cast_float8", "cast_float",
+                "cast_real", "cast_float4")
+
+
+def vcid_for(cid: int, path: tuple) -> int:
+    """Process-stable virtual column id of one (json col, path) pair.
+    Stability matters: device-cache keys embed the `needed` column set,
+    so the same path must resolve to the same id for a cached batch to
+    be reusable — and two different paths must never share one."""
+    key = (cid, tuple(path))
+    with _VCID_LOCK:
+        v = _VCIDS.get(key)
+        if v is None:
+            v = DOC_COL_BASE + len(_VCIDS)
+            _VCIDS[key] = v
+        return v
+
+
+def record_fallback(reason: str) -> None:
+    DOC_STATS["fallbacks"] += 1
+    DOC_STATS["reasons"][reason] = \
+        DOC_STATS["reasons"].get(reason, 0) + 1
+
+
+# ---------------------------------------------------------------------------
+# Shape detection (no blocks needed — the _tpu_eligible gate)
+# ---------------------------------------------------------------------------
+
+def has_doc_nodes(node) -> bool:
+    if not isinstance(node, (tuple, list)) or not node or \
+            not isinstance(node[0], str):
+        return False
+    if node[0] == "json":
+        return True
+    if node[0] in ("in", "like", "ilike", "dictlut"):
+        return has_doc_nodes(node[1])
+    return any(has_doc_nodes(c) for c in node[1:])
+
+
+def exprs_have_doc(where, aggs) -> bool:
+    if where is not None and has_doc_nodes(where):
+        return True
+    return any(a.expr is not None and has_doc_nodes(a.expr)
+               for a in aggs)
+
+
+def _chain_of(node, json_cols) -> Tuple[int, tuple]:
+    """(cid, path) of a json extraction chain, or DocIneligible."""
+    path = []
+    cur = node
+    while isinstance(cur, (tuple, list)) and cur and cur[0] == "json":
+        key = cur[3]
+        if not isinstance(key, str):
+            raise DocIneligible(REASON_DOC_SHAPE,
+                                "array subscript in path")
+        path.append(key)
+        cur = cur[2]
+    if not (isinstance(cur, (tuple, list)) and cur
+            and cur[0] == "col"):
+        raise DocIneligible(REASON_NOT_DOC_COLUMN,
+                            "json chain does not end at a column")
+    cid = cur[1]
+    if json_cols is not None and cid not in json_cols:
+        raise DocIneligible(REASON_NOT_DOC_COLUMN, f"column {cid}")
+    return cid, tuple(reversed(path))
+
+
+def _neutralize(node, json_cols):
+    """Copy of `node` with doc-candidate shapes replaced by neutral
+    constants, so ops.expr.device_compatible can judge the REST of the
+    expression (the _tpu_eligible gate must not reject a scan whose
+    only exotic nodes are rewritable doc shapes)."""
+    if not isinstance(node, (tuple, list)) or not node or \
+            not isinstance(node[0], str):
+        return node
+    kind = node[0]
+    if kind == "json":
+        try:
+            _chain_of(node, json_cols)
+        except DocIneligible:
+            return node              # stays "json": judged ineligible
+        return ("const", 0)
+    if kind == "fn" and len(node) == 3 and \
+            node[1] in _INT_CASTS + _FLOAT_CASTS and \
+            has_doc_nodes(node[2]):
+        return ("const", 0)
+    if kind in ("in", "like", "ilike", "dictlut"):
+        return (kind, _neutralize(node[1], json_cols)) + tuple(node[2:])
+    return (kind,) + tuple(_neutralize(c, json_cols)
+                           for c in node[1:])
+
+
+def doc_compatible(node, json_cols) -> bool:
+    """device_compatible, treating rewritable doc shapes as leaves."""
+    from ..ops.expr import device_compatible
+    return device_compatible(_neutralize(node, json_cols))
+
+
+# ---------------------------------------------------------------------------
+# The rewrite (blocks in hand — kinds are known)
+# ---------------------------------------------------------------------------
+
+def _canon_int(t) -> Optional[int]:
+    """int whose canonical JSON text equals `t`, else None.  Values
+    outside int64 are non-canonical BY FIAT: shredded lanes only hold
+    int64s (write-side _classify), so such a constant can never match
+    a present value — and it must compile to the constant-false form,
+    not reach a tensor constant (which would raise OverflowError)."""
+    if not isinstance(t, str):
+        return None
+    try:
+        v = int(t)
+    except ValueError:
+        return None
+    if not (-(2 ** 63) <= v <= 2 ** 63 - 1):
+        return None
+    return v if str(v) == t else None
+
+
+def _canon_float(t) -> Optional[float]:
+    """FINITE float whose canonical JSON text equals `t`, else None.
+    Non-finite parses ('inf', 'Infinity', 'nan') are rejected: shredded
+    float lanes hold finite values only (write-side _classify tags
+    non-finite documents unshreddable), and NaN text equality is TRUE
+    interpreted ('NaN' == 'NaN') while float NaN never compares equal —
+    so non-finite constants take the constant-false rewrite."""
+    if not isinstance(t, str):
+        return None
+    try:
+        v = float(t)
+    except ValueError:
+        return None
+    if not np.isfinite(v):
+        return None
+    return v if repr(v) == t else None
+
+
+class _Rewriter:
+    """One scan's doc rewrite: resolves chains against the actual
+    block set (kinds must agree across EVERY block), assigns vcids,
+    and collects the refs attach_shredded materializes."""
+
+    def __init__(self, blocks, json_cols=None):
+        self.blocks = blocks
+        self.json_cols = json_cols
+        #: {(cid, path): (vcid, kind)}
+        self.refs: Dict[Tuple[int, tuple], Tuple[int, str]] = {}
+
+    def resolve(self, node) -> Tuple[int, str]:
+        """(vcid, kind) of a json chain node, verified over blocks."""
+        cid, path = _chain_of(node, self.json_cols)
+        got = self.refs.get((cid, path))
+        if got is not None:
+            return got
+        kind = None
+        for b in self.blocks:
+            sh = getattr(b, "shred", None)
+            ent = (sh.get(cid) or {}).get(path) if sh else None
+            if ent is None:
+                raise DocIneligible(
+                    REASON_UNSHREDDED_BLOCK,
+                    f"col {cid} path $.{'.'.join(path)}")
+            if kind is None:
+                kind = ent[0]
+            elif kind != ent[0]:
+                raise DocIneligible(
+                    REASON_KIND_MISMATCH,
+                    f"$.{'.'.join(path)}: {kind} vs {ent[0]}")
+        if kind is None:               # no blocks: nothing to serve
+            raise DocIneligible(REASON_UNSHREDDED_BLOCK, "no blocks")
+        v = (vcid_for(cid, path), kind)
+        self.refs[(cid, path)] = v
+        return v
+
+    # -- expression rewrite ------------------------------------------
+    def rewrite(self, node):
+        if not isinstance(node, (tuple, list)) or not node or \
+                not isinstance(node[0], str):
+            return node
+        kind = node[0]
+        if kind == "json":
+            vcid, k = self.resolve(node)
+            if k == "s":
+                return ("col", vcid)   # text lane: full predicate set
+            raise DocIneligible(
+                REASON_DOC_SHAPE,
+                f"numeric path used as text (kind {k})")
+        if kind == "fn":
+            if len(node) == 3 and isinstance(node[2], (tuple, list)) \
+                    and node[2] and node[2][0] == "json":
+                vcid, k = self.resolve(node[2])
+                if node[1] in _INT_CASTS and k == "i":
+                    return ("col", vcid)
+                if node[1] in _FLOAT_CASTS and k == "f":
+                    return ("col", vcid)
+                raise DocIneligible(
+                    REASON_DOC_SHAPE,
+                    f"cast {node[1]} over kind {k} path")
+            if has_doc_nodes(node):
+                raise DocIneligible(REASON_DOC_SHAPE,
+                                    f"fn {node[1]} over doc path")
+            return node
+        if kind == "cmp":
+            got = self._rewrite_cmp(node)
+            if got is not None:
+                return got
+        elif kind == "in":
+            got = self._rewrite_in(node)
+            if got is not None:
+                return got
+            return ("in", self.rewrite(node[1]), node[2])
+        elif kind == "between":
+            if node[1][0] == "json":
+                vcid, k = self.resolve(node[1])
+                if k != "s":
+                    raise DocIneligible(
+                        REASON_DOC_SHAPE,
+                        "range compare over numeric path text")
+                return ("between", ("col", vcid), node[2], node[3])
+        elif kind in ("like", "ilike"):
+            if isinstance(node[1], (tuple, list)) and node[1] and \
+                    node[1][0] == "json":
+                vcid, k = self.resolve(node[1])
+                if k != "s":
+                    raise DocIneligible(REASON_DOC_SHAPE,
+                                        f"LIKE over kind {k} path")
+                return (kind, ("col", vcid), node[2])
+            return (kind, self.rewrite(node[1]), node[2])
+        elif kind == "isnull":
+            if isinstance(node[1], (tuple, list)) and node[1] and \
+                    node[1][0] == "json":
+                vcid, _k = self.resolve(node[1])
+                return ("isnull", ("col", vcid))
+        return (kind,) + tuple(self.rewrite(c) for c in node[1:])
+
+    def _rewrite_cmp(self, node):
+        op, l, r = node[1], node[2], node[3]
+        flip = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le",
+                "eq": "eq", "ne": "ne"}
+        if isinstance(r, (tuple, list)) and r and r[0] == "json" and \
+                not (isinstance(l, (tuple, list)) and l
+                     and l[0] == "json"):
+            return self._rewrite_cmp(("cmp", flip[op], r, l))
+        if not (isinstance(l, (tuple, list)) and l
+                and l[0] == "json"):
+            return None                # generic walk handles children
+        vcid, k = self.resolve(l)
+        if k == "s":
+            # text lane: every compare shape pushes down; the string
+            # rewrite maps it to code space downstream
+            return ("cmp", op, ("col", vcid), self.rewrite(r))
+        if not (isinstance(r, (tuple, list)) and r
+                and r[0] == "const"):
+            raise DocIneligible(REASON_DOC_SHAPE,
+                                "numeric path vs non-constant")
+        if op not in ("eq", "ne"):
+            raise DocIneligible(
+                REASON_DOC_SHAPE,
+                "ordering compare over numeric path text (text "
+                "order != numeric order; CAST for numeric compare)")
+        v = _canon_int(r[1]) if k == "i" else _canon_float(r[1])
+        if v is None:
+            # the constant can never equal any present value's
+            # canonical text: False for present rows, NULL for
+            # absent — (col != col) IS exactly that (and == for ne)
+            c = ("col", vcid)
+            return ("cmp", "ne" if op == "eq" else "eq", c, c)
+        return ("cmp", op, ("col", vcid), ("const", v))
+
+    def _rewrite_in(self, node):
+        x, vals = node[1], node[2]
+        if not (isinstance(x, (tuple, list)) and x
+                and x[0] == "json"):
+            return None
+        vcid, k = self.resolve(x)
+        if k == "s":
+            return ("in", ("col", vcid), vals)
+        if any(v is None for v in vals):
+            # IN (..., NULL) needs 3VL only the interpreter has
+            raise DocIneligible(REASON_DOC_SHAPE, "NULL in IN list")
+        mapped = []
+        for v in vals:
+            m = _canon_int(v) if k == "i" else _canon_float(v)
+            if m is not None:
+                mapped.append(m)
+            # non-canonical text never equals a present value's text:
+            # dropping it is exactly the interpreted False
+        return ("in", ("col", vcid), mapped)
+
+
+def rewrite_doc(where, aggs: Sequence, blocks,
+                json_cols: Optional[set] = None):
+    """Rewrite a WHERE node + AggSpecs over shredded lanes.
+
+    Returns ``(where', aggs', refs)`` with refs =
+    {(cid, path): (vcid, kind)} for :func:`attach_shredded`.  Raises
+    :class:`DocIneligible` (typed) when any doc shape cannot be served
+    bit-identically — the caller falls back to the interpreted path."""
+    from ..ops.scan import AggSpec
+    rw = _Rewriter(blocks, json_cols)
+    new_where = rw.rewrite(where) if where is not None else None
+    new_aggs = []
+    for a in aggs:
+        e = a.expr
+        if e is not None and isinstance(e, (tuple, list)) and e and \
+                e[0] == "json":
+            vcid, k = rw.resolve(e)
+            if a.op == "count" or (a.op in ("min", "max")
+                                   and k == "s"):
+                # COUNT(path) counts presence for every kind; text
+                # MIN/MAX rides as dictionary codes and decodes
+                # through the scan-global dictionary downstream
+                new_aggs.append(AggSpec(a.op, ("col", vcid)))
+                continue
+            raise DocIneligible(
+                REASON_DOC_SHAPE,
+                f"{a.op} over bare {k} path text (CAST for numeric "
+                "aggregation)")
+        new_aggs.append(AggSpec(a.op, rw.rewrite(e))
+                        if e is not None else a)
+    return new_where, tuple(new_aggs), rw.refs
+
+
+# ---------------------------------------------------------------------------
+# Lane attachment
+# ---------------------------------------------------------------------------
+
+def _attach_clone(b):
+    """Shallow scan-lifetime clone of a block: lane DICTS are copied
+    (so derived vcid lanes never touch the shared original — cached
+    SstReader blocks are also read by compaction, point reads and
+    concurrent scans), every array and the shred/dict payloads are
+    shared by reference."""
+    from ..storage.columnar import ColumnarBlock
+    nb = ColumnarBlock(
+        n=b.n, schema_version=b.schema_version, key_hash=b.key_hash,
+        ht=b.ht, write_id=b.write_id, tombstone=b.tombstone,
+        pk=dict(b.pk), fixed=dict(b.fixed), varlen=dict(b.varlen),
+        unique_keys=b.unique_keys)
+    nb.keys_proven = b.keys_proven
+    nb._keys = b._keys
+    nb._key_thunk = b._key_thunk
+    nb._first_key = b._first_key
+    nb._last_key = b._last_key
+    nb.zmap = dict(b.zmap) if b.zmap else None
+    nb._vdicts = dict(b._vdicts)
+    # memo SHARED with the original: entries are keyed (cid, max_card)
+    # and vcids are process-stable, so a clone's vcid dictionaries are
+    # valid for every other clone of the same block
+    nb._vdict_cache = b._vdict_cache
+    nb.shred = b.shred
+    return nb
+
+
+def attach_shredded(blocks, refs: Dict[Tuple[int, tuple],
+                                       Tuple[int, str]]):
+    """Materialize shredded lanes as derived columns on scan-lifetime
+    CLONES of `blocks` (arrays shared, lane dicts copied — the
+    originals may live in SstReader caches that compaction and
+    concurrent scans also read, and a derived vcid lane must never be
+    visible there, let alone get serialized: vcids are process-local).
+
+    int/float paths land in ``fixed[vcid]`` (presence inverts into the
+    null mask) with their stored bounds as zone-map entries — zone
+    pruning then skips whole blocks for selective path predicates
+    exactly like scalar columns.  String paths land in
+    ``varlen[vcid]`` with the stored dict parts pre-seeded into
+    ``_vdicts``, so the scan-global dictionary plan forms with zero
+    row-string decodes.  Returns ``(clones, stats)`` with the coverage
+    stats ``LAST_DOC_STATS`` keeps."""
+    rows = 0
+    present_rows = 0
+    out = []
+    for b in blocks:
+        nb = _attach_clone(b)
+        for (cid, path), (vcid, kind) in refs.items():
+            ent = nb.shred[cid][path]
+            _k, payload, present, bounds = ent
+            rows += nb.n
+            present_rows += int(present.sum())
+            if kind == "s":
+                ends, heap, parts = payload
+                nb.varlen[vcid] = (ends, heap, ~present)
+                nb._vdicts[vcid] = parts
+                continue
+            nb.fixed[vcid] = (payload, ~present)
+            if bounds is not None:
+                if nb.zmap is None:
+                    nb.zmap = {}
+                nb.zmap[vcid] = (bounds[0], bounds[1])
+        out.append(nb)
+    cov = (present_rows / rows) if rows else 0.0
+    DOC_STATS["shredded_scans"] += 1
+    LAST_DOC_STATS.clear()
+    LAST_DOC_STATS.update({
+        "paths": len(refs), "rows": rows,
+        "present_rows": present_rows,
+        "coverage": round(cov, 4)})
+    return out, dict(LAST_DOC_STATS)
+
+
+def prepare_doc_scan(where, aggs: Sequence, blocks,
+                     json_cols: Optional[set] = None):
+    """rewrite + attach in one call — THE entry the monolithic,
+    streaming-feeding and bypass routes share, so eligibility and
+    attachment cannot drift between them.  Returns
+    ``(where', aggs', refs, attached_blocks)`` — callers MUST scan the
+    returned block clones, not the originals (which stay untouched);
+    raises DocIneligible."""
+    new_where, new_aggs, refs = rewrite_doc(where, aggs, blocks,
+                                            json_cols)
+    attached, _stats = attach_shredded(blocks, refs)
+    return new_where, new_aggs, refs, attached

@@ -1,0 +1,305 @@
+"""Write-side document shredding: JSON paths -> derived columnar lanes.
+
+Counterpart of ``yugabyte_db_tpu/docstore/shred.py``, byte for byte the
+same lanes and header entries.  "Columnar Formats for Schemaless
+LSM-based Document Stores" observes that most schemaless workloads are
+schema-ful in practice: the same few scalar paths appear in nearly
+every document.  At flush and compaction time this module infers that
+path schema from one block's JSON column values and shreds qualifying
+paths into derived per-path lanes that serialize THROUGH the v2 lane
+codec (delta/dict/RLE/const — storage/lane_codec.py) next to the
+block's ordinary columns:
+
+  kind "i"  int64 value lane + presence lane   (+ exact zone bounds)
+  kind "f"  float64 value lane + presence lane (+ zone bounds)
+  kind "s"  dictionary lane (sorted uniques + narrow codes, the exact
+            _dict_varlen_parts shape) + presence lane — bools shred as
+            their JSON text ("true"/"false"), which is also what the
+            interpreted extractor returns for them
+
+The raw JSON payload ALWAYS stays on disk unchanged: shredded lanes are
+an acceleration structure, never the source of truth, so any path that
+resists shredding simply isn't emitted and the interpreted row path
+serves it byte-identically to a build without this module.
+
+A path qualifies only when it is provably equivalent to the interpreted
+extractor over every row of the block:
+
+  - every present value is a scalar of ONE class (pure int, pure
+    float, or string/bool); JSON null and absence both map to NULL
+  - every ANCESTOR value is an object (or JSON null/absent) in every
+    row — a scalar-or-object mixed parent would make child paths
+    absent where the interpreted extractor can still descend (it
+    parses embedded JSON strings), so such subtrees stay raw
+  - arrays disqualify their path and everything below it
+  - coverage >= _MIN_COVERAGE of the block's rows (sparse paths are
+    not worth a lane) and the per-column path count fits
+    ``doc_shred_max_paths`` (highest coverage wins)
+"""
+from __future__ import annotations
+
+import json
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..storage import lane_codec
+from ..utils import flags
+
+#: nesting depth limit for inferred paths ($.a.b.c = depth 3)
+_MAX_DEPTH = 3
+#: minimum fraction of block rows where the path must be present
+_MIN_COVERAGE = 0.05
+#: dictionary-lane cardinality cap for "s" paths (uint16 codes)
+_MAX_DICT_CARD = 0xFFFF
+_I64_MIN, _I64_MAX = -(2 ** 63), 2 ** 63 - 1
+
+#: cumulative write-side accounting (chip_smoke.py reads it)
+DOC_WRITE_STATS = {"blocks": 0, "blocks_shredded": 0, "docs": 0,
+                   "paths_shredded": 0, "present_rows": 0}
+
+
+def _classify(v) -> Tuple[str, object]:
+    """(tag, normalized value) of one extracted JSON value.  Tags:
+    'i' int, 'f' float, 's' text (str, and bool as its JSON text),
+    'o' object, 'a' array, 'n' JSON null, 'x' unshreddable scalar."""
+    if v is None:
+        return "n", None
+    if isinstance(v, bool):          # before int: bool IS an int in py
+        return "s", "true" if v else "false"
+    if isinstance(v, int):
+        if _I64_MIN <= v <= _I64_MAX:
+            return "i", v
+        return "x", None
+    if isinstance(v, float):
+        # python's json accepts Infinity/-Infinity/NaN and dumps them
+        # with spellings no repr() round-trip can match — and NaN TEXT
+        # equality is true interpreted while float NaN never is.  Such
+        # documents disqualify their path (interpreted fallback).
+        if not np.isfinite(v):
+            return "x", None
+        return "f", v
+    if isinstance(v, str):
+        return "s", v
+    if isinstance(v, dict):
+        return "o", None
+    return "a", None                 # list (or exotic) — never shredded
+
+
+def _walk(obj: dict, row: int, prefix: tuple, depth: int,
+          paths: Dict[tuple, list]) -> None:
+    for k, v in obj.items():
+        if not isinstance(k, str):
+            continue
+        p = prefix + (k,)
+        tag, nv = _classify(v)
+        paths.setdefault(p, []).append((row, tag, nv))
+        if tag == "o" and depth + 1 < _MAX_DEPTH:
+            _walk(v, row, p, depth + 1, paths)
+
+
+def infer_paths(ends: np.ndarray, heap, null) -> Tuple[
+        Dict[tuple, list], int]:
+    """Per-path (row, tag, value) observations over one varlen JSON
+    lane + the number of parseable (non-null) documents."""
+    ends64 = np.asarray(ends, np.int64)
+    n = len(ends64)
+    hb = bytes(heap) if not isinstance(heap, bytes) else heap
+    nl = (np.asarray(null, bool) if null is not None
+          else np.zeros(n, bool))
+    paths: Dict[tuple, list] = {}
+    docs = 0
+    lo = 0
+    for i in range(n):
+        hi = int(ends64[i])
+        if nl[i]:
+            lo = hi
+            continue
+        raw = hb[lo:hi]
+        lo = hi
+        try:
+            doc = json.loads(raw)
+        except (ValueError, UnicodeDecodeError):
+            continue                 # interpreted extractor yields NULL
+        docs += 1
+        if isinstance(doc, dict):
+            _walk(doc, i, (), 0, paths)
+    return paths, docs
+
+
+def shred_lanes(ends: np.ndarray, heap, null,
+                max_paths: Optional[int] = None,
+                n_rows: Optional[int] = None) -> Dict[tuple, tuple]:
+    """Shred one JSON varlen lane into qualifying per-path lanes.
+
+    Returns {path tuple: (kind, payload, present bool[n], bounds)}:
+      kind "i": payload int64[n] (0 where absent), bounds (lo, hi) ints
+      kind "f": payload float64[n], bounds (lo, hi) floats or None
+      kind "s": payload (uniq_lens u8[k], uniq_heap u8, codes int32[n])
+                — the _dict_varlen_parts shape; bounds None
+    Empty dict when nothing qualifies."""
+    n = n_rows if n_rows is not None else len(ends)
+    if n == 0:
+        return {}
+    paths, docs = infer_paths(ends, heap, null)
+    if not docs:
+        return {}
+    if max_paths is None:
+        max_paths = int(flags.get("doc_shred_max_paths"))
+    min_present = max(1, int(np.ceil(_MIN_COVERAGE * n)))
+
+    def tags_of(p: tuple) -> set:
+        return {t for _, t, _ in paths.get(p, ())}
+
+    candidates: List[Tuple[int, tuple, str]] = []
+    for p, obs in paths.items():
+        tags = {t for _, t, _ in obs}
+        if "x" in tags or "a" in tags or "o" in tags:
+            continue
+        value_tags = tags - {"n"}
+        if len(value_tags) != 1:
+            continue                  # heterogeneous or all-null
+        kind = value_tags.pop()
+        # ancestor purity: every ancestor must be object-or-null in
+        # EVERY row it appears (the interpreted extractor descends
+        # through embedded JSON strings; a shredded child cannot)
+        if any(tags_of(p[:d]) - {"o", "n"} for d in range(1, len(p))):
+            continue
+        present = sum(1 for _, t, _ in obs if t != "n")
+        if present < min_present:
+            continue
+        candidates.append((present, p, kind))
+    candidates.sort(key=lambda c: (-c[0], c[1]))
+    out: Dict[tuple, tuple] = {}
+    for present_n, p, kind in candidates:
+        if len(out) >= max_paths:
+            break
+        lane = _build_lane(paths[p], kind, n)
+        if lane is not None:
+            out[p] = lane
+    DOC_WRITE_STATS["blocks"] += 1
+    DOC_WRITE_STATS["docs"] += docs
+    if out:
+        DOC_WRITE_STATS["blocks_shredded"] += 1
+        DOC_WRITE_STATS["paths_shredded"] += len(out)
+        DOC_WRITE_STATS["present_rows"] += int(
+            sum(int(lane[2].sum()) for lane in out.values()))
+    return out
+
+
+def _build_lane(obs: list, kind: str, n: int) -> Optional[tuple]:
+    present = np.zeros(n, bool)
+    if kind == "i":
+        vals = np.zeros(n, np.int64)
+        for row, t, v in obs:
+            if t == "i":
+                vals[row] = v
+                present[row] = True
+        pv = vals[present]
+        return ("i", vals, present, (int(pv.min()), int(pv.max())))
+    if kind == "f":
+        vals = np.zeros(n, np.float64)
+        for row, t, v in obs:
+            if t == "f":
+                vals[row] = v
+                present[row] = True
+        pv = vals[present]
+        lo, hi = float(pv.min()), float(pv.max())
+        bounds = (lo, hi) if np.isfinite(lo) and np.isfinite(hi) \
+            else None
+        return ("f", vals, present, bounds)
+    # "s": build a synthetic varlen lane (absent rows empty, matching
+    # the NULL-codes-as-"" convention) and dictionary-code it byte-wise
+    texts: List[bytes] = [b""] * n
+    for row, t, v in obs:
+        if t == "s":
+            texts[row] = v.encode()
+            present[row] = True
+    lens = np.array([len(t) for t in texts], np.int64)
+    s_ends = np.cumsum(lens).astype(np.uint32)
+    s_heap = b"".join(texts)
+    coded = lane_codec.varlen_code_rows(
+        s_ends, s_heap, ~present, max_card=_MAX_DICT_CARD,
+        sample_guard=False)
+    if coded is None:
+        return None                  # over-long rows / too many uniques
+    return ("s", coded, present, None)
+
+
+# ---------------------------------------------------------------------------
+# v2 block (de)serialization hooks — called from storage/columnar.py
+# (lazy import there, mirroring the native_hot idiom; this module may
+# import storage, never the reverse at module scope)
+# ---------------------------------------------------------------------------
+
+def serialize_shred(ends, heap, null, bufs: list,
+                    stats: Optional[dict]) -> Optional[list]:
+    """Shred one varlen JSON lane and append its buffers to the v2
+    payload stream.  Returns the msgpack-able meta entry list (one
+    [path, kind, val_meta, pres_meta, lo, hi] per path) or None when
+    nothing qualifies — flag-off/unqualified output is byte-identical
+    to a writer without this module."""
+    lanes = shred_lanes(ends, heap, null)
+    if not lanes:
+        return None
+    entries = []
+    for p in sorted(lanes):
+        kind, payload, present, bounds = lanes[p]
+        pstr = "$." + ".".join(p)
+        if kind == "s":
+            ulens, uheap, codes = payload
+            k = len(ulens)
+            cdt = np.dtype(np.uint8 if k <= 0x100 else np.uint16)
+            codes_n = np.ascontiguousarray(codes.astype(cdt))
+            ul = np.ascontiguousarray(ulens)
+            uh = np.ascontiguousarray(uheap)
+            bufs.extend([ul, uh, codes_n])
+            val_meta = {"k": k, "cdt": str(cdt),
+                        "parts": [ul.nbytes, uh.nbytes, codes_n.nbytes]}
+            post = ul.nbytes + uh.nbytes + codes_n.nbytes
+            lane_codec.tally(stats, "shred_dict", post, post, "dict")
+        else:
+            val_meta, parts, enc = lane_codec.encode_lane(payload)
+            bufs.extend(parts)
+            post = sum(x.nbytes for x in parts)
+            lane_codec.tally(stats, "shred_vals", payload.nbytes, post,
+                             enc)
+        pres_meta, pparts, penc = lane_codec.encode_lane(present)
+        bufs.extend(pparts)
+        ppost = sum(x.nbytes for x in pparts)
+        lane_codec.tally(stats, "shred_pres", present.nbytes, ppost,
+                         penc)
+        if stats is not None:
+            ent = stats.setdefault("shred_paths", {}).setdefault(
+                pstr, {"kind": kind, "bytes": 0, "present": 0,
+                       "rows": 0})
+            ent["bytes"] += post + ppost
+            ent["present"] += int(present.sum())
+            ent["rows"] += len(present)
+        lo, hi = bounds if bounds is not None else (None, None)
+        entries.append([list(p), kind, val_meta, pres_meta, lo, hi])
+    return entries
+
+
+def deserialize_shred(entries: list, fetch, decode_dict_varlen
+                      ) -> Dict[tuple, tuple]:
+    """Inverse of serialize_shred: consume the shred buffers (which
+    ride at the END of the v2 payload stream — readers that predate
+    this module simply never fetch them) and rebuild
+    {path: (kind, payload, present, bounds)}.  "s" payloads come back
+    as (ends, heap, (ulens, uheap, codes)) — the synthetic varlen lane
+    plus raw dict parts, ready for ColumnarBlock._vdicts."""
+    out: Dict[tuple, tuple] = {}
+    for path, kind, val_meta, pres_meta, lo, hi in entries:
+        if kind == "s":
+            ends, heap, parts = decode_dict_varlen(
+                {"cdt": val_meta["cdt"], "parts": val_meta["parts"]},
+                fetch)
+            payload = (ends, heap, parts)
+        else:
+            payload = lane_codec.decode_lane(val_meta, fetch)
+        present = np.asarray(
+            lane_codec.decode_lane(pres_meta, fetch), bool)
+        bounds = (lo, hi) if lo is not None else None
+        out[tuple(path)] = (kind, payload, present, bounds)
+    return out

@@ -7,16 +7,16 @@ the MVCC lanes, the encoded-key matrix (a lazy property on v2 keyless
 blocks, rebuilt through a bound key builder), and the on-disk
 formats, byte for byte the reference's:
 
-  v1  every lane dumped raw, keys matrix always inline (read only);
+  v1  every lane dumped raw, keys matrix always inline;
   v2  the keys matrix DROPPED when provably derivable from the pk
       columns + ht/write_id lanes, every lane through lane_codec's
-      "encode only if smaller" menu, per-block min/max zone maps
-      (read and written).
+      "encode only if smaller" menu, per-block min/max zone maps, and
+      the shredded document lanes of ``shred_cols`` (docstore/shred.py)
+      last in the payload stream.
 
 Headers are MessagePack, written by the port's own codec
 (storage/wire_pack.py).  Derived scan-lifetime lanes (column ids at or
-above ``DERIVED_COL_BASE``) and shredded document lanes refuse to
-serialize with ``NotPortedError``.  ``native_hot`` is the shared
+above ``DERIVED_COL_BASE``) are never written.  ``native_hot`` is the shared
 accessor of the host hot-path extension (docdb/hotpath.py), which hashes
 single keys (``fnv64_bytes``) and caches its per-block point-read
 helpers on the block (``_finder``, ``_extractors``)."""
@@ -27,7 +27,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..errors import NotPortedError
 from . import lane_codec, native_lib, wire_pack
 
 #: newest block format this build can read, and the one it writes;
@@ -46,8 +45,6 @@ KEY_REBUILD_STATS = {"rebuilds": 0, "rows": 0}
 
 _HASH_MULT = np.uint64(0x100000001B3)
 _HASH_OFF = np.uint64(0xCBF29CE484222325)
-
-_SHRED_ITEM = "ROADMAP.md queue 1 item 9b (document shredding)"
 
 
 def fnv64_rows(mat: np.ndarray) -> np.ndarray:
@@ -132,13 +129,18 @@ class ColumnarBlock:
                    from pk + ht/write_id (bulk-built blocks, v2 derived
                    blocks, and row-wise through slice/concat/gather):
                    the v2 writer then drops keys without re-verifying
+      shred        {json col id: {path tuple: (kind, payload, present,
+                   bounds)}}: the shredded document lanes read from a
+                   v2 block (docstore/shred.py).  The raw JSON lane stays
+                   the source of truth, so slice/concat do not carry
+                   them: compaction re-shreds from the raw payload
     """
 
     __slots__ = ("n", "schema_version", "key_hash", "ht", "write_id",
                  "tombstone", "pk", "fixed", "varlen", "unique_keys",
                  "zmap", "keys_proven", "_keys", "_key_thunk",
                  "_first_key", "_last_key", "_void_keys", "_vdicts",
-                 "_vdict_cache",
+                 "_vdict_cache", "shred",
                  # native point-read caches (storage/sst.py
                  # _native_finder, TableCodec._native_extractor), set
                  # with object.__setattr__; weakly referenceable
@@ -177,6 +179,7 @@ class ColumnarBlock:
         self._vdicts: Dict[int, tuple] = {}
         # dict_varlen() memo: (cid, max_card) -> (uniq, codes) | False
         self._vdict_cache: Dict[tuple, object] = {}
+        self.shred: Dict[int, Dict[tuple, tuple]] = {}
         if keys is not None:
             self.keys = keys
 
@@ -434,29 +437,59 @@ class ColumnarBlock:
         return out
 
     # --- serialization ---------------------------------------------------
-    def _refuse_derived_lanes(self) -> None:
-        derived = sorted(c for c in list(self.fixed) + list(self.varlen)
-                         if c >= DERIVED_COL_BASE)
-        if derived:
-            raise NotPortedError(
-                f"serializing derived lanes {derived}", _SHRED_ITEM)
-
-    def serialize_parts(self, key_builder=None,
-                        stats: Optional[dict] = None
+    def serialize_parts(self, version: int = 2, key_builder=None,
+                        stats: Optional[dict] = None,
+                        shred_cols: Tuple[int, ...] = ()
                         ) -> Tuple[bytes, List[object]]:
         """(header bytes, payload buffers): buffer-protocol objects
         (contiguous ndarrays / bytes) a writer streams to its file.
+        Derived lanes (column ids at or above ``DERIVED_COL_BASE``) are
+        skipped in both formats.
 
-        Writes the v2 format (the reference's default): the keys matrix
-        is dropped when ``key_builder(self)`` rebuilds it byte-identically
-        (or ``keys_proven``), every lane runs through lane_codec, and
-        zone maps and the boundary keys are embedded.  `stats` (optional)
-        accumulates per-lane encode accounting.  v1 blocks are read, not
-        written."""
-        self._refuse_derived_lanes()
-        return self._serialize_v2(key_builder, stats)
+        version=1 writes the pre-v2 bytes (every lane raw, keys inline).
+        version=2 drops the keys matrix when ``key_builder(self)``
+        rebuilds it byte-identically (or ``keys_proven``), runs every lane
+        through lane_codec, embeds zone maps and the boundary keys, and
+        shreds the JSON columns ``shred_cols`` (resolved by SstWriter
+        behind ``doc_shred_enabled``; () writes the pre-shred bytes).
+        `stats` (optional) accumulates per-lane encode accounting."""
+        if version == 1:
+            return self._serialize_v1()
+        if version != 2:
+            raise ValueError(f"unknown block format version {version}")
+        return self._serialize_v2(key_builder, stats, shred_cols)
 
-    def _serialize_v2(self, key_builder, stats: Optional[dict]
+    def _serialize_v1(self) -> Tuple[bytes, List[object]]:
+        bufs: List[object] = []
+
+        def ref(arr: np.ndarray) -> dict:
+            a = np.ascontiguousarray(arr)
+            bufs.append(a)
+            return {"dtype": str(arr.dtype), "shape": list(arr.shape),
+                    "len": a.nbytes}
+        keys = self.keys
+        meta = {
+            "n": self.n, "sv": self.schema_version, "uniq": self.unique_keys,
+            "keys": ref(keys) if keys is not None else None,
+            "key_hash": ref(self.key_hash), "ht": ref(self.ht),
+            "wid": ref(self.write_id), "tomb": ref(self.tombstone),
+            "pk": {str(k): ref(v) for k, v in self.pk.items()},
+            "fixed": {str(k): [ref(v), ref(m)]
+                      for k, (v, m) in self.fixed.items()
+                      if k < DERIVED_COL_BASE},
+            "varlen": {},
+        }
+        for k, (ends, heap, null) in self.varlen.items():
+            if k >= DERIVED_COL_BASE:
+                continue
+            bufs.append(heap)
+            meta["varlen"][str(k)] = [ref(ends), {"len": len(heap)},
+                                      ref(null)]
+        head = wire_pack.packb(meta)
+        return struct.pack("<I", len(head)) + head, bufs
+
+    def _serialize_v2(self, key_builder, stats: Optional[dict],
+                      shred_cols: Tuple[int, ...] = ()
                       ) -> Tuple[bytes, List[object]]:
         bufs: List[object] = []
 
@@ -500,10 +533,13 @@ class ColumnarBlock:
             "tomb": lane("tombstone", self.tombstone),
             "pk": {str(k): lane("pk", v) for k, v in self.pk.items()},
             "fixed": {str(k): [lane("fixed_vals", v), lane("fixed_null", m)]
-                      for k, (v, m) in self.fixed.items()},
+                      for k, (v, m) in self.fixed.items()
+                      if k < DERIVED_COL_BASE},
             "varlen": {},
         }
         for k, (ends, heap, null) in self.varlen.items():
+            if k >= DERIVED_COL_BASE:
+                continue
             dict_meta = self._dict_varlen_parts(ends, heap, null, bufs,
                                                 stats)
             if dict_meta is not None:
@@ -520,6 +556,22 @@ class ColumnarBlock:
             meta["varlen"][str(k)] = [lane("varlen_ends", ends),
                                       {"len": len(heap)},
                                       lane("varlen_null", null)]
+        # shredded document lanes ride LAST in the payload stream: a
+        # reader walks its known lanes by explicit byte lengths and
+        # reaches these buffers only through meta["shred"]
+        if shred_cols:
+            from ..docstore import shred as _doc_shred
+            shred_meta = {}
+            for cid in sorted(shred_cols):
+                vl = self.varlen.get(cid)
+                if vl is None:
+                    continue
+                entries = _doc_shred.serialize_shred(
+                    vl[0], vl[1], vl[2], bufs, stats)
+                if entries:
+                    shred_meta[str(cid)] = entries
+            if shred_meta:
+                meta["shred"] = shred_meta
         if keys is not None and self.n:
             meta["k0"] = keys[0].tobytes()
             meta["k1"] = keys[-1].tobytes()
@@ -617,13 +669,15 @@ class ColumnarBlock:
             if b is not None:
                 out[cid] = b
         for cid, (vals, null) in self.fixed.items():
+            if cid >= DERIVED_COL_BASE:
+                continue    # scan-lifetime lane: never persisted
             b = bounds(np.asarray(vals), np.asarray(null))
             if b is not None:
                 out[cid] = b
         return out
 
-    def serialize(self, key_builder=None) -> bytes:
-        head, bufs = self.serialize_parts(key_builder)
+    def serialize(self, version: int = 2, key_builder=None) -> bytes:
+        head, bufs = self.serialize_parts(version, key_builder)
         return head + b"".join(
             b if isinstance(b, bytes) else memoryview(b).cast("B")
             for b in bufs)
@@ -636,8 +690,8 @@ class ColumnarBlock:
         a buffer-backed `data` (a memoryview over the SST mapping) raw
         lanes are zero-copy READ-ONLY views; encoded v2 lanes decode
         into small owned arrays either way.  Blocks newer than
-        ``max_version`` raise ValueError; shredded lanes raise
-        NotPortedError."""
+        ``max_version`` raise ValueError.  Shredded document lanes come
+        back in ``shred``."""
         hlen = struct.unpack_from("<I", data)[0]
         meta = wire_pack.unpackb(data[4:4 + hlen])
         version = meta.get("v", 1)
@@ -646,9 +700,6 @@ class ColumnarBlock:
                 f"columnar block format v{version} is newer than this "
                 f"reader supports (<= v{max_version}); upgrade before "
                 "reading this SST")
-        if meta.get("shred"):
-            raise NotPortedError("reading shredded document lanes",
-                                 _SHRED_ITEM)
         pos = 4 + hlen
 
         def fetch(n):
@@ -699,6 +750,12 @@ class ColumnarBlock:
             null = take(nref)
             blk.varlen[int(k)] = (ends, heap, null)
         if version >= 2:
+            sh = meta.get("shred")
+            if sh:
+                from ..docstore import shred as _doc_shred
+                for cid_s, entries in sh.items():
+                    blk.shred[int(cid_s)] = _doc_shred.deserialize_shred(
+                        entries, fetch, cls._decode_dict_varlen)
             if derived:
                 blk.keys_proven = True     # write-time verify passed
             if meta.get("k0") is not None:

@@ -117,7 +117,8 @@ class LsmStore:
         # its pk + MVCC lanes (the codec's derive_keys); writers verify
         # key drops against it, readers re-derive lazily through it
         self.key_builder = key_builder
-        # JSON column ids to document-shred; SstWriter refuses them
+        # JSON column ids to document-shred (SstWriter gates them behind
+        # doc_shred_enabled and the v2 format)
         self.shred_cols = tuple(shred_cols or ())
         os.makedirs(directory, exist_ok=True)
         self._lock = threading.RLock()

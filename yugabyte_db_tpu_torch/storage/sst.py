@@ -18,18 +18,22 @@ File layout:
 Row blocks are shared-prefix-compressed KV lists (``_encode_block``);
 a row block's columnar sidecar comes from the writer's
 ``columnar_builder``, and a columnar-only block's rows come back through
-the reader's ``row_decoder``.  The writer writes v2 blocks (the
-reference's default format); the reader reads v1 and v2.  Point reads
+the reader's ``row_decoder``.  The writer writes the format that
+``sst_format_version`` names (v2 by default, v1 the pre-v2 bytes), and
+shreds the JSON columns it is given behind ``doc_shred_enabled``; the
+reader reads both.  With ``encrypt_data_at_rest`` on, the whole image
+is encrypted under the active universe key (utils/encryption.py), and
+the reader decrypts either envelope.  Point reads
 run in the host extension (csrc/host_hot.c): ``point_reader`` builds the
 whole-SST ``PointReader`` (bloom, block bisect, MVCC walk and row
 materialization for a key list in one call) up to
 ``native_point_reader_max_rows`` rows, and ``point_find`` walks one
-block through its ``BlockFinder``.  Document shredding and encrypted
-files raise ``NotPortedError``.
+block through its ``BlockFinder``.
 """
 from __future__ import annotations
 
 import bisect
+import io
 import mmap
 import os
 import struct
@@ -40,8 +44,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..docdb.hotpath import POINT_READ_STATS
-from ..errors import NotPortedError
-from ..utils import flags
+from ..utils import encryption, flags
 from ..utils.hybrid_time import ENCODED_SIZE, DocHybridTime
 from . import native_lib, wire_pack
 from .columnar import (SUPPORTED_FORMAT_VERSION, ColumnarBlock, fnv64_keys,
@@ -53,10 +56,13 @@ DEFAULT_BLOCK_ROWS = 4096
 _HT_MARKER = 0x05          # dockv ValueType.kHybridTime
 _HT_SUFFIX = ENCODED_SIZE + 1
 
-#: the reference's encrypted-file envelopes (utils/encryption.py)
-_ENC_MAGICS = (b"YBTPUENC", b"YBTPUEN2")
 
-_ENC_ITEM = "ROADMAP.md queue 1 item 9c (encryption at rest)"
+
+def resolve_format_version() -> int:
+    """THE writer-side gate for the on-disk block format: v2 only when
+    ``sst_format_version`` is exactly 2; anything else writes the v1
+    bytes.  Every SstWriter resolves through here."""
+    return 2 if int(flags.get("sst_format_version")) == 2 else 1
 
 
 def _native_finder(cb: ColumnarBlock):
@@ -250,30 +256,37 @@ class SstWriter:
     (the write releases the GIL, so a pipelined producer overlaps its
     gathers with the IO) and, with ``sync_every_bytes``, fsyncs from
     the writer's thread as it goes; otherwise blocks are buffered and
-    written by ``finish``.  ``shred_cols`` (the codec's JSON value
-    columns) must be empty while ``doc_shred_enabled`` is on: the
-    reference's v2 writer shreds them then, which is not ported; with
-    the flag off both write the pre-shred bytes."""
+    written by ``finish``.  ``format_version`` None resolves
+    ``sst_format_version`` once, here; ``shred_cols`` (the codec's JSON
+    value columns) are shredded in v2 files while ``doc_shred_enabled``
+    is on, also resolved once, here, so a flag flip mid-write never
+    mixes formats in one file.  With ``encrypt_data_at_rest`` on, stream
+    mode is off: ``finish`` encrypts the whole image."""
 
     def __init__(self, path: str, block_rows: int = DEFAULT_BLOCK_ROWS,
                  columnar_builder: Optional[ColumnarBuilderFn] = None,
                  stream_columnar: bool = False,
                  sync_every_bytes: Optional[int] = None,
+                 format_version: Optional[int] = None,
                  key_builder=None, shred_cols=None):
-        if shred_cols and flags.get("doc_shred_enabled"):
-            raise NotPortedError(
-                f"an SST writer shredding JSON columns {list(shred_cols)}",
-                "ROADMAP.md queue 1 item 9 (document shredding)")
         self.path = path
         self.block_rows = block_rows
         self.columnar_builder = columnar_builder
-        # callable(cb) -> rebuilt keys matrix | None; when the rebuild
-        # byte-matches, the block serializes WITHOUT its keys
-        self.key_builder = key_builder
+        self._fmt = (resolve_format_version() if format_version is None
+                     else (2 if format_version == 2 else 1))
+        # v2 only: callable(cb) -> rebuilt keys matrix | None; when the
+        # rebuild byte-matches, the block serializes WITHOUT its keys
+        self.key_builder = key_builder if self._fmt == 2 else None
+        # v2 only: the JSON column ids to document-shred
+        self.shred_cols: tuple = ()
+        if shred_cols and self._fmt == 2 and \
+                flags.get("doc_shred_enabled"):
+            self.shred_cols = tuple(shred_cols)
         #: per-lane encode accounting accumulated across this file's
         #: blocks ({"lanes": {lane: {pre_bytes, post_bytes, encodings}}})
         self.lane_stats: dict = {}
-        self._stream = stream_columnar
+        self._stream = stream_columnar and \
+            not flags.get("encrypt_data_at_rest")
         self._sync_every = sync_every_bytes
         self._synced_to = 0
         self._sf = None
@@ -306,7 +319,8 @@ class SstWriter:
 
     def _write_columnar(self, f, cb: ColumnarBlock,
                         e: BlockIndexEntry) -> None:
-        head, bufs = cb.serialize_parts(self.key_builder, self.lane_stats)
+        head, bufs = cb.serialize_parts(self._fmt, self.key_builder,
+                                        self.lane_stats, self.shred_cols)
         e.col_offset = f.tell()
         e.col_length = len(head)
         f.write(head)
@@ -383,8 +397,11 @@ class SstWriter:
             "bloom_offset": bloom_off, "bloom_length": len(braw),
             "index_offset": idx_off, "index_length": len(iraw),
             "frontier": self._frontier,
-            "format_version": SUPPORTED_FORMAT_VERSION,
         }
+        if self._fmt != 1:
+            # v1 files keep the pre-v2 footer: the key appears only
+            # once the format moved
+            meta["format_version"] = self._fmt
         fraw = wire_pack.packb(meta)
         f.write(fraw)
         f.write(struct.pack("<I", len(fraw)))
@@ -428,7 +445,11 @@ class SstWriter:
         index: List[BlockIndexEntry] = []
         row_hashes: List[bytes] = []
         tmp = self.path + ".tmp"
-        with open(tmp, "wb", buffering=1 << 20) as f:
+        # encryption needs the whole image in memory; otherwise stream
+        # straight to the file
+        encrypting = flags.get("encrypt_data_at_rest")
+        with (io.BytesIO() if encrypting
+              else open(tmp, "wb", buffering=1 << 20)) as f:
             # data blocks (an empty region for a columnar-only block)
             for blk, cb in zip(self._blocks, self._col_only):
                 if cb is not None:
@@ -457,8 +478,17 @@ class SstWriter:
                 if cb is not None:
                     self._write_columnar(f, cb, e)
             self._finish_tail(f, index, row_hashes)
-            f.flush()
-            os.fsync(f.fileno())
+            if encrypting:
+                raw = f.getvalue()
+            else:
+                f.flush()
+                os.fsync(f.fileno())
+        if encrypting:
+            raw = encryption.KEY_MANAGER.encrypt_file_bytes(raw)
+            with open(tmp, "wb") as out:
+                out.write(raw)
+                out.flush()
+                os.fsync(out.fileno())
         os.replace(tmp, self.path)
         self._blocks = []
         self._col_only = []
@@ -479,13 +509,17 @@ class SstReader:
         self.row_decoder = row_decoder
         self.key_builder = key_builder
         # mmap: pages fault in as blocks are touched; arrays read with
-        # read_columnar stay views that keep the mapping alive
+        # read_columnar stay views that keep the mapping alive.  An
+        # encrypted file decrypts whole into memory.
         with open(path, "rb") as f:
-            head = f.read(len(_ENC_MAGICS[0]))
-            if head in _ENC_MAGICS:
-                raise NotPortedError(f"reading the encrypted SST {path}",
-                                     _ENC_ITEM)
-            self._data = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+            head = f.read(len(encryption.MAGIC))
+            if head in (encryption.MAGIC, encryption.MAGIC_V2):
+                f.seek(0)
+                self._data = encryption.KEY_MANAGER.decrypt_file_bytes(
+                    f.read())
+            else:
+                self._data = mmap.mmap(f.fileno(), 0,
+                                       access=mmap.ACCESS_READ)
         d = self._data
         if d[-8:] != MAGIC:
             raise ValueError(f"{path}: bad SST magic")

@@ -196,11 +196,36 @@ REGISTRY.define(
     "memtables await the background flush executor, the apply thread "
     "drains one inline instead of freezing another (bounded memory).")
 REGISTRY.define(
+    "encrypt_data_at_rest", False,
+    "Encrypt SST files with the active universe key.")
+REGISTRY.define(
+    "sst_format_version", 2,
+    "On-disk columnar SST block format version (default 2). "
+    "2 = v2 blocks: keys matrix dropped when derivable from "
+    "pk+ht/write_id, per-lane delta/dict/RLE encodings "
+    "(encode only if smaller), per-block min/max zone maps. "
+    "1 = the pre-v2 format, byte-identical to the old "
+    "writer. Readers handle both versions side by side; "
+    "storage/sst.py resolve_format_version is the ONLY "
+    "writer gate, so no writer can emit v2 while this is 1.")
+REGISTRY.define(
     "doc_shred_enabled", True,
-    "Shred JSON document paths into derived columnar lanes at SST write "
-    "time (the reference's docstore/).  Shredding is not ported, so an "
-    "SST writer given JSON columns refuses while this is on; off, it "
-    "writes the reference's pre-shred bytes.")
+    "Shred scalar JSON document paths ($.a.b) into derived per-path "
+    "columnar v2 lanes at flush and compaction time (docstore/): "
+    "int/float values become fixed lanes with presence bitmaps and "
+    "per-block zone maps, string/bool values dictionary-code, and doc "
+    "predicates and aggregates push down to the device like scalar "
+    "columns.  The raw JSON payload always stays on disk, so paths "
+    "that resist shredding (heterogeneous types, arrays, low coverage) "
+    "fall back to the interpreted row path with the same answer.  Off "
+    "= the v2 writer emits the pre-shred bytes and every doc predicate "
+    "runs interpreted.")
+REGISTRY.define(
+    "doc_shred_max_paths", 16,
+    "Per-column cap on shredded document paths per block; when a "
+    "block's inferred path schema is wider, the highest-coverage paths "
+    "win and the rest stay in the raw JSON payload (interpreted "
+    "fallback).")
 REGISTRY.define(
     "native_point_reader_max_rows", 4_000_000,
     "SSTs above this row count skip the eager whole-SST PointReader "
